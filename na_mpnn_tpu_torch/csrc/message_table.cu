@@ -1,0 +1,233 @@
+// Message MLP with the neighbour-table gather inside, for Hopper (sm_90a),
+// fp32, forward, in three modes.
+//
+// Replaces the TPU kernel na_mpnn_tpu/ops/message_kernels.py::
+// _message_table_fwd_call (_fwd_kernel_table, message_kernels.py:314).
+// Per edge row e = (node n, neighbour slot k), with j = eidx[e] local to the
+// structure b = n / L and table row b*L + j:
+//   enc modes: x = h_V[n]@Wa + e_in[e]@Wb + table[b*L+j] + b1
+//   dec mode:  x = h_V[n]@Wa + m1d[e]*(e_in[e]@Wb)
+//                  + mbw[e]*A[b*L+j] + m1d[e]*B[b*L+j] + b1,   table = [A | B]
+//   m = W3 . gelu(W2 . gelu(x) + b2) + b3          (exact erf GELU)
+//   enc-node: out[n] = sum_k mask_att[e]*m / 30     -> [N, H]
+//   enc-edge: out[e] = m                            -> [N*K, H]
+//   dec:      out[n] = sum_k m / 30 (no mask)       -> [N, H]
+// The TPU kernel maps a whole structure's table into VMEM and selects rows
+// with a one-hot matmul, which is why it needs L % 32 == 0. Here each block
+// reads its rows by their flat global index, so any L is taken.
+//
+// What bounds it on the card: operations. Three H x H products per edge
+// (2*3*H*H = 98 kFLOP at H = 128) against about 1 KB per edge of e_in,
+// gathered table row and output (fp32, outside the tensor cores in this
+// first version).
+// Design: one block of 256 threads per tile of T = 64/K nodes (64 edge rows).
+// The tile's activations stay in shared memory ([64, H], 32 KB at H = 128)
+// through all three products; the weights stream through shared memory in
+// chunks of 32 rows; each thread owns 8 rows x H/32 columns of every product
+// in registers. h_V@Wa is computed once per node and added to its K rows,
+// b1 once per row, and the K-reduction of the agg modes runs in fp32 over
+// the rows in shared memory.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 64;  // edge rows per block: 8 warps x 8 rows
+constexpr int kKC = 32;    // weight rows per shared-memory chunk
+constexpr int kEncNode = 0, kEncEdge = 1, kDec = 2;
+
+struct Params {
+  const float* h_V;
+  const float* e_in;
+  const float* table;
+  const long long* eidx;
+  const float* m_att;
+  const float* mbw;
+  const float* wa;
+  const float* wb;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  const float* w3;
+  const float* b3;
+  float* out;
+  int N, K, L, T;
+};
+
+__device__ __forceinline__ float gelu(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// acc[i][c] = sum_k As[ty + 8i][k] * W[k][tx*CPT + c]; W is [H, H] ([in, out]).
+template <int H>
+__device__ __forceinline__ void gemm(const float* As,
+                                     const float* __restrict__ W, float* Ws,
+                                     float (&acc)[8][H / 32]) {
+  constexpr int CPT = H / 32;
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  for (int k0 = 0; k0 < H; k0 += kKC) {
+    for (int idx = tid; idx < kKC * H; idx += kThreads)
+      Ws[idx] = __ldg(W + (size_t)k0 * H + idx);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kKC; ++kk) {
+      float b[CPT];
+      if constexpr (CPT % 4 == 0) {
+#pragma unroll
+        for (int c4 = 0; c4 < CPT / 4; ++c4) {
+          float4 v = reinterpret_cast<const float4*>(Ws + kk * H + tx * CPT)[c4];
+          b[4 * c4] = v.x;
+          b[4 * c4 + 1] = v.y;
+          b[4 * c4 + 2] = v.z;
+          b[4 * c4 + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) b[c] = Ws[kk * H + tx * CPT + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float a = As[(ty + 8 * i) * H + k0 + kk];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(a, b[c], acc[i][c]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+message_table_kernel(Params p, int mode) {
+  extern __shared__ __align__(16) float smem[];
+  float* Xs = smem;               // [kRows][H] activations
+  float* Ws = Xs + kRows * H;     // [kKC][H] weight chunk
+  float* AI = Ws + kKC * H;       // [T][H] h_V @ Wa of the tile's nodes
+  float* HV = AI + p.T * H;       // [T][H] h_V of the tile's nodes
+  constexpr int CPT = H / 32;
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const int n0 = blockIdx.x * p.T;
+  const int nodes = min(p.T, p.N - n0);
+  const int rows = nodes * p.K;
+  const size_t e0 = (size_t)n0 * p.K;
+
+  for (int idx = tid; idx < p.T * H; idx += kThreads)
+    HV[idx] = idx < nodes * H ? p.h_V[(size_t)n0 * H + idx] : 0.f;
+  for (int idx = tid; idx < kRows * H; idx += kThreads)
+    Xs[idx] = idx < rows * H ? p.e_in[e0 * H + idx] : 0.f;
+  __syncthreads();
+  for (int idx = tid; idx < p.T * H; idx += kThreads) {
+    const int t = idx / H, h = idx % H;
+    float s = 0.f;
+    for (int k = 0; k < H; ++k) s = fmaf(HV[t * H + k], __ldg(p.wa + k * H + h), s);
+    AI[idx] = s;
+  }
+
+  float acc[8][CPT];
+  gemm<H>(Xs, p.wb, Ws, acc);  // e_in @ Wb (its first barrier publishes AI)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 8 * i;
+    if (r >= rows) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) Xs[r * H + tx * CPT + c] = 0.f;
+      continue;
+    }
+    const size_t e = e0 + r;
+    const int t = r / p.K;
+    const size_t grow = (size_t)((n0 + t) / p.L) * p.L + p.eidx[e];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int h = tx * CPT + c;
+      float x;
+      if (mode == kDec) {
+        const float m1 = p.m_att[e], mb = p.mbw[e];
+        const float* tr = p.table + grow * 2 * H;
+        x = AI[t * H + h] + m1 * acc[i][c] + mb * tr[h] + m1 * tr[H + h] + p.b1[h];
+      } else {
+        x = AI[t * H + h] + acc[i][c] + p.table[grow * H + h] + p.b1[h];
+      }
+      Xs[r * H + h] = gelu(x);
+    }
+  }
+  __syncthreads();
+  gemm<H>(Xs, p.w2, Ws, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 8 * i;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int h = tx * CPT + c;
+      Xs[r * H + h] = gelu(acc[i][c] + p.b2[h]);
+    }
+  }
+  __syncthreads();
+  gemm<H>(Xs, p.w3, Ws, acc);
+
+  if (mode == kEncEdge) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 8 * i;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int h = tx * CPT + c;
+        p.out[(e0 + r) * H + h] = acc[i][c] + p.b3[h];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 8 * i;
+    const float w = r >= rows ? 0.f : (mode == kEncNode ? p.m_att[e0 + r] : 1.f);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int h = tx * CPT + c;
+      Xs[r * H + h] = (acc[i][c] + p.b3[h]) * w;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nodes * H; idx += kThreads) {
+    const int t = idx / H, h = idx % H;
+    float s = 0.f;
+    for (int k = 0; k < p.K; ++k) s += Xs[(t * p.K + k) * H + h];
+    p.out[(size_t)(n0 + t) * H + h] = s / 30.0f;
+  }
+}
+
+template <int H>
+int launch(const Params& p, int mode, cudaStream_t stream) {
+  const size_t smem = (size_t)(kRows + kKC + 2 * p.T) * H * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      message_table_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.N + p.T - 1) / p.T;
+  message_table_kernel<H><<<blocks, kThreads, smem, stream>>>(p, mode);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int message_table_forward(
+    int mode, const float* h_V, const float* e_in, const float* table,
+    const long long* eidx, const float* m_att, const float* mbw,
+    const float* wa, const float* wb, const float* b1, const float* w2,
+    const float* b2, const float* w3, const float* b3, float* out, int N,
+    int K, int L, int H, cudaStream_t stream) {
+  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec)
+    return (int)cudaErrorInvalidValue;
+  Params p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1,
+           w2,  b2,   w3,    b3,   out,   N,   K,  L, kRows / K};
+  switch (H) {
+    case 32: return launch<32>(p, mode, stream);
+    case 64: return launch<64>(p, mode, stream);
+    case 128: return launch<128>(p, mode, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,322 @@
+"""PDB structure parsing for inference (the port's own copy of the JAX
+package's ``data/pdb.py`` on its pure-Python reader).
+
+* residues are those with a CA (protein resnames) or C1' (nucleic resnames)
+  atom, in file order;
+* coordinates go into a 65-atom table (``xyz_65``) and the 16-atom backbone
+  frame (``X``);
+* polymer masks derive from backbone-atom completeness (RNA subtracted from
+  DNA, since RNA has every DNA backbone atom);
+* ``rna_mask_for_token_conversion`` marks residues with an O2' atom;
+* non-polymer heavy atoms become ligand context (Y / Y_t / Y_m).
+
+mmCIF input and the native tokenizer are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gzip
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .. import constants
+
+# Residue-name classification: the same sets as the JAX package's
+# data/pdb.py (a reconstruction of ProDy's protein / nucleic / water
+# flags). Residues outside them (e.g. HYP, PSU, 5MC) are not polymer
+# residues at inference: their heavy atoms become ligand context.
+PROTEIN_RESNAMES = {
+    "ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
+    "LEU", "LYS", "MET", "PHE", "PRO", "SER", "THR", "TRP", "TYR", "VAL",
+    # ProDy nonstdAA
+    "ASX", "GLX", "CSO", "HIP", "HSD", "HSE", "HSP", "MSE", "SEC", "SEP",
+    "TPO", "PTR", "XLE", "XAA", "UNK", "PYL",
+}
+NUCLEIC_RESNAMES = {
+    # nucleotides / deoxynucleotides
+    "DA", "DC", "DG", "DT", "DU", "DI", "A", "C", "G", "T", "U", "I",
+    # nucleobases
+    "GUN", "ADE", "CYT", "THY", "URA",
+    # nucleoside phosphates
+    "AMP", "ADP", "ATP", "CMP", "CDP", "CTP", "GMP", "GDP", "GTP",
+    "TMP", "TDP", "TTP", "UMP", "UDP", "UTP",
+}
+WATER_RESNAMES = {"HOH", "DOD", "WAT", "TIP", "TIP2", "TIP3", "TIP4", "H2O",
+                  "OH2"}
+
+
+@dataclasses.dataclass
+class PDBAtom:
+    record: str
+    serial: int
+    name: str
+    altloc: str
+    resname: str
+    chain: str
+    resnum: int
+    icode: str
+    xyz: np.ndarray
+    occupancy: float
+    bfactor: float
+    element: str
+    line: str
+
+
+def _parse_atom_line(line: str) -> Optional[PDBAtom]:
+    try:
+        name = line[12:16].strip()
+        altloc = line[16]
+        resname = line[17:20].strip()
+        chain = line[21]
+        resnum = int(line[22:26])
+        icode = line[26].strip()
+        xyz = np.array([float(line[30:38]), float(line[38:46]), float(line[46:54])],
+                       dtype=np.float32)
+        occ_str = line[54:60].strip()
+        occ = float(occ_str) if occ_str else 1.0
+        bf_str = line[60:66].strip()
+        bf = float(bf_str) if bf_str else 0.0
+        element = line[76:78].strip().upper() if len(line) >= 78 else ""
+        if not element:
+            # Fall back on the atom-name convention: first alpha character.
+            for ch in line[12:16]:
+                if ch.isalpha():
+                    element = ch.upper()
+                    break
+        serial_str = line[6:11].strip()
+        serial = int(serial_str) if serial_str else 0
+        return PDBAtom(line[:6].strip(), serial, name, altloc, resname, chain,
+                       resnum, icode, xyz, occ, bf, element, line.rstrip("\n"))
+    except (ValueError, IndexError):
+        return None
+
+
+def read_pdb_atoms(path: str) -> List[PDBAtom]:
+    """Read the first model's ATOM/HETATM records (altloc ' ' or 'A',
+    occupancy > 0) with the pure-Python reader."""
+    opener = gzip.open if path.endswith(".gz") else open
+    atoms = []
+    with opener(path, "rt") as f:
+        for line in f:
+            rec = line[:6]
+            if rec.startswith("ENDMDL") and atoms:
+                break
+            if not (rec.startswith("ATOM") or rec.startswith("HETATM")):
+                continue
+            a = _parse_atom_line(line)
+            if a is None:
+                continue
+            if a.altloc not in (" ", "A"):
+                continue
+            if a.occupancy <= 0:
+                continue
+            atoms.append(a)
+    return atoms
+
+
+def _res_key(a: PDBAtom) -> Tuple[str, int, str]:
+    return (a.chain, a.resnum, a.icode)
+
+
+def parse_pdb(
+    input_path: str,
+    chains: Optional[List[str]] = None,
+    parse_na_only: bool = False,
+    na_shared_tokens: bool = True,
+    load_residues_with_missing_atoms: bool = False,
+) -> Dict:
+    """Parse a PDB into the inference feature contract.
+
+    Returns a dict of numpy arrays mirroring the reference parse_PDB output
+    (reference inference/data_utils.py:360-405) plus the raw backbone /
+    ligand atom records for the PDB writer.
+    """
+    low = input_path.lower()
+    if low.endswith((".cif", ".cif.gz", ".mmcif", ".mmcif.gz")):
+        raise NotImplementedError(
+            f"{input_path}: mmCIF input is not ported yet (ROADMAP Queue 1, "
+            "'mmCIF and the native tokenizer')")
+    atoms = read_pdb_atoms(input_path)
+    # Chain indices enumerate chains by first appearance in the FULL file —
+    # they keep their values under chain subsetting, as ProDy chindices do
+    # (the reference's chain_labels are getChindices of a selection).
+    chain_to_idx: Dict[str, int] = {}
+    for a in atoms:
+        if a.chain not in chain_to_idx:
+            chain_to_idx[a.chain] = len(chain_to_idx)
+    if chains:
+        atoms = [a for a in atoms if a.chain in chains]
+
+    def is_protein(a): return a.resname in PROTEIN_RESNAMES
+    def is_nucleic(a): return a.resname in NUCLEIC_RESNAMES
+    def is_water(a): return a.resname in WATER_RESNAMES
+
+    if parse_na_only:
+        atoms = [a for a in atoms if is_nucleic(a)]
+
+    macro_atoms = [a for a in atoms if is_protein(a) or is_nucleic(a)]
+    other_atoms = [a for a in atoms
+                   if not (is_protein(a) or is_nucleic(a) or is_water(a))]
+    water_atoms = [a for a in atoms if is_water(a)]
+
+    # Residue list: reference atoms (CA for protein, C1' for nucleic) in file
+    # order define the residue index space.
+    ref_keys: List[Tuple[str, int, str]] = []
+    ref_meta = []  # (chain, resnum, icode, resname)
+    seen = set()
+    for a in macro_atoms:
+        if (is_protein(a) and a.name == "CA") or (is_nucleic(a) and a.name == "C1'"):
+            k = _res_key(a)
+            if k in seen:
+                continue
+            seen.add(k)
+            ref_keys.append(k)
+            ref_meta.append((a.chain, a.resnum, a.icode, a.resname))
+    ref_index = {k: i for i, k in enumerate(ref_keys)}
+    L = len(ref_keys)
+    if L == 0:
+        raise ValueError(f"{input_path}: no protein/nucleic residues found")
+
+    # Inference parses the backbone only: the 65-wide table holds the 16-atom
+    # backbone ordering in its leading columns, as the reference's
+    # backbone-mode atom_order does (inference/data_utils.py:154-165).
+    atom_order = {a: i for i, a in enumerate(constants.BACKBONE_ATOMS)}
+    xyz_65 = np.zeros([L, constants.NUM_ALL_ATOMS, 3], np.float32)
+    xyz_65_m = np.zeros([L, constants.NUM_ALL_ATOMS], np.int32)
+    backbone_atoms: List[List[PDBAtom]] = [[] for _ in range(L)]
+    bb_names = set(constants.BACKBONE_ATOMS)
+    for a in macro_atoms:
+        i = ref_index.get(_res_key(a))
+        if i is None:
+            continue
+        j = atom_order.get(a.name)
+        if j is not None:
+            xyz_65[i, j] = a.xyz
+            xyz_65_m[i, j] = 1
+        if a.name in bb_names and ((is_protein(a) and a.name in constants.PROTEIN_BACKBONE_ATOMS)
+                                   or (is_nucleic(a) and a.name in constants.RNA_BACKBONE_ATOMS)):
+            backbone_atoms[i].append(a)
+
+    bb_idx = [atom_order[a] for a in constants.BACKBONE_ATOMS]
+    X = xyz_65[:, bb_idx]
+    X_m = xyz_65_m[:, bb_idx]
+
+    chain_letters = [m[0] for m in ref_meta]
+    resnums = np.array([m[1] for m in ref_meta], np.int32)
+    icodes = [m[2] for m in ref_meta]
+    resnames = [m[3] for m in ref_meta]
+
+    chain_labels = np.array([chain_to_idx[c] for c in chain_letters], np.int32)
+
+    protein_bb65 = [atom_order[a] for a in constants.PROTEIN_BACKBONE_ATOMS]
+    dna_bb65 = [atom_order[a] for a in constants.DNA_BACKBONE_ATOMS]
+    rna_bb65 = [atom_order[a] for a in constants.RNA_BACKBONE_ATOMS]
+
+    if load_residues_with_missing_atoms:
+        protein_mask = np.array([r in constants.PROTEIN_RESTYPES for r in resnames], np.int32)
+        dna_mask = np.array([r in constants.DNA_RESTYPES for r in resnames], np.int32)
+        rna_mask = np.array([r in constants.RNA_RESTYPES for r in resnames], np.int32)
+    else:
+        protein_mask = np.prod(xyz_65_m[:, protein_bb65], axis=-1).astype(np.int32)
+        rna_mask = np.prod(xyz_65_m[:, rna_bb65], axis=-1).astype(np.int32)
+        # RNA has every DNA backbone atom, so subtract (reference
+        # inference/data_utils.py:314-318).
+        dna_mask = (np.prod(xyz_65_m[:, dna_bb65], axis=-1).astype(np.int32) - rna_mask)
+
+    rna_mask_for_token_conversion = xyz_65_m[:, atom_order["O2'"]].astype(np.int32)
+    mask = protein_mask + dna_mask + rna_mask
+
+    pt = constants.POLYTYPE_TO_INT
+    R_polymer_type = (protein_mask * pt["PP"] + dna_mask * pt["DNA"]
+                      + rna_mask * pt["RNA"]
+                      + (1 - protein_mask - dna_mask - rna_mask) * pt["UNK"]).astype(np.int64)
+
+    table = constants.restype_to_int_table(na_shared_tokens)
+    S = np.zeros(L, np.int32)
+    for i, rn in enumerate(resnames):
+        if protein_mask[i] == 1:
+            unk = "UNK"
+        elif dna_mask[i] == 1:
+            unk = "DX"
+        elif rna_mask[i] == 1:
+            unk = "RX"
+        else:
+            unk = "UNK"
+        S[i] = table.get(rn, table[unk])
+
+    # Ligand / context atoms: non-polymer, non-water heavy atoms.
+    if other_atoms:
+        Y = np.stack([a.xyz for a in other_atoms]).astype(np.float32)
+        Y_t = np.array([constants.ELEMENT_DICT.get(a.element, 0) for a in other_atoms],
+                       np.int32)
+        keep = (Y_t != 1) & (Y_t != 0)
+        Y, Y_t = Y[keep], Y_t[keep]
+        Y_m = np.ones_like(Y_t)
+        other_atoms = [a for a, k in zip(other_atoms, keep) if k]
+        if Y.shape[0] == 0:
+            Y = np.zeros([1, 3], np.float32)
+            Y_t = np.zeros([1], np.int32)
+            Y_m = np.zeros([1], np.int32)
+    else:
+        Y = np.zeros([1, 3], np.float32)
+        Y_t = np.zeros([1], np.int32)
+        Y_m = np.zeros([1], np.int32)
+
+    na_chain_letters = [chain_letters[i] for i in range(L)
+                        if dna_mask[i] or rna_mask[i]]
+
+    chain_list = sorted(set(chain_letters))
+    mask_c = [np.array([c == cl for cl in chain_letters], bool) for c in chain_list]
+
+    return {
+        "X": X, "X_m": X_m, "mask": mask,
+        "Y": Y, "Y_t": Y_t, "Y_m": Y_m,
+        "R_idx": resnums, "chain_labels": chain_labels,
+        "chain_letters": chain_letters, "na_chain_letters": na_chain_letters,
+        "protein_mask": protein_mask, "dna_mask": dna_mask, "rna_mask": rna_mask,
+        "rna_mask_for_token_conversion": rna_mask_for_token_conversion,
+        "R_polymer_type": R_polymer_type, "S": S,
+        "xyz_65": xyz_65, "xyz_65_m": xyz_65_m,
+        "mask_c": mask_c, "chain_list": chain_list,
+        "icodes": icodes, "resnames": resnames,
+        "backbone_atoms": backbone_atoms, "other_atoms": other_atoms,
+        "water_atoms": water_atoms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Writer
+# ---------------------------------------------------------------------------
+
+def _format_atom_line(a: PDBAtom, resname: str, bfactor: float, serial: int) -> str:
+    name = a.name
+    if len(name) < 4 and len(a.element) < 2:
+        name = " " + name
+    # PDB format has a single chain column; multi-char mmCIF chain IDs are
+    # truncated to their first character here (the FASTA/npz outputs keep
+    # the full ID).
+    return (f"{a.record:<6}{serial:>5} {name:<4}{a.altloc if a.altloc != ' ' else ' '}"
+            f"{resname:>3} {(a.chain + ' ')[:1]}{a.resnum:>4}{a.icode if a.icode else ' '}   "
+            f"{a.xyz[0]:8.3f}{a.xyz[1]:8.3f}{a.xyz[2]:8.3f}{a.occupancy:6.2f}"
+            f"{bfactor:6.2f}          {a.element:>2}")
+
+
+def write_backbone_pdb(path: str, parsed: Dict, new_resnames: List[str],
+                       bfactors: np.ndarray):
+    """Write the backbone with redesigned residue names and per-residue
+    confidence B-factors, then the ligand context atoms (reference
+    inference/run.py:475-491)."""
+    lines = []
+    serial = 1
+    for i, res_atoms in enumerate(parsed["backbone_atoms"]):
+        for a in res_atoms:
+            lines.append(_format_atom_line(a, new_resnames[i], float(bfactors[i]), serial))
+            serial += 1
+    for a in parsed["other_atoms"]:
+        lines.append(_format_atom_line(a, a.resname, 0.0, serial))
+        serial += 1
+    lines.append("TER")
+    lines.append("END")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

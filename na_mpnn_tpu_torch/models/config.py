@@ -1,0 +1,86 @@
+"""Model configuration: the same fields and defaults as the JAX package's
+``models/config.py::ModelConfig``, with PyTorch kernel choices."""
+from __future__ import annotations
+
+import dataclasses
+
+from .. import constants
+
+KERNEL_CHOICES = ("auto", "cuda", "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Hyperparameters of the NA-MPNN network (defaults: the released models).
+
+    ``kernels``: ``auto`` launches the CUDA kernel for CUDA tensors and uses
+    the plain PyTorch version for CPU tensors; ``cuda`` requires CUDA tensors;
+    ``torch`` always takes the plain versions (for comparisons only).
+    """
+    node_features: int = 128
+    edge_features: int = 128
+    hidden_dim: int = 128
+    num_encoder_layers: int = 3
+    num_decoder_layers: int = 3
+    k_neighbors: int = 32
+    vocab: int = constants.VOCAB_SIZE          # 33
+    num_letters: int = constants.NUM_LETTERS   # 33
+    num_rbf: int = 16
+    num_positional_embeddings: int = 16
+    max_relative_feature: int = 32
+    dropout: float = 0.1
+    protein_augment_eps: float = 0.0
+    dna_augment_eps: float = 0.0
+    rna_augment_eps: float = 0.0
+    decode_protein_first: bool = False
+    na_ref_atom: str = "C1'"
+    include_pred_na_N: bool = True
+    atom_table: str = "backbone"
+    num_polytypes: int = constants.NUM_POLYTYPES  # 6
+    compute_dtype: str = "float32"
+    kernels: str = "auto"
+    rbf_mode: str = "classed"
+    gp_knn_key_chunk: int = 0
+    gp_rbf_row_chunk: int = 0
+    remat: str = "none"
+
+    def __post_init__(self):
+        if self.kernels not in KERNEL_CHOICES:
+            raise ValueError(f"kernels={self.kernels!r}: choose from "
+                             f"{KERNEL_CHOICES}")
+
+    @property
+    def atom_dict(self):
+        return (constants.ATOM_DICT if self.atom_table == "backbone"
+                else constants.ALL_ATOM_ORDER)
+
+    @property
+    def total_atoms(self) -> int:
+        return len(self.atom_dict) + 1 + (1 if self.include_pred_na_N else 0)
+
+    @property
+    def edge_in(self) -> int:
+        return self.num_positional_embeddings + self.num_rbf * self.total_atoms ** 2
+
+    @property
+    def node_in(self) -> int:
+        return self.num_polytypes
+
+    @property
+    def na_ref_atom_idx(self) -> int:
+        return self.atom_dict[self.na_ref_atom]
+
+
+def check_supported(cfg: ModelConfig):
+    """Raise for the options this port does not run yet (ROADMAP Queue 1)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the bf16 trunk comes with "
+            "training (ROADMAP Queue 1, 'bf16 trunk')")
+    if cfg.atom_table != "backbone" or not cfg.include_pred_na_N:
+        raise NotImplementedError(
+            "only the 18-atom backbone frame (atom_table='backbone', "
+            "include_pred_na_N=True) is ported")
+    if cfg.rbf_mode != "classed":
+        raise NotImplementedError(
+            "rbf_mode='dense' needs ops/rbf_edge.py (ROADMAP Queue 2)")

@@ -1,0 +1,114 @@
+"""Geometric featurisation: virtual atoms, kNN graph, RBF edge features.
+
+Port of the JAX package's ``models/features.py`` (deterministic path). The
+kNN graph and the RBF edge projection run on the kernels of ``ops/knn.py``
+and ``ops/rbf_classed.py``; ``knn_graph`` and ``all_pair_rbf`` here are the
+plain versions the kernels are held to.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import constants
+from ..ops.knn import knn_graph_plain as knn_graph  # noqa: F401 (public name)
+from .config import ModelConfig
+from .modules import layer_norm, take_rows
+
+RBF_D_MIN = 2.0
+RBF_D_MAX = 22.0
+
+
+def get_virtual_atom(a1, a2, a3, w_a, w_b, w_c):
+    """Place a virtual atom from three anchors: Cb from (N, CA, C), pseudo
+    base-N from (O4', C1', C2')."""
+    b = a2 - a1
+    c = a3 - a2
+    a = torch.linalg.cross(b, c, dim=-1)
+    return w_a * a + w_b * b + w_c * c + a2
+
+
+def rbf_embed(D, num_rbf):
+    """Radial basis expansion over [2, 22] A with ``num_rbf`` bins."""
+    mu = torch.linspace(RBF_D_MIN, RBF_D_MAX, num_rbf, dtype=D.dtype,
+                        device=D.device)
+    sigma = (RBF_D_MAX - RBF_D_MIN) / num_rbf
+    z = (D[..., None] - mu) / sigma
+    return torch.exp(-z * z)
+
+
+def all_pair_rbf(X_aug, E_idx, X_m_aug, num_rbf):
+    """All-pair-atom RBF features per edge, ``[B,L,K,A*A*num_rbf]``, masked
+    by atom presence on both endpoints."""
+    B, L, A, _ = X_aug.shape
+    K = E_idx.shape[2]
+    X_g = take_rows(X_aug.reshape(B, L, A * 3), E_idx).reshape(B, L, K, A, 3)
+    d = X_aug[:, :, None, :, None, :] - X_g[:, :, :, None, :, :]
+    D = torch.sqrt((d * d).sum(-1) + 1e-6)                   # [B,L,K,A,A]
+    RBF = rbf_embed(D, num_rbf)                              # [B,L,K,A,A,R]
+    X_m_g = take_rows(X_m_aug, E_idx)                        # [B,L,K,A]
+    RBF = RBF * X_m_aug[:, :, None, :, None, None] * X_m_g[:, :, :, None, :, None]
+    return RBF.reshape(B, L, K, A * A * num_rbf)
+
+
+def build_augmented_atoms(X, X_m, batch, cfg: ModelConfig):
+    """Append virtual Cb and virtual base-N to the atom frame. Returns
+    (``X_aug [B,L,18,3]``, ``X_m_aug [B,L,18]``, ``X_ref [B,L,3]``), where
+    ``X_ref`` = CA + C1' (disjoint support: the residue centre)."""
+    ad = cfg.atom_dict
+    Cb = get_virtual_atom(X[:, :, ad["N"]], X[:, :, ad["CA"]], X[:, :, ad["C"]],
+                          *constants.CB_WEIGHTS)
+    X_ref = X[:, :, ad["CA"]] + X[:, :, cfg.na_ref_atom_idx]
+    N_na = get_virtual_atom(X[:, :, ad["O4'"]], X[:, :, ad["C1'"]],
+                            X[:, :, ad["C2'"]], *constants.NA_N_WEIGHTS)
+    protein_mask = batch["protein_mask"].to(X.dtype)
+    na_mask = (batch["rna_mask"] + batch["dna_mask"]).to(X.dtype)
+    X_aug = torch.cat([X, Cb[:, :, None], N_na[:, :, None]], dim=-2)
+    X_m_aug = torch.cat([X_m.to(X.dtype), protein_mask[..., None],
+                         na_mask[..., None]], dim=-1)
+    return X_aug, X_m_aug, X_ref
+
+
+def features_apply(p, cfg: ModelConfig, batch, plain: bool = False):
+    """(``V [B,L,node_features]``, ``E [B,L,K,edge_features]``,
+    ``E_idx [B,L,K]``, ``mask_attend [B,L,K]``), deterministic.
+
+    ``plain=True`` takes the plain versions of the kNN and RBF kernels."""
+    from ..ops.knn import knn_graph as knn_kernel
+    from ..ops.rbf_classed import (rbf_edge_features_classed,
+                                   rbf_edge_features_classed_plain)
+
+    X, X_m = batch["X"], batch["X_m"]
+    mask = batch["mask"].to(X.dtype)
+    X_aug, X_m_aug, X_ref = build_augmented_atoms(X, X_m, batch, cfg)
+    knn = knn_graph if plain else knn_kernel
+    _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
+
+    # Relative position, same-chain indicator and neighbour mask through one
+    # packed row gather (all values exact in the float type: ints < 2^24).
+    R_idx = batch["R_idx"].long()
+    chain_labels = batch["chain_labels"].long()
+    scalar_tab = torch.stack([R_idx.to(X.dtype), chain_labels.to(X.dtype), mask],
+                             dim=-1)
+    g = take_rows(scalar_tab, E_idx)                            # [B,L,K,3]
+    offset = R_idx[:, :, None] - g[..., 0].long()
+    E_chains = (chain_labels[:, :, None] == g[..., 1].long()).long()
+    mask_attend = mask[:, :, None] * g[..., 2]
+
+    # Positional block folded through the projection:
+    # (table[d] + b) @ W_pos == (table @ W_pos)[d] + b @ W_pos.
+    n_pos = cfg.num_positional_embeddings
+    W = p["edge_embedding"]["w"]
+    mrf = cfg.max_relative_feature
+    d = torch.clamp(offset + mrf, 0, 2 * mrf)
+    d = d * E_chains + (1 - E_chains) * (2 * mrf + 1)
+    pos_table = p["positional"]["w"] @ W[:n_pos]               # [66,H]
+    E_pos = pos_table[d]
+    if "b" in p["positional"]:
+        E_pos = E_pos + p["positional"]["b"] @ W[:n_pos]
+    rbf = rbf_edge_features_classed_plain if plain else rbf_edge_features_classed
+    E = layer_norm(p["norm_edges"], E_pos + rbf(X_aug, X_m_aug, E_idx, W[n_pos:]))
+
+    V = F.one_hot(batch["R_polymer_type"].long(), cfg.num_polytypes).to(X.dtype)
+    V = layer_norm(p["norm_nodes"], V @ p["node_embedding"]["w"])
+    return V, E, E_idx, mask_attend

@@ -1,0 +1,345 @@
+"""NA-MPNN inference: encoder, teacher-forced scoring, unconditional probs
+and autoregressive sampling.
+
+Port of the JAX package's ``models/mpnn.py`` (deterministic paths). Every
+encoder layer and every parallel-decoder layer runs its message MLP on the
+message-table kernel (``ops/message_kernels.py``), whatever L is; the layer
+norms, feed-forward blocks and the node-level products around the kernel
+(``h_V @ wc``, ``h_S @ ws``, ``h_V @ wv``) are plain PyTorch. The
+autoregressive sampler is plain PyTorch, as it is plain XLA in the JAX
+package.
+
+Sampling draws the decode order as ``argsort((chain_mask + 1e-4) * |randn|)``
+and tokens as ``argmax(log(p + 1e-30) + Gumbel)`` (what
+``jax.random.categorical`` computes), with noise from a ``torch.Generator``;
+``sample`` also takes the Gumbel noise ``[L,B,num_letters]`` (indexed by
+decode step) and ``batch["decoding_order"]`` from the caller.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import constants
+from ..ops import message_kernels as mk
+from .config import ModelConfig, check_supported
+from .features import features_apply
+from .modules import (MESSAGE_SCALE, _message_tail, _split_w1, gather_nodes,
+                      init_dec_layer, init_enc_layer, init_layer_norm,
+                      init_linear, layer_norm, linear, pff_apply, take_rows)
+
+# Token ints zeroed out during sampling (UNK, DX, RX, MAS, PAD).
+_OMIT_ALWAYS = [
+    constants.RESTYPE_TO_INT["UNK"], constants.RESTYPE_TO_INT["DX"],
+    constants.RESTYPE_TO_INT["RX"], constants.RESTYPE_TO_INT["MAS"],
+    constants.RESTYPE_TO_INT["PAD"],
+]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(seed: int, cfg: ModelConfig, device="cuda",
+                dtype=torch.float32):
+    """Random parameters (xavier-uniform weights, zero biases, unit-normal
+    token embedding) drawn with numpy from ``seed``, in the JAX layout."""
+    from ..params import from_jax_params
+
+    rng = np.random.default_rng(seed)
+    H = cfg.hidden_dim
+    tree = {
+        "features": {
+            "positional": init_linear(rng, 2 * cfg.max_relative_feature + 2,
+                                      cfg.num_positional_embeddings),
+            "node_embedding": init_linear(rng, cfg.node_in, cfg.node_features,
+                                          bias=False),
+            "norm_nodes": init_layer_norm(cfg.node_features),
+            "edge_embedding": init_linear(rng, cfg.edge_in, cfg.edge_features,
+                                          bias=False),
+            "norm_edges": init_layer_norm(cfg.edge_features),
+        },
+        "W_v": init_linear(rng, cfg.node_features, H),
+        "W_e": init_linear(rng, cfg.edge_features, H),
+        "W_s": {"emb": rng.standard_normal((cfg.vocab, H)).astype(np.float32)},
+        "W_out": init_linear(rng, H, cfg.num_letters),
+        "encoder": [init_enc_layer(rng, H, 2 * H)
+                    for _ in range(cfg.num_encoder_layers)],
+        "decoder": [init_dec_layer(rng, H, 3 * H)
+                    for _ in range(cfg.num_decoder_layers)],
+    }
+    return from_jax_params(tree, device=device, dtype=dtype)
+
+
+def embed_tokens(p, S):
+    return p["W_s"]["emb"][S.long()]
+
+
+# ---------------------------------------------------------------------------
+# Decode-order machinery
+# ---------------------------------------------------------------------------
+
+def sample_decoding_order(chain_mask, generator: torch.Generator):
+    """Random decode order: stable ascending argsort of
+    ``(chain_mask + 1e-4) * |randn|`` (fixed positions decode first)."""
+    randn = torch.randn(chain_mask.shape, generator=generator,
+                        dtype=chain_mask.dtype, device=chain_mask.device)
+    return torch.argsort((chain_mask + 0.0001) * randn.abs(), dim=-1,
+                         stable=True)
+
+
+def decode_rank(decoding_order):
+    """``rank[i]`` = step at which position i decodes."""
+    return torch.argsort(decoding_order, dim=-1)
+
+
+def autoregressive_edge_masks(decoding_order, E_idx, mask):
+    """(``mask_bw``, ``mask_fw``) ``[B,L,K,1]``: edge j -> i carries sequence
+    context iff j decodes strictly before i."""
+    rank = decode_rank(decoding_order)
+    attend = (take_rows(rank, E_idx) < rank[:, :, None]).to(mask.dtype)[..., None]
+    mask_1d = mask[:, :, None, None]
+    return mask_1d * attend, mask_1d * (1.0 - attend)
+
+
+# ---------------------------------------------------------------------------
+# Encoder and parallel decoder
+# ---------------------------------------------------------------------------
+
+def _plain(cfg: ModelConfig, X) -> bool:
+    """True when the plain versions run instead of the kernel wrappers."""
+    if cfg.kernels == "cuda" and not X.is_cuda:
+        raise ValueError("kernels='cuda' needs the batch on a CUDA device")
+    return cfg.kernels == "torch"
+
+
+@torch.no_grad()
+def encode(params, cfg: ModelConfig, batch):
+    """Features + encoder stack -> (``h_V [B,L,H]``, ``h_E [B,L,K,H]``,
+    ``E_idx [B,L,K]``). Edge tensors stay flat ``[N*K,H]`` through the
+    stack; each layer makes two message-table launches."""
+    check_supported(cfg)
+    plain = _plain(cfg, batch["X"])
+    mask = batch["mask"].to(batch["X"].dtype)
+    V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
+                                              plain)
+    h_V = linear(params["W_v"], V)
+    h_E = linear(params["W_e"], E)
+    B, L, K = E_idx.shape
+    N, H = B * L, h_V.shape[-1]
+    h_E2 = h_E.reshape(N * K, H)
+    eidx2 = E_idx.reshape(N * K)
+    mask_att2 = mask_attend.reshape(N * K)
+    for p in params["encoder"]:
+        h_V2 = h_V.reshape(N, H)
+        dh = mk.message_agg_table_flat(p, h_V2, h_E2, h_V2 @ p["W1"]["w"][2 * H:],
+                                       eidx2, mask_att2, K=K, L=L, plain=plain)
+        h_V = layer_norm(p["norm1"], h_V + dh.view(B, L, H))
+        h_V = layer_norm(p["norm2"], h_V + pff_apply(p["dense"], h_V))
+        h_V = mask[..., None] * h_V
+        h_V2 = h_V.reshape(N, H)
+        m = mk.message_edge_table_flat(p, h_V2, h_E2, h_V2 @ p["W11"]["w"][2 * H:],
+                                       eidx2, K=K, L=L, plain=plain)
+        h_E2 = layer_norm(p["norm3"], h_E2 + m)
+    return h_V, h_E2.view(B, L, K, H), E_idx
+
+
+def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw):
+    """Teacher-forced decoder stack on the message-table kernel (dec mode):
+    per layer a 2H node table ``[h_S@ws + h_V@wv - h_Venc@wv | h_Venc@wv]``
+    replaces the ``[B,L,K,3H]`` causal context."""
+    plain = _plain(cfg, h_V)
+    B, L, K = E_idx.shape
+    N, H = B * L, h_V.shape[-1]
+    h_V_enc = h_V
+    h_E2 = h_E.reshape(N * K, H)
+    eidx2 = E_idx.reshape(N * K)
+    m1d2 = mask[:, :, None].expand(B, L, K).reshape(N * K)
+    mbw2 = mask_bw.reshape(N * K)
+    for p in params["decoder"]:
+        (_, _, ws, wv), _ = _split_w1(p, H)
+        venc = h_V_enc @ wv
+        nodes2 = torch.cat([h_S @ ws + h_V @ wv - venc, venc], dim=-1)
+        dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
+                                       nodes2.reshape(N, 2 * H), eidx2, m1d2,
+                                       mbw2, K=K, L=L, plain=plain)
+        h_V = layer_norm(p["norm1"], h_V + dh.view(B, L, H))
+        h_V = layer_norm(p["norm2"], h_V + pff_apply(p["dense"], h_V))
+        h_V = mask[..., None] * h_V
+    return h_V
+
+
+@torch.no_grad()
+def score(params, cfg: ModelConfig, batch, decoding_order=None,
+          generator: Optional[torch.Generator] = None):
+    """Teacher-forced scoring of ``batch["S"]`` under a given or random
+    decode order -> {"S", "log_probs", "decoding_order"}."""
+    mask = batch["mask"].to(batch["X"].dtype)
+    chain_mask = mask * batch["chain_mask"].to(mask.dtype)
+    h_V, h_E, E_idx = encode(params, cfg, batch)
+    if decoding_order is None:
+        decoding_order = sample_decoding_order(chain_mask, generator)
+    mask_bw, _ = autoregressive_edge_masks(decoding_order, E_idx, mask)
+    h_S = embed_tokens(params, batch["S"])
+    h_V = _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw)
+    logits = linear(params["W_out"], h_V)
+    return {"S": batch["S"], "log_probs": torch.log_softmax(logits, dim=-1),
+            "decoding_order": decoding_order}
+
+
+@torch.no_grad()
+def unconditional_probs(params, cfg: ModelConfig, batch):
+    """Decoder with zero sequence context everywhere: the parallel decoder
+    with ``h_S = 0`` and no backward edge (``mask_bw = 0``), so each layer
+    sees ``mask_1d * cat(h_E, 0, h_Venc_j)``."""
+    mask = batch["mask"].to(batch["X"].dtype)
+    h_V, h_E, E_idx = encode(params, cfg, batch)
+    zeros_bw = torch.zeros(E_idx.shape + (1,), dtype=h_V.dtype, device=h_V.device)
+    h_V = _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask,
+                            torch.zeros_like(h_V), zeros_bw)
+    logits = linear(params["W_out"], h_V)
+    return {"log_probs": torch.log_softmax(logits, dim=-1)}
+
+
+# ---------------------------------------------------------------------------
+# Autoregressive sampling
+# ---------------------------------------------------------------------------
+
+def _pair_bias_step(pair_bias_ctx, t, S):
+    """Neighbour pair bias at decode positions ``t [B]`` from the adjacency
+    diagonal: ``u[t]*P[a, S[t+1]] + l[t-1]*P[S[t-1], a]``."""
+    P, u_diag = pair_bias_ctx["pair_bias_AA"], pair_bias_ctx["u_diag"]
+    B, L = S.shape
+    if u_diag.dim() == 1:
+        u_diag = u_diag.expand(B, -1)
+    b_idx = torch.arange(B, device=S.device)
+    t_next = torch.clamp(t + 1, max=L - 1)
+    t_prev = torch.clamp(t - 1, min=0)
+    S_next = S[b_idx, t_next]
+    S_prev = S[b_idx, t_prev]
+    u_t = u_diag[b_idx, torch.clamp(t, max=L - 2)] * (t < L - 1)
+    l_t = u_diag[b_idx, torch.clamp(t - 1, min=0)] * (t > 0)
+    fwd = u_t[:, None] * P[:, S_next].T
+    bwd = l_t[:, None] * P[S_prev, :]
+    return fwd + bwd
+
+
+@torch.no_grad()
+def sample(params, cfg: ModelConfig, batch, generator: Optional[torch.Generator],
+           num_samples: int = 1, temperature=0.1, bias=None,
+           pair_bias_ctx=None, gumbel=None):
+    """Autoregressive sampling -> {"S", "sampling_probs", "log_probs",
+    "decoding_order"}, all ``[num_samples, L, ...]``. The structure is
+    encoded once and tiled to the decode batch; each replica draws its own
+    decode order unless ``batch["decoding_order"]`` is given. ``bias`` is
+    ``[L,nl]`` or ``[num_samples,L,nl]``; ``gumbel`` (optional) is the noise
+    ``[L, num_samples, nl]`` of each decode step."""
+    L = batch["S"].shape[-1]
+    B = num_samples
+    h_V0, h_E, E_idx = encode(params, cfg, batch)
+    h_V0 = h_V0[0].expand(B, *h_V0.shape[1:])
+    h_E = h_E[0].expand(B, *h_E.shape[1:])
+    E_idx = E_idx[0].expand(B, *E_idx.shape[1:])
+    mask = batch["mask"][0].to(h_V0.dtype).expand(B, L)
+    chain_mask = mask * batch["chain_mask"][0].to(h_V0.dtype).expand(B, L)
+    S_true = batch["S"][0].long().expand(B, L)
+    if "decoding_order" in batch:
+        decoding_order = batch["decoding_order"].expand(B, L)
+    else:
+        decoding_order = sample_decoding_order(chain_mask, generator)
+    if bias is not None:
+        bias = bias.expand(B, L, cfg.num_letters)
+    return _sample_scan(params, cfg, h_V0, h_E, E_idx, mask, chain_mask,
+                        S_true, decoding_order, temperature, bias,
+                        pair_bias_ctx, generator, gumbel)
+
+
+def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
+                 S_true, decoding_order, temperature, bias, pair_bias_ctx,
+                 generator, gumbel):
+    """Decode loop over a prepared batch (every operand ``[B, ...]``): one
+    position per step and row, in decode order. The per-layer static edge
+    terms (edge features, encoder-node context, b1) are computed once; per
+    step only the decoded-sequence embeddings and the mid-stack node states
+    of the neighbours are gathered."""
+    B, L = mask.shape
+    nl = cfg.num_letters
+    H = cfg.hidden_dim
+    n_dec = cfg.num_decoder_layers
+    dtype, device = h_V0.dtype, h_V0.device
+    mask_bw, mask_fw = autoregressive_edge_masks(decoding_order, E_idx, mask)
+    if bias is None:
+        bias = torch.zeros((B, L, nl), dtype=dtype, device=device)
+    bias = bias.to(dtype)
+    omit = torch.zeros(nl, dtype=dtype, device=device)
+    omit[_OMIT_ALWAYS] = 1.0
+    mask_1d = mask[:, :, None, None]
+
+    w_splits = [_split_w1(p, H) for p in params["decoder"]]
+    statics = []
+    for l, ((_, wb, _, wv), b1) in enumerate(w_splits):
+        venc = gather_nodes(h_V0 @ wv, E_idx)
+        coeff = mask_1d if l == 0 else mask_fw
+        statics.append(mask_1d * (h_E @ wb) + coeff * venc + b1)
+    statics = torch.stack(statics, dim=2)          # [B,L,n_dec,K,H]
+
+    h_S = torch.zeros((B, L, H), dtype=dtype, device=device)
+    h_V_mid = torch.zeros((B, L, (n_dec - 1) * H), dtype=dtype, device=device)
+    S_cur = torch.full((B, L), nl - 1, dtype=torch.int64, device=device)
+    S_out = torch.zeros((B, L), dtype=torch.int64, device=device)
+    probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
+    log_probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
+    b_idx = torch.arange(B, device=device)
+
+    for step in range(L):
+        t = decoding_order[:, step]                          # [B]
+        E_t = E_idx[b_idx, t]                                # [B,K]
+        bw = mask_bw[b_idx, t]                               # [B,K,1]
+        s_nb = bw * take_rows(h_S, E_t)                      # [B,K,H]
+        mid_nb = bw * take_rows(h_V_mid, E_t)
+        static_t = statics[b_idx, t]                         # [B,n_dec,K,H]
+        h_V_t = h_V0[b_idx, t]                               # [B,H]
+        mask_t = mask[b_idx, t]
+        mid_out = []
+        for l, p in enumerate(params["decoder"]):
+            (wa, _, ws, wv), _ = w_splits[l]
+            x = (h_V_t @ wa)[:, None, :] + s_nb @ ws + static_t[:, l]
+            if l >= 1:
+                x = x + mid_nb[..., (l - 1) * H:l * H] @ wv
+            dh = _message_tail(p, x).sum(dim=1) / MESSAGE_SCALE
+            h_V_t = layer_norm(p["norm1"], h_V_t + dh)
+            h_V_t = layer_norm(p["norm2"], h_V_t + pff_apply(p["dense"], h_V_t))
+            h_V_t = mask_t[:, None] * h_V_t
+            if l + 1 <= n_dec - 1:
+                mid_out.append(h_V_t)
+
+        logits = linear(params["W_out"], h_V_t)               # [B,nl]
+        log_probs = torch.log_softmax(logits, dim=-1)
+        total_bias = bias[b_idx, t]
+        if pair_bias_ctx is not None:
+            total_bias = total_bias + _pair_bias_step(pair_bias_ctx, t, S_cur)
+        probs = torch.softmax((logits + total_bias) / temperature, dim=-1)
+        probs = probs * (1.0 - omit)
+        probs_sample = probs / probs.sum(dim=-1, keepdim=True)
+        if gumbel is not None:
+            g = gumbel[step].to(dtype)
+        else:
+            u = torch.rand((B, nl), generator=generator, dtype=dtype,
+                           device=device)
+            g = -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+        S_t = torch.argmax(torch.log(probs_sample + 1e-30) + g, dim=-1)
+        cm_t = chain_mask[b_idx, t]
+        S_t = torch.where(cm_t > 0, S_t, S_true[b_idx, t])
+
+        h_S[b_idx, t] = embed_tokens(params, S_t).to(dtype)
+        if mid_out:
+            h_V_mid[b_idx, t] = torch.cat(mid_out, dim=-1)
+        S_cur[b_idx, t] = S_t
+        S_out[b_idx, t] = S_t
+        probs_out[b_idx, t] = cm_t[:, None] * probs_sample
+        log_probs_out[b_idx, t] = cm_t[:, None] * log_probs
+
+    return {"S": S_out, "sampling_probs": probs_out,
+            "log_probs": log_probs_out, "decoding_order": decoding_order}

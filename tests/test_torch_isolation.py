@@ -1,0 +1,76 @@
+"""The port stands alone: ``na_mpnn_tpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of the JAX package ``na_mpnn_tpu``."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import na_mpnn_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "na_mpnn_tpu_torch")
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any import of jax now fails
+sys.modules["na_mpnn_tpu"] = None    # and so does any of the JAX package
+import na_mpnn_tpu_torch
+for m in pkgutil.walk_packages(na_mpnn_tpu_torch.__path__, "na_mpnn_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+from na_mpnn_tpu_torch.cli.run import cli_entry
+from na_mpnn_tpu_torch.models import ModelConfig, init_params
+from na_mpnn_tpu_torch.params import save_checkpoint_npz
+out = sys.argv[1]
+chip_smoke.write_synthetic_pdb(out + "/s.pdb", (("A", "protein", 16),
+                                                ("B", "dna", 8), ("C", "rna", 6)))
+save_checkpoint_npz(out + "/w.npz", init_params(0, ModelConfig(), device="cpu"))
+for mode in ("design", "score"):
+    cli_entry(["--mode", mode, "--checkpoint_na_mpnn", out + "/w.npz",
+               "--pdb_path", out + "/s.pdb", "--out_folder", out + "/" + mode,
+               "--device", "cpu", "--stats_format", "npz"])
+leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+          or m == "na_mpnn_tpu" or m.startswith("na_mpnn_tpu.")]
+assert leaked == ["jax", "na_mpnn_tpu"], leaked   # only the blocked stubs
+print("ISOLATED")
+"""
+
+
+def test_port_runs_its_cli_with_jax_unimportable(tmp_path):
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    r = subprocess.run([sys.executable, "-c", _SCRIPT, str(tmp_path)],
+                       capture_output=True, text=True, cwd=ROOT, env=env,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ISOLATED" in r.stdout
+    assert os.path.exists(tmp_path / "design" / "seqs" / "s.fa")
+    assert os.path.exists(tmp_path / "score" / "stats" / "s.npz")
+
+
+def _imported_modules(path):
+    """Absolute module names a source file imports (relative imports stay
+    inside the package and are skipped)."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(PKG, "__init__.py")]
+    for m in pkgutil.walk_packages(na_mpnn_tpu_torch.__path__,
+                                   "na_mpnn_tpu_torch."):
+        spec = m.module_finder.find_spec(m.name.rsplit(".", 1)[-1])
+        files.append(spec.origin)
+    assert len(files) > 15
+    bad = []
+    for f in files:
+        for name in _imported_modules(f):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "na_mpnn_tpu"):
+                bad.append((os.path.relpath(f, ROOT), name))
+    assert bad == []
