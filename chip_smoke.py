@@ -22,7 +22,19 @@ CUDA toolkit. Phases, each of which raises on failure:
    probs at that shape; then score and unconditional probs with the kernels
    against the plain path (``kernels="torch"``) on the card at that
    structure padded to 416 rows, and against the CPU on a small structure;
-5. one JSON line of the kernels (launches on the main path, error, times,
+5. training: 8 synthetic protein-DNA structures of 600-768 residues through
+   ``parse_pdb`` and ``collate_batch`` (B=8, L=768, K=32: 196,608 edges);
+   at that shape, the kernels of the training step against their plain
+   versions (kNN's E_idx exact; the RBF projection, the message table with
+   its saved ``x``, its backward in three modes, the RBF weight gradient;
+   relative error < 1e-5 on rows and nodes, < 1e-4 on sums over
+   all edges; two identical launches compared), then the full-width
+   ``Trainer`` (dropout 0.1, noise 0.1 A): 5 train steps and 1 eval step,
+   with the launches of every step counted, loss, gradients and parameters
+   checked, ms per step and peak memory printed, save -> restore bitwise,
+   and one step's loss and gradients with the kernels against
+   ``kernels="torch"`` on the card;
+6. one JSON line of the kernels (launches on the main paths, error, times,
    bound), then the card's name and power limit as ``nvidia-smi`` gives
    them and, last, the device JSON.
 
@@ -106,6 +118,42 @@ def _bound_ms(ops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _knn_bound(B, L, K):
+    """kNN's least work per pair: the masked distance (12 operations), the
+    row max and about one comparison to select the k smallest."""
+    return _bound_ms(B * L * L * 14, B * L * 16 + B * L * K * 12)
+
+
+def _rbf_bound(X_aug, X_m_aug, E_idx, H, num_rbf=16):
+    """The classed RBF projection and its weight gradient: 16 * (2H + 8)
+    operations per present atom pair of each edge (the data decides how
+    many); bytes: coordinates, masks, neighbours, one [E, H] and one
+    [5184, H] tensor."""
+    import torch
+    B, L, K = E_idx.shape
+    nq = X_m_aug.sum(-1)                                         # [B,L]
+    nn = torch.gather(nq, 1, E_idx.reshape(B, -1)).reshape(B, L, K)
+    pairs = float((nq[:, :, None] * nn).sum())
+    nbytes = ((X_aug.numel() + X_m_aug.numel() + B * L * K * H
+               + 18 * 18 * num_rbf * H) * 4 + E_idx.numel() * 8)
+    return _bound_ms(pairs * num_rbf * (2 * H + 8), nbytes)
+
+
+def _message_table_bound(mode, N, K, H, C, save_x=False):
+    """The message table's least work: h_V@Wa per node; e_in@Wb, W2 and
+    about 30 elementwise operations per edge element; W3 per edge only in
+    enc_edge, since in the summing modes sum_k w_k (W3 g_k + b3) =
+    W3 (sum_k w_k g_k) + b3 sum_k w_k. With ``save_x`` x is written too."""
+    if mode == "enc_edge":
+        ops = N * K * (6 * H * H + 30 * H) + N * 2 * H * H
+    else:
+        ops = N * K * (4 * H * H + 30 * H) + N * 4 * H * H
+    out = N * K * H if mode == "enc_edge" else N * H
+    nbytes = (4 * (N * H + N * K * H + N * C + 2 * N * K + 4 * H * H + 3 * H
+                   + out + (N * K * H if save_x else 0)) + 8 * N * K)
+    return _bound_ms(ops, nbytes)
+
+
 def device_phase():
     import torch
     if not torch.cuda.is_available():
@@ -180,10 +228,7 @@ def kernel_phase(pdb):
         err = float((D_k - D_p).abs().max())
         ms = _sync_time(lambda: knn.knn_graph_cuda(X_ref, mask, K), 20)
         plain_ms = _sync_time(lambda: knn.knn_graph_plain(X_ref, mask, K), 5)
-        # The function's least work per pair: the masked distance (12
-        # operations), the row max and about one comparison to select the
-        # k smallest.
-        bound = _bound_ms(B * L * L * 14, B * L * 16 + B * L * K * 12)
+        bound = _knn_bound(B, L, K)
         print(f"knn {tag} B={B} L={L} K={K}: E_idx exact, max|dD|={err:.3g}, "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)",
               flush=True)
@@ -206,13 +251,7 @@ def kernel_phase(pdb):
         plain_ms = _sync_time(lambda: rbf_classed.rbf_edge_features_classed_plain(
             X_aug, X_m_aug, E_idx, W), 3)
         B, L = mask.shape
-        nq = X_m_aug.sum(-1)                                         # [B,L]
-        nn = torch.gather(nq, 1, E_idx.reshape(B, -1)).reshape(B, L, K)
-        pairs = float((nq[:, :, None] * nn).sum())
-        ops = pairs * cfg.num_rbf * (2 * H + 8)
-        nbytes = (X_aug.numel() + X_m_aug.numel() + W.numel()
-                  + B * L * K * H) * 4 + E_idx.numel() * 8
-        bound = _bound_ms(ops, nbytes)
+        bound = _rbf_bound(X_aug, X_m_aug, E_idx, H)
         print(f"rbf_classed B={B} L={L} K={K}: rel err {rel:.3g} (< {REL_TOL}), "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)",
               flush=True)
@@ -258,18 +297,7 @@ def kernel_phase(pdb):
             ms = _sync_time(lambda: message_kernels.message_table_cuda(*args, K=K, L=L), 20)
             plain_ms = _sync_time(lambda: message_kernels.message_table_plain(
                 *args, K=K, L=L), 5)
-            C = table.shape[1]
-            # The function's least work: h_V@Wa per node; e_in@Wb, W2 and
-            # about 30 elementwise operations per edge element; W3 per edge
-            # only in enc_edge, since in the summing modes
-            # sum_k w_k (W3 g_k + b3) = W3 (sum_k w_k g_k) + b3 sum_k w_k.
-            if mode == "enc_edge":
-                ops = N * K * (6 * H * H + 30 * H) + N * 2 * H * H
-            else:
-                ops = N * K * (4 * H * H + 30 * H) + N * 4 * H * H
-            nbytes = (4 * (N * H + N * K * H + N * C + 2 * N * K + 4 * H * H + 3 * H
-                           + out_k.numel()) + 8 * N * K)
-            bound = _bound_ms(ops, nbytes)
+            bound = _message_table_bound(mode, N, K, H, table.shape[1])
             print(f"message_table {mode} N={N} K={K} H={H}: rel err {rel:.3g} "
                   f"(< {REL_TOL}), {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                   f"bound {bound[0]:.5f} ms)", flush=True)
@@ -450,6 +478,295 @@ def reference_check_phase(pdb):
           f"max |d log p| = {worst:.3g} (< 1e-4)", flush=True)
 
 
+TRAIN_STRUCTURES = 8
+TRAIN_KEYS = ("X", "X_m", "mask", "S", "R_idx", "chain_labels", "protein_mask",
+              "dna_mask", "rna_mask", "R_polymer_type")
+MODES = ("enc_node", "enc_edge", "dec")
+
+
+def training_batch():
+    """8 synthetic protein-DNA structures of 600-768 residues, parsed and
+    collated to the 768 bucket (the reference regime of about 6000 tokens)."""
+    from na_mpnn_tpu_torch.data.pdb import parse_pdb
+    from na_mpnn_tpu_torch.train.collate import collate_batch
+    structs = []
+    for i in range(TRAIN_STRUCTURES):
+        n = 600 + 24 * i
+        n_dna = 40 + 2 * i
+        chains = (("A", "protein", (n - 2 * n_dna) // 2),
+                  ("B", "protein", n - 2 * n_dna - (n - 2 * n_dna) // 2),
+                  ("C", "dna", n_dna), ("D", "dna", n_dna))
+        path = os.path.join(OUT, f"train{i}.pdb")
+        write_synthetic_pdb(path, chains, seed=10 + i)
+        parsed = parse_pdb(path)
+        structs.append({k: parsed[k] for k in TRAIN_KEYS})
+    batch = collate_batch(structs)
+    if batch["S"].shape != (TRAIN_STRUCTURES, 768):
+        raise AssertionError(f"training batch {batch['S'].shape}, want (8, 768)")
+    return batch
+
+
+def _bwd_bound(mode, N, K, H, C, g_rows):
+    """Least work of the message-table backward: per edge the recomputed W2
+    product, dW2, g_x, g_ein and dWb (10 H^2), in enc_edge also dW3 and
+    g_m@W3^T (14 H^2), and about 40 H elementwise (GELU and its derivative);
+    per node g_hV and dWa, and in the summing modes (g/30)@W3^T and dW3 too,
+    since g_m is a per-node vector times a mask (8 H^2). Bytes: h_V, e_in,
+    x, g, masks and indices read once; g_hV, g_ein, the table gradient and
+    the weight gradients written once."""
+    per_edge = 14 if mode == "enc_edge" else 10
+    per_node = 4 if mode == "enc_edge" else 8
+    ops = N * K * (per_edge * H * H + 40 * H) + N * per_node * H * H
+    nbytes = (4 * (N * H + 3 * N * K * H + g_rows * H + 2 * N * K + N * H
+                   + N * C + 4 * H * H + H + 4 * H * H + 3 * H) + 8 * N * K)
+    return _bound_ms(ops, nbytes)
+
+
+def train_kernel_phase(nb):
+    """The training kernels against their plain versions on the card at
+    the training shape, and the forward kernels' times there; returns the
+    rows of the new kernels and the forward kernels' ms at this shape."""
+    import torch
+    from na_mpnn_tpu_torch.models import init_params
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.models.features import build_augmented_atoms
+    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_classed
+    from na_mpnn_tpu_torch.train.trainer import to_device
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig()
+    H, K = cfg.hidden_dim, cfg.k_neighbors
+    batch = to_device(nb, dev)
+    X_aug, X_m_aug, X_ref = build_augmented_atoms(
+        batch["X"], batch["X_m"], batch, cfg)
+    mask = batch["mask"].float()
+    B, L = mask.shape
+    N = B * L
+    _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
+    if not torch.equal(E_idx, knn.knn_graph_plain(X_ref, mask, K)[1]):
+        raise AssertionError("knn at the training shape: E_idx differs")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows, fwd_ms = {}, {}
+
+    def forward_row(name, kernel, plain, bound, iters, checked):
+        fwd_ms[name] = _sync_time(kernel, iters)
+        plain_ms = _sync_time(plain, 2)
+        print(f"{name} at the training shape: {checked}, {fwd_ms[name]:.4f} ms "
+              f"(plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]})",
+              flush=True)
+
+    forward_row("knn", lambda: knn.knn_graph_cuda(X_ref, mask, K),
+                lambda: knn.knn_graph_plain(X_ref, mask, K),
+                _knn_bound(B, L, K), 10, "E_idx exact")
+    params = init_params(1, cfg, device=dev)
+    W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
+    rel = _rel_err(rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W),
+                   rbf_classed.rbf_edge_features_classed_plain(X_aug, X_m_aug, E_idx, W))
+    if not rel < REL_TOL:
+        raise AssertionError(f"rbf_classed at the training shape: relative error {rel:.3g}")
+    forward_row("rbf_classed",
+                lambda: rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W),
+                lambda: rbf_classed.rbf_edge_features_classed_plain(X_aug, X_m_aug, E_idx, W),
+                _rbf_bound(X_aug, X_m_aug, E_idx, H), 5,
+                f"rel err {rel:.3g} (< {REL_TOL})")
+
+    # RBF weight gradient (row 4)
+    g = torch.randn((B, L, K, H), generator=gen, device=dev)
+    dw_k = rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g)
+    dw_k2 = rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g)
+    dw_p = rbf_classed.rbf_classed_dw_plain(X_aug, X_m_aug, E_idx, g)
+    rel = _rel_err(dw_k, dw_p)
+    repeat = float((dw_k - dw_k2).abs().max())
+    if not rel < 1e-4:
+        raise AssertionError(f"rbf_classed_dw: relative error {rel:.3g}")
+    ms = _sync_time(lambda: rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g), 5)
+    plain_ms = _sync_time(lambda: rbf_classed.rbf_classed_dw_plain(
+        X_aug, X_m_aug, E_idx, g), 2)
+    bound = _rbf_bound(X_aug, X_m_aug, E_idx, H)
+    print(f"rbf_classed_dw B={B} L={L} K={K}: rel err {rel:.3g} (< 1e-4), "
+          f"two launches differ by {repeat:.3g}, {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms)", flush=True)
+    rows["rbf_classed_dw"] = dict(max_abs_err=float((dw_k - dw_p).abs().max()),
+                                  ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1])
+    del dw_p, g
+
+    # Message table: forward with the saved x (row 9), backward (row 10)
+    eidx2 = E_idx.reshape(-1).contiguous()
+    h_V2 = torch.randn((N, H), generator=gen, device=dev)
+    h_E2 = torch.randn((N * K, H), generator=gen, device=dev)
+    m_att = (torch.rand((N * K,), generator=gen, device=dev) > 0.1).float()
+    m1d = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).float()
+    mbw = m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5).float()
+    ones = torch.ones_like(m_att)
+    names = ("g_hV", "g_ein", "g_table", "dwa", "dwb", "db1", "dw2", "db2",
+             "dw3", "db3")
+    for mode, ma, mb in (("enc_node", m_att, ones), ("enc_edge", ones, ones),
+                         ("dec", m1d, mbw)):
+        C = 2 * H if mode == "dec" else H
+        table = torch.randn((N, C), generator=gen, device=dev)
+        wa, wb, w2, w3 = (torch.randn((H, H), generator=gen, device=dev) / H ** 0.5
+                          for _ in range(4))
+        b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev) for _ in range(3))
+        args = (mode, h_V2, h_E2, table, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3)
+        out_k, x_k = mk.message_table_cuda(*args, K=K, L=L, save_x=True)
+        out_p, x_p = mk.message_table_plain(*args, K=K, L=L, save_x=True)
+        fwd_err = {}
+        for what, a, b in (("out", out_k, out_p), ("x", x_k, x_p)):
+            fwd_err[what] = _rel_err(a, b)
+            if not fwd_err[what] < REL_TOL:
+                raise AssertionError(f"message_table {mode} {what}: "
+                                     f"rel err {fwd_err[what]:.3g}")
+        forward_row(f"message_table_{mode}",
+                    lambda: mk.message_table_cuda(*args, K=K, L=L, save_x=True),
+                    lambda: mk.message_table_plain(*args, K=K, L=L, save_x=True),
+                    _message_table_bound(mode, N, K, H, C, save_x=True), 10,
+                    f"rel err out {fwd_err['out']:.3g}, x {fwd_err['x']:.3g} "
+                    f"(< {REL_TOL})")
+        g_rows = N * K if mode == "enc_edge" else N
+        g = torch.randn((g_rows, H), generator=gen, device=dev)
+        bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
+        got = [t.clone() for t in mk.message_table_bwd_cuda(*bargs, K=K, L=L)]
+        again = mk.message_table_bwd_cuda(*bargs, K=K, L=L)
+        want = mk.message_table_bwd_plain(*bargs, K=K, L=L)
+        errs, repeat = {}, {}
+        for i, (name, a, b, c) in enumerate(zip(names, got, want, again)):
+            errs[name] = _rel_err(a, b)
+            repeat[name] = float((a - c).abs().max())
+            tol = REL_TOL if name in ("g_hV", "g_ein") else 1e-4
+            if not errs[name] < tol:
+                raise AssertionError(f"message_table_bwd {mode} {name}: "
+                                     f"rel err {errs[name]:.3g} (tol {tol})")
+        ms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L), 10)
+        plain_ms = _sync_time(lambda: mk.message_table_bwd_plain(*bargs, K=K, L=L), 3)
+        bound = _bwd_bound(mode, N, K, H, C, g_rows)
+        worst = max(errs, key=errs.get)
+        print(f"message_table_bwd {mode} N={N} K={K} H={H}: worst rel err "
+              f"{errs[worst]:.3g} ({worst}); g_hV {errs['g_hV']:.3g}, g_ein "
+              f"{errs['g_ein']:.3g}, g_table {errs['g_table']:.3g}, dW2 "
+              f"{errs['dw2']:.3g}; two launches differ by at most "
+              f"{max(repeat.values()):.3g} (g_table {repeat['g_table']:.3g}); "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)",
+              flush=True)
+        rows[f"message_table_bwd_{mode}"] = dict(
+            max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+        del got, again, want, out_p, x_p
+    return rows, fwd_ms
+
+
+def _expected_train_launches(cfg):
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_decoder_layers
+    want = {"knn": 1, "rbf_classed": 1, "rbf_classed_dw": 1,
+            "message_table_enc_node": n_enc, "message_table_enc_edge": n_enc,
+            "message_table_dec": n_dec}
+    for mode, n in (("enc_node", n_enc), ("enc_edge", n_enc), ("dec", n_dec)):
+        want[f"message_table_bwd_{mode}"] = n
+    return want
+
+
+def training_phase(nb, fwd_ms, rows):
+    """The full-width Trainer on the card: 5 train steps and 1 eval step;
+    returns the launches of the whole run."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
+                                                 to_device)
+
+    dev = torch.device("cuda")
+    cfg = model_config_from_params({"MIXED_PRECISION": 0})
+    trainer = Trainer(cfg, seed=0, device=dev)
+    flat0 = trainer.flat.clone()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    want = _expected_train_launches(cfg)
+    total, step_ms = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for step in range(5):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        m = trainer.train_step(nb, gen)
+        loss = float(m["loss_av"])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()}
+        counts = {k: v for k, v in counts.items() if v}
+        if counts != want:
+            raise AssertionError(f"train step {step}: launches {counts}, want {want}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {step}: loss {loss}")
+        print(f"train step {step}: loss {loss:.6f}, {step_ms[-1]:.2f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(trainer.flat).all()) or torch.equal(trainer.flat, flat0):
+        raise AssertionError("training: parameters not finite or not moved")
+    before = dict(LAUNCHES)
+    e = trainer.eval_step(nb)
+    lpt = e["loss_per_token"]
+    if lpt.shape != (8, 768) or not bool(torch.isfinite(lpt).all()):
+        raise AssertionError(f"eval step: loss_per_token {tuple(lpt.shape)}")
+    eval_counts = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                   if v - before.get(k, 0)}
+    if any(k.startswith(("message_table_bwd", "rbf_classed_dw")) for k in eval_counts):
+        raise AssertionError(f"eval step launched a backward kernel: {eval_counts}")
+    total = dict(LAUNCHES)
+    median = float(np.median(step_ms[1:]))
+    per_step = sum(fwd_ms.get(k, rows.get(k, {}).get("ms", 0.0)) * n
+                   for k, n in want.items())
+    print(f"training B=8 L=768 K=32 H=128: {median:.2f} ms per train step "
+          f"(median of steps 2-5, host clock, synchronised; all: "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)}); peak memory "
+          f"{peak / 2**30:.3f} GiB; the kernels' standalone times add to "
+          f"{per_step:.2f} ms per step ({100 * per_step / median:.1f}% of it); "
+          f"launches per step {want}", flush=True)
+
+    # save -> restore, bitwise
+    path = os.path.join(OUT, "train.npz")
+    trainer.save(path, epoch=1, save_step=0)
+    back = Trainer(cfg, seed=1, device=dev)
+    back.restore(path)
+    s, r = trainer.opt_state, back.opt_state
+    if not (torch.equal(trainer.flat, back.flat) and torch.equal(s.mu, r.mu)
+            and torch.equal(s.nu, r.nu) and s.count == r.count == 5
+            and s.schedule_count == r.schedule_count and back.step == 5):
+        raise AssertionError("save -> restore is not bitwise")
+    print("checkpoint: save -> restore bitwise equal (params, mu, nu, counts)",
+          flush=True)
+
+    # one step's loss and gradients: kernels against kernels="torch"
+    plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
+    plain.restore(path)
+    batch = to_device(nb, dev)
+    reset_launches()
+    loss_k, grad_k = trainer.loss_and_grads(
+        batch, torch.Generator(device=dev).manual_seed(7))[:2]
+    if {k: v for k, v in LAUNCHES.items() if v} != want:
+        raise AssertionError(f"kernel step launches {dict(LAUNCHES)}")
+    reset_launches()
+    loss_p, grad_p = plain.loss_and_grads(
+        batch, torch.Generator(device=dev).manual_seed(7))[:2]
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the kernels='torch' step launched {dict(LAUNCHES)}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, off = 0.0, 0
+    for p in trainer.leaves:
+        a, b = grad_k[off:off + p.numel()], grad_p[off:off + p.numel()]
+        off += p.numel()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("training: a gradient is not finite")
+        worst = max(worst, float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30))
+    if not (rel < 1e-5 and worst < 1e-4):
+        raise AssertionError(f"kernels vs plain step: loss rel {rel:.3g}, "
+                             f"worst gradient leaf {worst:.3g}")
+    print(f"training step kernels vs kernels=\"torch\" on the card (dropout and "
+          f"noise on, same generator seed): loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f}, rel {rel:.3g} (< 1e-5); worst gradient leaf "
+          f"{worst:.3g} of its max (< 1e-4)", flush=True)
+    return total
+
+
 def main():
     import torch
     card = device_phase()
@@ -461,15 +778,26 @@ def main():
     launches = main_path_phase(pdb, L)
     breakdown_phase(pdb)
     reference_check_phase(pdb)
+    nb = training_batch()
+    train_rows, fwd_ms = train_kernel_phase(nb)
+    rows.update(train_rows)
+    for name, n in training_phase(nb, fwd_ms, rows).items():
+        launches[name] = launches.get(name, 0) + n
     sources = {
         "knn": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:106"),
         "rbf_classed": ("na_mpnn_tpu_torch/csrc/rbf_classed.cu",
                         "na_mpnn_tpu/ops/rbf_classed.py:443"),
+        "rbf_classed_dw": ("na_mpnn_tpu_torch/csrc/rbf_classed_dw.cu",
+                           "na_mpnn_tpu/ops/rbf_classed.py:476"),
     }
-    for mode in ("enc_node", "enc_edge", "dec"):
+    for mode in MODES:
         sources[f"message_table_{mode}"] = (
             "na_mpnn_tpu_torch/csrc/message_table.cu",
             "na_mpnn_tpu/ops/message_kernels.py:464")
+    for mode in MODES:
+        sources[f"message_table_bwd_{mode}"] = (
+            "na_mpnn_tpu_torch/csrc/message_table_bwd.cu",
+            "na_mpnn_tpu/ops/message_kernels.py:500")
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches.get(name, 0) < 1:

@@ -12,6 +12,9 @@
 //   enc-node: out[n] = sum_k mask_att[e]*m / 30     -> [N, H]
 //   enc-edge: out[e] = m                            -> [N*K, H]
 //   dec:      out[n] = sum_k m / 30 (no mask)       -> [N, H]
+// x_out, when not null, receives the pre-GELU x of every edge row [N*K, H]:
+// the backward kernel (message_table_bwd.cu) resumes from it, as the TPU
+// kernel's save_x output (message_kernels.py:553-567) does.
 // The TPU kernel maps a whole structure's table into VMEM and selects rows
 // with a one-hot matmul, which is why it needs L % 32 == 0. Here each block
 // reads its rows by their flat global index, so any L is taken.
@@ -27,14 +30,9 @@
 // in registers. h_V@Wa is computed once per node and added to its K rows,
 // b1 once per row, and the K-reduction of the agg modes runs in fp32 over
 // the rows in shared memory.
-#include <cuda_runtime.h>
+#include "message_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRows = 64;  // edge rows per block: 8 warps x 8 rows
-constexpr int kKC = 32;    // weight rows per shared-memory chunk
-constexpr int kEncNode = 0, kEncEdge = 1, kDec = 2;
 
 struct Params {
   const float* h_V;
@@ -51,54 +49,9 @@ struct Params {
   const float* w3;
   const float* b3;
   float* out;
+  float* x_out;
   int N, K, L, T;
 };
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-// acc[i][c] = sum_k As[ty + 8i][k] * W[k][tx*CPT + c]; W is [H, H] ([in, out]).
-template <int H>
-__device__ __forceinline__ void gemm(const float* As,
-                                     const float* __restrict__ W, float* Ws,
-                                     float (&acc)[8][H / 32]) {
-  constexpr int CPT = H / 32;
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += kKC) {
-    for (int idx = tid; idx < kKC * H; idx += kThreads)
-      Ws[idx] = __ldg(W + (size_t)k0 * H + idx);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKC; ++kk) {
-      float b[CPT];
-      if constexpr (CPT % 4 == 0) {
-#pragma unroll
-        for (int c4 = 0; c4 < CPT / 4; ++c4) {
-          float4 v = reinterpret_cast<const float4*>(Ws + kk * H + tx * CPT)[c4];
-          b[4 * c4] = v.x;
-          b[4 * c4 + 1] = v.y;
-          b[4 * c4 + 2] = v.z;
-          b[4 * c4 + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) b[c] = Ws[kk * H + tx * CPT + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float a = As[(ty + 8 * i) * H + k0 + kk];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(a, b[c], acc[i][c]);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 template <int H>
 __global__ void __launch_bounds__(kThreads)
@@ -151,6 +104,7 @@ message_table_kernel(Params p, int mode) {
       } else {
         x = AI[t * H + h] + acc[i][c] + p.table[grow * H + h] + p.b1[h];
       }
+      if (p.x_out) p.x_out[e * H + h] = x;
       Xs[r * H + h] = gelu(x);
     }
   }
@@ -218,12 +172,12 @@ extern "C" int message_table_forward(
     int mode, const float* h_V, const float* e_in, const float* table,
     const long long* eidx, const float* m_att, const float* mbw,
     const float* wa, const float* wb, const float* b1, const float* w2,
-    const float* b2, const float* w3, const float* b3, float* out, int N,
-    int K, int L, int H, cudaStream_t stream) {
+    const float* b2, const float* w3, const float* b3, float* out,
+    float* x_out, int N, int K, int L, int H, cudaStream_t stream) {
   if (K < 1 || K > kRows || mode < kEncNode || mode > kDec)
     return (int)cudaErrorInvalidValue;
-  Params p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1,
-           w2,  b2,   w3,    b3,   out,   N,   K,  L, kRows / K};
+  Params p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1, w2,
+           b2,  w3,   b3,    out,  x_out, N,   K,  L,  kRows / K};
   switch (H) {
     case 32: return launch<32>(p, mode, stream);
     case 64: return launch<64>(p, mode, stream);

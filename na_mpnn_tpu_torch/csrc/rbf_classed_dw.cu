@@ -1,0 +1,270 @@
+// Weight gradient of the class-specialised RBF projection, for Hopper
+// (sm_90a), fp32.
+//
+// Replaces the TPU kernel na_mpnn_tpu/ops/rbf_classed.py::_classed_dw
+// (_bwd_kernel, rbf_classed.py:394). For the cotangent g [E, H] of the
+// projection out = bins @ W (rbf_classed.cu), the gradient of each group
+// table is dW_g[r*AA + a][h] = sum_e bins_g(e, r, a) * g[e][h], with the
+// same bins as the forward: 16 Gaussian bins of the distance between query
+// atom q and neighbour atom n (a = q*An + n), exactly 0 where either atom is
+// masked, over the PERM-ordered atom blocks P (5 slots) and N (13 slots).
+// The four tables are PP (400 rows), PN (1040), NP (1040), NN (2704), in
+// kernel order; the last pass writes each row straight into the reference
+// order of the [18*18*16, H] weight (rowmap), so no scatter follows.
+//
+// Three launches:
+// 1. classify: one warp per tile of 32 edges, the same classification as the
+//    forward (rbf_classed.cu, _tile_gid): code g if every query and every
+//    neighbour of the tile sits in one block (group g = 2*side_q + side_n),
+//    else 4 (mixed: the tile feeds all four groups, masked pairs add 0).
+// 2. accumulate: a block owns a slice of up to 128 rows of one group table
+//    and one of kSplit edge chunks. It walks the chunk's tiles, skips a tile
+//    whose code is neither its group nor 4, recomputes its rows' bins for the
+//    tile's 32 edges in shared memory, and adds bins^T @ g_tile into
+//    128 x H accumulators in registers. It writes them to its chunk's partial
+//    [kSplit][5184][H]. No cross-block atomics.
+// 3. reduce: dW[rowmap[row]] = sum over the kSplit partials, in order.
+// The result is deterministic.
+//
+// What bounds it on the card: operations, 2*H multiply-adds per present atom
+// pair and bin of every edge (as the forward), against the edge operands and
+// g (about 1 KB per edge). The cost of this design: g and the tile operands
+// are read once per slice of the tile's group (4 slices of PP, 9 of PN and
+// NP, 22 of NN, 44 for a mixed tile), mostly from L2.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kA = 18;        // augmented atom slots
+constexpr int kNP = 5;        // protein block P = PERM slots [0, 5)
+constexpr int kR = 16;        // RBF bins
+constexpr int kTE = 32;       // edges per tile
+constexpr int kThreads = 256;
+constexpr int kSliceRows = 128;
+constexpr int kSplit = 16;    // edge chunks
+constexpr int kTotalRows = kR * kA * kA;  // 5184
+
+__device__ __forceinline__ int side_code(const float* m) {
+  bool has_p = false, has_n = false;
+  for (int a = 0; a < kNP; ++a) has_p |= (m[a] > 0.f);
+  for (int a = kNP; a < kA; ++a) has_n |= (m[a] > 0.f);
+  return (int)has_n + (int)(has_n && has_p);  // 0 P/empty, 1 N, 2 mixed
+}
+
+__device__ __forceinline__ int group_aq(int g) { return (g >> 1) ? kA - kNP : kNP; }
+__device__ __forceinline__ int group_an(int g) { return (g & 1) ? kA - kNP : kNP; }
+
+__global__ void classify_tiles(const float* __restrict__ Mq,
+                               const long long* __restrict__ nbr, int E, int K,
+                               int ntiles, int* __restrict__ code) {
+  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (tile >= ntiles) return;
+  const int ge = tile * kTE + lane;
+  int q_lo = 3, q_hi = -1, n_lo = 3, n_hi = -1;
+  if (ge < E) {
+    q_lo = q_hi = side_code(Mq + (size_t)(ge / K) * kA);
+    n_lo = n_hi = side_code(Mq + (size_t)nbr[ge] * kA);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    q_lo = min(q_lo, __shfl_xor_sync(0xffffffffu, q_lo, o));
+    q_hi = max(q_hi, __shfl_xor_sync(0xffffffffu, q_hi, o));
+    n_lo = min(n_lo, __shfl_xor_sync(0xffffffffu, n_lo, o));
+    n_hi = max(n_hi, __shfl_xor_sync(0xffffffffu, n_hi, o));
+  }
+  if (lane == 0) {
+    const bool pure = q_lo == q_hi && q_hi < 2 && n_lo == n_hi && n_hi < 2;
+    code[tile] = pure ? 2 * q_lo + n_lo : 4;
+  }
+}
+
+// Shared memory of the accumulate kernel, in floats.
+template <int H>
+constexpr int acc_smem_floats() {
+  return 2 * kTE * 3 * kA + 2 * kTE * kA + kSliceRows * kTE + kTE * H;
+}
+
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
+                  const long long* __restrict__ nbr, const float* __restrict__ g,
+                  const int* __restrict__ code, int E, int K, int ntiles,
+                  float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  float* qx = smem;                    // [kTE][3A]
+  float* nx = qx + kTE * 3 * kA;       // [kTE][3A]
+  float* qm = nx + kTE * 3 * kA;       // [kTE][A]
+  float* nm = qm + kTE * kA;           // [kTE][A]
+  float* bins = nm + kTE * kA;         // [kSliceRows][kTE]
+  float* gs = bins + kSliceRows * kTE; // [kTE][H]
+  constexpr int CPT = H / 32;
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+
+  // This block's slice: group grp, rows [row0, row0 + nrows) of its table.
+  int s = blockIdx.x, grp = 0, goff = 0;
+  for (;;) {
+    const int size = kR * group_aq(grp) * group_an(grp);
+    const int ns = (size + kSliceRows - 1) / kSliceRows;
+    if (s < ns || grp == 3) break;
+    s -= ns;
+    goff += size;
+    ++grp;
+  }
+  const int Aq = group_aq(grp), An = group_an(grp), AA = Aq * An;
+  const int q0 = (grp >> 1) ? kNP : 0, n0 = (grp & 1) ? kNP : 0;
+  const int row0 = s * kSliceRows;
+  const int nrows = min(kSliceRows, kR * AA - row0);
+  const int t_begin = (int)((long long)blockIdx.y * ntiles / kSplit);
+  const int t_end = (int)((long long)(blockIdx.y + 1) * ntiles / kSplit);
+
+  float acc[kSliceRows / 8][CPT];
+#pragma unroll
+  for (int i = 0; i < kSliceRows / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+
+  const float sigma = 1.25f;
+  const double step = 20.0 / (kR - 1);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int cd = code[t];
+    if (cd != grp && cd != 4) continue;
+    const int e0 = t * kTE;
+    for (int idx = tid; idx < kTE * 3 * kA; idx += kThreads) {
+      const int e = idx / (3 * kA), c = idx % (3 * kA);
+      const int ge = e0 + e;
+      float q = 0.f, n = 0.f;
+      if (ge < E) {
+        q = Xq[(size_t)(ge / K) * 3 * kA + c];
+        n = Xq[(size_t)nbr[ge] * 3 * kA + c];
+      }
+      qx[idx] = q;
+      nx[idx] = n;
+    }
+    for (int idx = tid; idx < kTE * kA; idx += kThreads) {
+      const int e = idx / kA, c = idx % kA;
+      const int ge = e0 + e;
+      float q = 0.f, n = 0.f;
+      if (ge < E) {
+        q = Mq[(size_t)(ge / K) * kA + c];
+        n = Mq[(size_t)nbr[ge] * kA + c];
+      }
+      qm[idx] = q;
+      nm[idx] = n;
+    }
+    for (int idx = tid; idx < kTE * H; idx += kThreads) {
+      const int e = idx / H;
+      gs[idx] = e0 + e < E ? g[(size_t)e0 * H + idx] : 0.f;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < kSliceRows * kTE; idx += kThreads) {
+      const int i = idx / kTE, e = idx % kTE;
+      float v = 0.f;
+      if (i < nrows) {
+        const int rho = row0 + i, r = rho / AA, a = rho % AA;
+        const int qa = q0 + a / An, na = n0 + a % An;
+        if (qm[e * kA + qa] != 0.f && nm[e * kA + na] != 0.f) {
+          const float* xq = qx + e * 3 * kA;
+          const float* xn = nx + e * 3 * kA;
+          const float dx = xq[qa] - xn[na];
+          const float dy = xq[kA + qa] - xn[kA + na];
+          const float dz = xq[2 * kA + qa] - xn[2 * kA + na];
+          const float mu = (float)(2.0 + r * step);
+          const float z = (sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f) - mu) / sigma;
+          v = expf(-z * z);
+        }
+      }
+      bins[idx] = v;
+    }
+    __syncthreads();
+    for (int e4 = 0; e4 < kTE; e4 += 4) {
+      float4 bv[kSliceRows / 8];
+#pragma unroll
+      for (int i = 0; i < kSliceRows / 8; ++i)
+        bv[i] = *reinterpret_cast<const float4*>(bins + (ty + 8 * i) * kTE + e4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float gv[CPT];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) gv[c] = gs[(e4 + j) * H + tx + 32 * c];
+#pragma unroll
+        for (int i = 0; i < kSliceRows / 8; ++i) {
+          const float b = j == 0 ? bv[i].x : j == 1 ? bv[i].y : j == 2 ? bv[i].z : bv[i].w;
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(b, gv[c], acc[i][c]);
+        }
+      }
+    }
+    __syncthreads();  // the tile's buffers are consumed before the next load
+  }
+
+  float* out = part + ((size_t)blockIdx.y * kTotalRows + goff + row0) * H;
+#pragma unroll
+  for (int i = 0; i < kSliceRows / 8; ++i) {
+    const int row = ty + 8 * i;
+    if (row >= nrows) continue;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) out[(size_t)row * H + tx + 32 * c] = acc[i][c];
+  }
+}
+
+// dW[rowmap[row]][h] = sum_s part[s][row][h], s in order.
+__global__ void rbf_dw_reduce(const float* __restrict__ part,
+                              const long long* __restrict__ rowmap, int H,
+                              float* __restrict__ dW) {
+  const size_t n = (size_t)kTotalRows * H;
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float s = 0.f;
+  for (int c = 0; c < kSplit; ++c) s += part[c * n + j];
+  const size_t row = j / H, h = j % H;
+  dW[(size_t)rowmap[row] * H + h] = s;
+}
+
+template <int H>
+int launch(const float* Xq, const float* Mq, const long long* nbr,
+           const float* g, const long long* rowmap, int E, int K, int* code,
+           float* part, float* dW, cudaStream_t stream) {
+  const int ntiles = (E + kTE - 1) / kTE;
+  classify_tiles<<<(ntiles * 32 + 255) / 256, 256, 0, stream>>>(Mq, nbr, E, K,
+                                                                ntiles, code);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = acc_smem_floats<H>() * sizeof(float);
+  err = cudaFuncSetAttribute(rbf_dw_accumulate<H>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int slices = 0;
+  for (int grp = 0; grp < 4; ++grp) {
+    const int aq = (grp >> 1) ? kA - kNP : kNP, an = (grp & 1) ? kA - kNP : kNP;
+    slices += (kR * aq * an + kSliceRows - 1) / kSliceRows;
+  }
+  rbf_dw_accumulate<H><<<dim3(slices, kSplit), kThreads, smem, stream>>>(
+      Xq, Mq, nbr, g, code, E, K, ntiles, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)kTotalRows * H;
+  rbf_dw_reduce<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, rowmap,
+                                                                 H, dW);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int rbf_classed_dw_splits() { return kSplit; }
+
+// Xq [B*L, 3*18] (x|y|z planes, PERM order), Mq [B*L, 18], nbr [E] (flat
+// neighbour rows), g [E, H], rowmap [5184] (kernel-order row -> reference
+// row); scratch code [ceil(E/32)] int, part [kSplit, 5184, H]; dW [5184, H].
+extern "C" int rbf_classed_dw(const float* Xq, const float* Mq,
+                              const long long* nbr, const float* g,
+                              const long long* rowmap, int E, int K, int H,
+                              int* code, float* part, float* dW,
+                              cudaStream_t stream) {
+  switch (H) {
+    case 32: return launch<32>(Xq, Mq, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 64: return launch<64>(Xq, Mq, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 128: return launch<128>(Xq, Mq, nbr, g, rowmap, E, K, code, part, dW, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

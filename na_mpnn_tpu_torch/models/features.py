@@ -1,6 +1,6 @@
 """Geometric featurisation: virtual atoms, kNN graph, RBF edge features.
 
-Port of the JAX package's ``models/features.py`` (deterministic path). The
+Port of the JAX package's ``models/features.py``. The
 kNN graph and the RBF edge projection run on the kernels of ``ops/knn.py``
 and ``ops/rbf_classed.py``; ``knn_graph`` and ``all_pair_rbf`` here are the
 plain versions the kernels are held to.
@@ -51,6 +51,17 @@ def all_pair_rbf(X_aug, E_idx, X_m_aug, num_rbf):
     return RBF.reshape(B, L, K, A * A * num_rbf)
 
 
+def augment_coordinates(X, X_m, batch, cfg: ModelConfig, generator):
+    """Training noise: per-polymer Gaussian noise (``*_augment_eps`` A) on
+    present atoms, drawn from ``generator``."""
+    eps = (batch["protein_mask"] * cfg.protein_augment_eps
+           + batch["dna_mask"] * cfg.dna_augment_eps
+           + batch["rna_mask"] * cfg.rna_augment_eps).to(X.dtype)
+    noise = torch.randn(X.shape, generator=generator, dtype=X.dtype,
+                        device=X.device)
+    return X + X_m[..., None].to(X.dtype) * eps[:, :, None, None] * noise
+
+
 def build_augmented_atoms(X, X_m, batch, cfg: ModelConfig):
     """Append virtual Cb and virtual base-N to the atom frame. Returns
     (``X_aug [B,L,18,3]``, ``X_m_aug [B,L,18]``, ``X_ref [B,L,3]``), where
@@ -69,17 +80,24 @@ def build_augmented_atoms(X, X_m, batch, cfg: ModelConfig):
     return X_aug, X_m_aug, X_ref
 
 
-def features_apply(p, cfg: ModelConfig, batch, plain: bool = False):
+def features_apply(p, cfg: ModelConfig, batch, plain: bool = False,
+                   generator=None):
     """(``V [B,L,node_features]``, ``E [B,L,K,edge_features]``,
-    ``E_idx [B,L,K]``, ``mask_attend [B,L,K]``), deterministic.
+    ``E_idx [B,L,K]``, ``mask_attend [B,L,K]``).
 
-    ``plain=True`` takes the plain versions of the kNN and RBF kernels."""
+    ``plain=True`` takes the plain versions of the kNN and RBF kernels.
+    With a ``generator`` (training), coordinates get the configured noise
+    first; without one the function is deterministic."""
     from ..ops.knn import knn_graph as knn_kernel
     from ..ops.rbf_classed import (rbf_edge_features_classed,
                                    rbf_edge_features_classed_plain)
 
     X, X_m = batch["X"], batch["X_m"]
     mask = batch["mask"].to(X.dtype)
+    if generator is not None and max(cfg.protein_augment_eps,
+                                     cfg.dna_augment_eps,
+                                     cfg.rna_augment_eps) > 0:
+        X = augment_coordinates(X, X_m, batch, cfg, generator)
     X_aug, X_m_aug, X_ref = build_augmented_atoms(X, X_m, batch, cfg)
     knn = knn_graph if plain else knn_kernel
     _, E_idx = knn(X_ref, mask, cfg.k_neighbors)

@@ -30,6 +30,17 @@ def gelu(x):
     return F.gelu(x)
 
 
+def dropout(x, rate: float, generator):
+    """Inverted dropout: keep each entry with probability ``1 - rate`` (a
+    mask drawn from ``generator``) and scale kept entries by ``1 / keep``.
+    Identity when ``rate <= 0`` or ``generator`` is None (evaluation)."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    return torch.where(u < keep, x / keep, 0.0)
+
+
 def linear(p, x):
     out = x @ p["w"]
     return out + p["b"] if "b" in p else out

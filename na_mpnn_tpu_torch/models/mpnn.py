@@ -1,13 +1,16 @@
-"""NA-MPNN inference: encoder, teacher-forced scoring, unconditional probs
-and autoregressive sampling.
+"""NA-MPNN: the training forward, encoder, teacher-forced scoring,
+unconditional probs and autoregressive sampling.
 
-Port of the JAX package's ``models/mpnn.py`` (deterministic paths). Every
-encoder layer and every parallel-decoder layer runs its message MLP on the
-message-table kernel (``ops/message_kernels.py``), whatever L is; the layer
-norms, feed-forward blocks and the node-level products around the kernel
-(``h_V @ wc``, ``h_S @ ws``, ``h_V @ wv``) are plain PyTorch. The
-autoregressive sampler is plain PyTorch, as it is plain XLA in the JAX
-package.
+Port of the JAX package's ``models/mpnn.py``. Every encoder layer and every
+parallel-decoder layer runs its message MLP on the message-table kernel
+(``ops/message_kernels.py``), whatever L is, in training (through its
+backward kernel) as in inference; the layer norms, feed-forward blocks,
+dropout and the node-level products around the kernel (``h_V @ wc``,
+``h_S @ ws``, ``h_V @ wv``) are plain PyTorch. ``encode`` and the decoder
+layers are shared: a ``torch.Generator`` turns on training randomness
+(dropout, coordinate noise), ``None`` makes them deterministic; the
+inference entry points run under ``torch.no_grad``. The autoregressive
+sampler is plain PyTorch, as it is plain XLA in the JAX package.
 
 Sampling draws the decode order as ``argsort((chain_mask + 1e-4) * |randn|)``
 and tokens as ``argmax(log(p + 1e-30) + Gumbel)`` (what
@@ -26,9 +29,10 @@ from .. import constants
 from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
 from .features import features_apply
-from .modules import (MESSAGE_SCALE, _message_tail, _split_w1, gather_nodes,
-                      init_dec_layer, init_enc_layer, init_layer_norm,
-                      init_linear, layer_norm, linear, pff_apply, take_rows)
+from .modules import (MESSAGE_SCALE, _message_tail, _split_w1, dropout,
+                      gather_nodes, init_dec_layer, init_enc_layer,
+                      init_layer_norm, init_linear, layer_norm, linear,
+                      pff_apply, take_rows)
 
 # Token ints zeroed out during sampling (UNK, DX, RX, MAS, PAD).
 _OMIT_ALWAYS = [
@@ -115,16 +119,19 @@ def _plain(cfg: ModelConfig, X) -> bool:
     return cfg.kernels == "torch"
 
 
-@torch.no_grad()
-def encode(params, cfg: ModelConfig, batch):
+def encode(params, cfg: ModelConfig, batch, generator=None):
     """Features + encoder stack -> (``h_V [B,L,H]``, ``h_E [B,L,K,H]``,
     ``E_idx [B,L,K]``). Edge tensors stay flat ``[N*K,H]`` through the
-    stack; each layer makes two message-table launches."""
+    stack; each layer makes two message-table launches. With a
+    ``generator`` the layers apply dropout (on the node message, the FFN
+    output and the edge message, as ``_enc_layer_train_fused``) and the
+    features coordinate noise."""
     check_supported(cfg)
     plain = _plain(cfg, batch["X"])
+    rate = cfg.dropout
     mask = batch["mask"].to(batch["X"].dtype)
     V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
-                                              plain)
+                                              plain, generator)
     h_V = linear(params["W_v"], V)
     h_E = linear(params["W_e"], E)
     B, L, K = E_idx.shape
@@ -136,21 +143,26 @@ def encode(params, cfg: ModelConfig, batch):
         h_V2 = h_V.reshape(N, H)
         dh = mk.message_agg_table_flat(p, h_V2, h_E2, h_V2 @ p["W1"]["w"][2 * H:],
                                        eidx2, mask_att2, K=K, L=L, plain=plain)
-        h_V = layer_norm(p["norm1"], h_V + dh.view(B, L, H))
-        h_V = layer_norm(p["norm2"], h_V + pff_apply(p["dense"], h_V))
+        h_V = layer_norm(p["norm1"], h_V + dropout(dh.view(B, L, H), rate,
+                                                   generator))
+        h_V = layer_norm(p["norm2"], h_V + dropout(pff_apply(p["dense"], h_V),
+                                                   rate, generator))
         h_V = mask[..., None] * h_V
         h_V2 = h_V.reshape(N, H)
         m = mk.message_edge_table_flat(p, h_V2, h_E2, h_V2 @ p["W11"]["w"][2 * H:],
                                        eidx2, K=K, L=L, plain=plain)
-        h_E2 = layer_norm(p["norm3"], h_E2 + m)
+        h_E2 = layer_norm(p["norm3"], h_E2 + dropout(m, rate, generator))
     return h_V, h_E2.view(B, L, K, H), E_idx
 
 
-def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw):
+def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
+                      generator=None):
     """Teacher-forced decoder stack on the message-table kernel (dec mode):
     per layer a 2H node table ``[h_S@ws + h_V@wv - h_Venc@wv | h_Venc@wv]``
-    replaces the ``[B,L,K,3H]`` causal context."""
+    replaces the ``[B,L,K,3H]`` causal context. With a ``generator``, dropout
+    on the node message and the FFN output (``run_layer_kernel``)."""
     plain = _plain(cfg, h_V)
+    rate = cfg.dropout
     B, L, K = E_idx.shape
     N, H = B * L, h_V.shape[-1]
     h_V_enc = h_V
@@ -165,10 +177,38 @@ def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw):
         dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
                                        nodes2.reshape(N, 2 * H), eidx2, m1d2,
                                        mbw2, K=K, L=L, plain=plain)
-        h_V = layer_norm(p["norm1"], h_V + dh.view(B, L, H))
-        h_V = layer_norm(p["norm2"], h_V + pff_apply(p["dense"], h_V))
+        h_V = layer_norm(p["norm1"], h_V + dropout(dh.view(B, L, H), rate,
+                                                   generator))
+        h_V = layer_norm(p["norm2"], h_V + dropout(pff_apply(p["dense"], h_V),
+                                                   rate, generator))
         h_V = mask[..., None] * h_V
     return h_V
+
+
+def forward(params, cfg: ModelConfig, batch, generator=None):
+    """Training forward -> (``log_probs``, ``probs``), both
+    ``[B,L,num_letters]`` (JAX ``mpnn.forward``). ``generator`` draws the
+    coordinate noise, the dropout masks and the decode order; with None the
+    pass is deterministic (evaluation) and the decode order comes from seed
+    0. ``batch["decoding_order"]``, where given, is the decode order."""
+    mask = batch["mask"].to(batch["X"].dtype)
+    h_V, h_E, E_idx = encode(params, cfg, batch, generator)
+    h_S = embed_tokens(params, batch["S"])
+    chain_M = mask
+    if cfg.decode_protein_first:
+        chain_M = chain_M * (1.0 - batch["protein_mask"].to(mask.dtype))
+    if "decoding_order" in batch:
+        decoding_order = batch["decoding_order"]
+    else:
+        order_gen = generator
+        if order_gen is None:
+            order_gen = torch.Generator(device=mask.device).manual_seed(0)
+        decoding_order = sample_decoding_order(chain_M, order_gen)
+    mask_bw, _ = autoregressive_edge_masks(decoding_order, E_idx, mask)
+    h_V = _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
+                            generator)
+    logits = linear(params["W_out"], h_V)
+    return torch.log_softmax(logits, dim=-1), torch.softmax(logits, dim=-1)
 
 
 @torch.no_grad()

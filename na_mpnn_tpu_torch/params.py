@@ -7,8 +7,8 @@ lists) with ``torch.Tensor`` leaves, and linear weights in the JAX layout
 state_dict stores ``nn.Linear`` weights ``[out, in]``; ``from_torch_state_dict``
 transposes every linear weight (not the token embedding) on the way in.
 The ``.npz`` helpers are the port's own copies of
-``train/checkpoint.py::flatten_pytree``, ``unflatten_pytree`` and
-``load_checkpoint_npz``.
+``train/checkpoint.py::flatten_pytree``, ``unflatten_pytree``,
+``save_checkpoint_npz`` and ``load_checkpoint_npz``.
 """
 from __future__ import annotations
 
@@ -72,10 +72,14 @@ def load_checkpoint_npz(path: str) -> Tuple[Any, Dict, Dict[str, np.ndarray]]:
     return unflatten_pytree(params_flat), meta, opt_flat
 
 
-def save_checkpoint_npz(path: str, params, meta: Optional[Dict] = None):
-    """Write ``params`` (tensor or numpy leaves) in the ``.npz`` layout that
-    both packages read."""
+def save_checkpoint_npz(path: str, params, meta: Optional[Dict] = None,
+                        opt_state_flat: Optional[Dict[str, np.ndarray]] = None):
+    """Write ``params`` (tensor or numpy leaves), and the optimizer leaves
+    where given (``opt/leaf0000``...), in the ``.npz`` layout that both
+    packages read."""
     flat = {"params" + _SEP + k: v for k, v in flatten_pytree(params).items()}
+    if opt_state_flat:
+        flat.update({"opt" + _SEP + k: v for k, v in opt_state_flat.items()})
     flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(),
                                      dtype=np.uint8)
     tmp = path + ".tmp.npz"

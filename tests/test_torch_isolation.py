@@ -30,6 +30,21 @@ for mode in ("design", "score"):
     cli_entry(["--mode", mode, "--checkpoint_na_mpnn", out + "/w.npz",
                "--pdb_path", out + "/s.pdb", "--out_folder", out + "/" + mode,
                "--device", "cpu", "--stats_format", "npz"])
+import dataclasses, torch
+from na_mpnn_tpu_torch.data.pdb import parse_pdb
+from na_mpnn_tpu_torch.train.collate import collate_batch
+from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+parsed = parse_pdb(out + "/s.pdb")
+keys = ("X", "X_m", "mask", "S", "R_idx", "chain_labels", "protein_mask",
+        "dna_mask", "rna_mask", "R_polymer_type")
+batch = collate_batch([{k: parsed[k] for k in keys}] * 2)
+cfg = dataclasses.replace(model_config_from_params({"MIXED_PRECISION": 0}),
+                          hidden_dim=32, node_features=32, edge_features=32,
+                          k_neighbors=8)
+trainer = Trainer(cfg, seed=0, device="cpu")
+gen = torch.Generator().manual_seed(0)
+losses = [float(trainer.train_step(batch, gen)["loss_av"]) for _ in range(2)]
+assert trainer.step == 2 and all(l == l for l in losses), losses
 leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "na_mpnn_tpu" or m.startswith("na_mpnn_tpu.")]
 assert leaked == ["jax", "na_mpnn_tpu"], leaked   # only the blocked stubs
