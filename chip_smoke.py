@@ -118,10 +118,13 @@ def _bound_ms(ops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _knn_bound(B, L, K):
+def _knn_bound(B, L, K, Lk=None):
     """kNN's least work per pair: the masked distance (12 operations), the
-    row max and about one comparison to select the k smallest."""
-    return _bound_ms(B * L * L * 14, B * L * 16 + B * L * K * 12)
+    row max and about one comparison to select the k smallest; with ``Lk``
+    (the query/key form) L query rows against Lk key rows."""
+    if Lk is None:
+        return _bound_ms(B * L * L * 14, B * L * 16 + B * L * K * 12)
+    return _bound_ms(B * L * Lk * 14, B * (L + Lk) * 16 + B * L * K * 12)
 
 
 def _rbf_bound(X_aug, X_m_aug, E_idx, H, num_rbf=16):
@@ -665,43 +668,89 @@ def _expected_train_launches(cfg):
     return want
 
 
-def training_phase(nb, fwd_ms, rows):
-    """The full-width Trainer on the card: 5 train steps and 1 eval step;
-    returns the launches of the whole run."""
-    import dataclasses
-
+def _train_steps(trainer, nb, want, tag, steps=5, generator=None):
+    """``steps`` train steps with the launches of every step held to
+    ``want``; returns (ms per step, peak bytes, the steps' launches)."""
     import torch
     from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
-    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
-                                                 to_device)
 
-    dev = torch.device("cuda")
-    cfg = model_config_from_params({"MIXED_PRECISION": 0})
-    trainer = Trainer(cfg, seed=0, device=dev)
     flat0 = trainer.flat.clone()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    want = _expected_train_launches(cfg)
-    total, step_ms = {}, []
+    step_ms = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    for step in range(5):
+    for step in range(steps):
         before = dict(LAUNCHES)
         t0 = time.perf_counter()
-        m = trainer.train_step(nb, gen)
+        m = trainer.train_step(nb, generator)
         loss = float(m["loss_av"])
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         counts = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()}
         counts = {k: v for k, v in counts.items() if v}
         if counts != want:
-            raise AssertionError(f"train step {step}: launches {counts}, want {want}")
+            raise AssertionError(f"{tag} step {step}: launches {counts}, want {want}")
         if not np.isfinite(loss):
-            raise AssertionError(f"train step {step}: loss {loss}")
-        print(f"train step {step}: loss {loss:.6f}, {step_ms[-1]:.2f} ms", flush=True)
+            raise AssertionError(f"{tag} step {step}: loss {loss}")
+        print(f"{tag} step {step}: loss {loss:.6f}, {step_ms[-1]:.2f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(trainer.flat).all()) or torch.equal(trainer.flat, flat0):
-        raise AssertionError("training: parameters not finite or not moved")
+        raise AssertionError(f"{tag}: parameters not finite or not moved")
+    return step_ms, peak, dict(LAUNCHES)
+
+
+def _grads_against_plain(tag, kernel_trainer, plain_trainer, batch, generator,
+                         want):
+    """One step's loss and gradients with the kernels against
+    ``kernels="torch"`` (both trainers hold the same parameters; the same
+    generator seed, or the mesh's row-keyed streams)."""
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+
+    def gen():
+        return None if generator is None else torch.Generator(
+            device="cuda").manual_seed(generator)
+
+    reset_launches()
+    loss_k, grad_k = kernel_trainer.loss_and_grads(batch, gen())[:2]
+    if {k: v for k, v in LAUNCHES.items() if v} != want:
+        raise AssertionError(f"{tag}: kernel step launches {dict(LAUNCHES)}")
+    reset_launches()
+    loss_p, grad_p = plain_trainer.loss_and_grads(batch, gen())[:2]
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"{tag}: the kernels='torch' step launched {dict(LAUNCHES)}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, off = 0.0, 0
+    for p in kernel_trainer.leaves:
+        a, b = grad_k[off:off + p.numel()], grad_p[off:off + p.numel()]
+        off += p.numel()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag}: a gradient is not finite")
+        worst = max(worst, float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30))
+    if not (rel < 1e-5 and worst < 1e-4):
+        raise AssertionError(f"{tag} kernels vs plain step: loss rel {rel:.3g}, "
+                             f"worst gradient leaf {worst:.3g}")
+    print(f"{tag} step kernels vs kernels=\"torch\" on the card: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, rel {rel:.3g} (< 1e-5); "
+          f"worst gradient leaf {worst:.3g} of its max (< 1e-4)", flush=True)
+
+
+def training_phase(nb, fwd_ms, rows):
+    """The full-width Trainer on the card: 5 train steps and 1 eval step;
+    returns the launches of the whole run and the median step ms."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES
+    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
+                                                 to_device)
+
+    dev = torch.device("cuda")
+    cfg = model_config_from_params({"MIXED_PRECISION": 0})
+    trainer = Trainer(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    want = _expected_train_launches(cfg)
+    step_ms, peak, _ = _train_steps(trainer, nb, want, "train", generator=gen)
     before = dict(LAUNCHES)
     e = trainer.eval_step(nb)
     lpt = e["loss_per_token"]
@@ -738,33 +787,353 @@ def training_phase(nb, fwd_ms, rows):
     # one step's loss and gradients: kernels against kernels="torch"
     plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
     plain.restore(path)
+    _grads_against_plain("training", trainer, plain, to_device(nb, dev), 7, want)
+    return total, median
+
+
+def mesh_kernel_phase(nb):
+    """The kernels of the multi-device slice against their plain versions
+    on the card at the training shape (B=8, L=768, K=32, H=128): the
+    query/key kNN (row 2) for a quarter shard (Lq = 192) and the whole
+    structure (Lq = 768) against Lk = 768, E_idx exact; the dense RBF
+    projection (row 5, relative error < 1e-5) and its weight gradient (row
+    6, < 1e-4 of its max, two launches bitwise equal); the message table
+    and its backward (rows 9, 10) for a 192-row shard against the 768-row
+    table. Returns the JSON rows of rows 2, 5 and 6."""
+    import torch
+    from na_mpnn_tpu_torch.models import init_params
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.models.features import build_augmented_atoms
+    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_edge
+    from na_mpnn_tpu_torch.train.trainer import to_device
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig()
+    H, K = cfg.hidden_dim, cfg.k_neighbors
     batch = to_device(nb, dev)
+    X_aug, X_m_aug, X_ref = build_augmented_atoms(batch["X"], batch["X_m"],
+                                                  batch, cfg)
+    mask = batch["mask"].float()
+    B, L = mask.shape
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    _, E_all = knn.knn_graph_cuda(X_ref, mask, K)
+    for Lq in (192, 768):
+        s0 = 192 if Lq == 192 else 0        # the second of four shards
+        Xq = X_ref[:, s0:s0 + Lq].contiguous()
+        mq = mask[:, s0:s0 + Lq].contiguous()
+        D_k, E_k = knn.knn_graph_qk_cuda(Xq, X_ref, mq, mask, K)
+        D_p, E_p = knn.knn_graph_qk_plain(Xq, X_ref, mq, mask, K)
+        if not (torch.equal(E_k, E_p) and torch.equal(E_k, E_all[:, s0:s0 + Lq])):
+            raise AssertionError(f"knn_qk Lq={Lq}: E_idx differs from the plain "
+                                 "version or the structure's rows")
+        err = float((D_k - D_p).abs().max())
+        ms = _sync_time(lambda: knn.knn_graph_qk_cuda(Xq, X_ref, mq, mask, K), 10)
+        plain_ms = _sync_time(lambda: knn.knn_graph_qk_plain(Xq, X_ref, mq, mask, K), 3)
+        bound = _knn_bound(B, Lq, K, Lk=L)
+        print(f"knn_qk B={B} Lq={Lq} Lk={L} K={K}: E_idx exact (also against the "
+              f"structure's rows), max|dD|={err:.3g}, {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]})", flush=True)
+        if Lq == L:
+            rows["knn_qk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound[0], bound_by=bound[1])
+
+    # rows 5 and 6 on the dense Trainer's operands
+    params = init_params(1, cfg, device=dev)
+    W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
+    E_idx = E_all
+    bound = _rbf_bound(X_aug, X_m_aug, E_idx, H)
+    E = E_idx.numel()
+    grid_ms = 1e3 * 2 * E * 18 * 18 * 16 * H / PEAK_FP32_FLOPS
+    out_k = rbf_edge.rbf_edge_cuda(X_aug, X_m_aug, E_idx, W)
+    out_p = rbf_edge.rbf_edge_features_plain(X_aug, X_m_aug, E_idx, W)
+    rel = _rel_err(out_k, out_p)
+    if not rel < REL_TOL:
+        raise AssertionError(f"rbf_edge: relative error {rel:.3g}")
+    err = float((out_k - out_p).abs().max())
+    del out_k, out_p
+    ms = _sync_time(lambda: rbf_edge.rbf_edge_cuda(X_aug, X_m_aug, E_idx, W), 5)
+    plain_ms = _sync_time(lambda: rbf_edge.rbf_edge_features_plain(
+        X_aug, X_m_aug, E_idx, W), 2)
+    print(f"rbf_edge (dense) B={B} L={L} K={K} H={H}: rel err {rel:.3g} "
+          f"(< {REL_TOL}), {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms by {bound[1]}; the full 18x18x16 grid "
+          f"{grid_ms:.4f} ms at 67 TFLOP/s)", flush=True)
+    rows["rbf_edge"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound[0], bound_by=bound[1])
+    g = torch.randn((B, L, K, H), generator=gen, device=dev)
+    dw_k = rbf_edge.rbf_edge_dw_cuda(X_aug, X_m_aug, E_idx, g)
+    dw_k2 = rbf_edge.rbf_edge_dw_cuda(X_aug, X_m_aug, E_idx, g)
+    dw_p = rbf_edge.rbf_edge_dw_plain(X_aug, X_m_aug, E_idx, g)
+    rel = _rel_err(dw_k, dw_p)
+    if not rel < 1e-4:
+        raise AssertionError(f"rbf_edge_dw: relative error {rel:.3g}")
+    if not torch.equal(dw_k, dw_k2):
+        raise AssertionError("rbf_edge_dw: two identical launches differ")
+    ms = _sync_time(lambda: rbf_edge.rbf_edge_dw_cuda(X_aug, X_m_aug, E_idx, g), 5)
+    plain_ms = _sync_time(lambda: rbf_edge.rbf_edge_dw_plain(X_aug, X_m_aug, E_idx, g), 2)
+    print(f"rbf_edge_dw (dense) B={B} L={L} K={K} H={H}: rel err {rel:.3g} "
+          f"(< 1e-4), two launches bitwise equal, {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}; the full "
+          f"grid {grid_ms:.4f} ms)", flush=True)
+    rows["rbf_edge_dw"] = dict(max_abs_err=float((dw_k - dw_p).abs().max()),
+                               ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                               bound_by=bound[1])
+    del dw_k, dw_k2, dw_p, g
+
+    # rows 9 and 10: the second of four 192-row shards against the table
+    # of the whole structure (Lk = 768)
+    Lq, s0 = 192, 192
+    N = B * Lq
+    eidx2 = E_all[:, s0:s0 + Lq].reshape(-1).contiguous()
+    h_V2 = torch.randn((N, H), generator=gen, device=dev)
+    h_E2 = torch.randn((N * K, H), generator=gen, device=dev)
+    m_att = (torch.rand((N * K,), generator=gen, device=dev) > 0.1).float()
+    m1d = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).float()
+    mbw = m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5).float()
+    ones = torch.ones_like(m_att)
+    for mode, ma, mb in (("enc_node", m_att, ones), ("enc_edge", ones, ones),
+                         ("dec", m1d, mbw)):
+        C = 2 * H if mode == "dec" else H
+        table = torch.randn((B * L, C), generator=gen, device=dev)
+        wa, wb, w2, w3 = (torch.randn((H, H), generator=gen, device=dev) / H ** 0.5
+                          for _ in range(4))
+        b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev) for _ in range(3))
+        args = (mode, h_V2, h_E2, table, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3)
+        out_k, x_k = mk.message_table_cuda(*args, K=K, L=Lq, Lk=L, save_x=True)
+        out_p, x_p = mk.message_table_plain(*args, K=K, L=Lq, Lk=L, save_x=True)
+        fwd = max(_rel_err(out_k, out_p), _rel_err(x_k, x_p))
+        if not fwd < REL_TOL:
+            raise AssertionError(f"message_table {mode} Lk != L: rel err {fwd:.3g}")
+        g = torch.randn((N * K if mode == "enc_edge" else N, H), generator=gen,
+                        device=dev)
+        bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
+        got = mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L)
+        want = mk.message_table_bwd_plain(*bargs, K=K, L=Lq, Lk=L)
+        errs = [_rel_err(a, b) for a, b in zip(got, want)]
+        if not (max(errs[:2]) < REL_TOL and max(errs) < 1e-4):
+            raise AssertionError(f"message_table_bwd {mode} Lk != L: rel errs {errs}")
+        ms = _sync_time(lambda: mk.message_table_cuda(*args, K=K, L=Lq, Lk=L,
+                                                      save_x=True), 10)
+        bms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L), 10)
+        print(f"message_table {mode} shard Lq={Lq} of Lk={L} (B={B}): forward rel "
+              f"err {fwd:.3g} (< {REL_TOL}), {ms:.4f} ms; backward worst rel err "
+              f"{max(errs):.3g} (g_hV, g_ein < {REL_TOL}; g_table {errs[2]:.3g} "
+              f"[{B * L} x {C}]), {bms:.4f} ms", flush=True)
+        del got, want, out_p, x_p
+    return rows
+
+
+def _count_since(before):
+    from na_mpnn_tpu_torch.ops import LAUNCHES
+    return {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+            if v - before.get(k, 0)}
+
+
+def dense_inference_phase(pdb):
+    """``rbf_mode="dense"`` through the model API at the main path's
+    structure (L=389): encode + sample (B=1) and score (B=10), log-probs
+    against ``kernels="torch"`` on the card (< 1e-4, sampled tokens equal
+    under the same decode order and Gumbel noise); host-clock ms of encode
+    and score. Returns the launches of the kernel runs."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.data.featurize import featurize_inference
+    from na_mpnn_tpu_torch.data.pdb import parse_pdb
+    from na_mpnn_tpu_torch.models import encode, init_params, sample, score
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig(rbf_mode="dense")
+    plain = dataclasses.replace(cfg, kernels="torch")
+    params = init_params(0, cfg, device=dev)
+    parsed = parse_pdb(pdb)
+    L = len(parsed["S"])
+    batch = featurize_inference(parsed, np.ones(L, np.int32), device=dev)
+    batch["decoding_order"] = torch.randperm(
+        L, generator=torch.Generator().manual_seed(3)).to(dev)[None]
+    tiled = {k: v.repeat_interleave(10, 0) for k, v in batch.items()}
+    gumbel = -torch.log(-torch.log(torch.rand(
+        (L, 1, 33), generator=torch.Generator().manual_seed(4)).clamp_min(1e-30))).to(dev)
+    torch.cuda.synchronize()
     reset_launches()
-    loss_k, grad_k = trainer.loss_and_grads(
-        batch, torch.Generator(device=dev).manual_seed(7))[:2]
-    if {k: v for k, v in LAUNCHES.items() if v} != want:
-        raise AssertionError(f"kernel step launches {dict(LAUNCHES)}")
+    encode(params, cfg, batch)
+    out_k = sample(params, cfg, batch, None, gumbel=gumbel)
+    lp_k = score(params, cfg, tiled, decoding_order=tiled["decoding_order"])["log_probs"]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    if counts.get("rbf_edge", 0) != 3 or counts.get("rbf_classed", 0):
+        raise AssertionError(f"dense inference: launches {counts}")
     reset_launches()
-    loss_p, grad_p = plain.loss_and_grads(
-        batch, torch.Generator(device=dev).manual_seed(7))[:2]
+    out_p = sample(params, plain, batch, None, gumbel=gumbel)
+    lp_p = score(params, plain, tiled, decoding_order=tiled["decoding_order"])["log_probs"]
     if any(LAUNCHES.values()):
-        raise AssertionError(f"the kernels='torch' step launched {dict(LAUNCHES)}")
-    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    worst, off = 0.0, 0
-    for p in trainer.leaves:
-        a, b = grad_k[off:off + p.numel()], grad_p[off:off + p.numel()]
-        off += p.numel()
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError("training: a gradient is not finite")
-        worst = max(worst, float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30))
-    if not (rel < 1e-5 and worst < 1e-4):
-        raise AssertionError(f"kernels vs plain step: loss rel {rel:.3g}, "
-                             f"worst gradient leaf {worst:.3g}")
-    print(f"training step kernels vs kernels=\"torch\" on the card (dropout and "
-          f"noise on, same generator seed): loss {float(loss_k):.6f} vs "
-          f"{float(loss_p):.6f}, rel {rel:.3g} (< 1e-5); worst gradient leaf "
-          f"{worst:.3g} of its max (< 1e-4)", flush=True)
-    return total
+        raise AssertionError(f"dense kernels='torch' launched {dict(LAUNCHES)}")
+    d_sample = float((out_k["log_probs"] - out_p["log_probs"]).abs().max())
+    d_score = float((lp_k - lp_p).abs().max())
+    if not (torch.equal(out_k["S"], out_p["S"]) and d_sample < 1e-4 and d_score < 1e-4):
+        raise AssertionError(f"dense inference vs plain: tokens equal "
+                             f"{torch.equal(out_k['S'], out_p['S'])}, max |d log p| "
+                             f"sample {d_sample:.3g}, score {d_score:.3g}")
+    _check_finite(lp_k.cpu(), (10, L, 33), "dense score log_probs")
+    before = dict(LAUNCHES)
+    enc_ms = _host_ms(lambda: encode(params, cfg, batch), 10)
+    score_ms = _host_ms(lambda: score(params, cfg, tiled,
+                                      decoding_order=tiled["decoding_order"]), 5)
+    timed = _count_since(before)
+    print(f"dense inference L={L}: encode + sample (B=1) + score (B=10) launched "
+          f"{counts}; kernels vs kernels=\"torch\": tokens equal, max |d log p| "
+          f"sample {d_sample:.3g}, score {d_score:.3g} (< 1e-4); encode B=1 "
+          f"{enc_ms:.2f} ms, score B=10 {score_ms:.2f} ms (host clock; timing "
+          f"runs launched {timed})", flush=True)
+    return counts
+
+
+def _expected_dense_launches(cfg):
+    want = _expected_train_launches(cfg)
+    del want["rbf_classed"], want["rbf_classed_dw"]
+    return {**want, "rbf_edge": 1, "rbf_edge_dw": 1}
+
+
+def dense_training_phase(nb):
+    """5 full-width Trainer steps with ``rbf_mode="dense"`` (launches per
+    step: kNN 1, dense RBF 1, its weight gradient 1, message table 9, its
+    backward 9); returns the launches and the median step ms."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+
+    cfg = dataclasses.replace(model_config_from_params({"MIXED_PRECISION": 0}),
+                              rbf_mode="dense")
+    trainer = Trainer(cfg, seed=0, device="cuda")
+    want = _expected_dense_launches(cfg)
+    step_ms, peak, counts = _train_steps(
+        trainer, nb, want, "dense train",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    median = float(np.median(step_ms[1:]))
+    print(f"dense training B=8 L=768 K=32 H=128: {median:.2f} ms per train step "
+          f"(median of steps 2-5; all: {', '.join(f'{t:.2f}' for t in step_ms)}); "
+          f"peak memory {peak / 2**30:.3f} GiB; launches per step {want}",
+          flush=True)
+    return counts, median
+
+
+def _stream_cost(cfg, nb):
+    """The random draws of one training step at the training shape, timed
+    alone (CUDA events): the mesh route's row-keyed streams (noise, decode
+    order, dropout on 3 edge messages and 12 node tensors) against the
+    one-device route's ``torch.Generator`` draws of the same shapes."""
+    import torch
+    from na_mpnn_tpu_torch.models.modules import dropout
+    from na_mpnn_tpu_torch.parallel import graph_parallel as gp
+
+    dev = torch.device("cuda")
+    B, L = nb["S"].shape
+    H, K, A = cfg.hidden_dim, cfg.k_neighbors, nb["X"].shape[2]
+    n_node = 2 * (cfg.num_encoder_layers + cfg.num_decoder_layers)
+    rid = torch.arange(B * L, device=dev).view(B, L)
+    edge = torch.randn((B, L, K * H), device=dev)
+    node = torch.randn((B, L, H), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rows():
+        gp.row_normal((0, 1), gp.TAG_NOISE, rid, (A, 3), torch.float32)
+        gp.row_normal((0, 1), gp.TAG_ORDER, rid, (), torch.float32)
+        for i in range(cfg.num_encoder_layers):
+            gp.row_dropout(cfg.dropout, (0, 1), 200 + i, rid)(edge, 2)
+        for i in range(n_node):
+            gp.row_dropout(cfg.dropout, (0, 1), 300 + i, rid)(node, 0)
+
+    def generator():
+        torch.randn((B, L, A, 3), generator=gen, device=dev)
+        torch.randn((B, L), generator=gen, device=dev)
+        for _ in range(cfg.num_encoder_layers):
+            dropout(edge, cfg.dropout, gen)
+        for _ in range(n_node):
+            dropout(node, cfg.dropout, gen)
+
+    row_ms, gen_ms = _sync_time(rows, 5), _sync_time(generator, 5)
+    print(f"random draws of one training step B={B} L={L}: row-keyed streams "
+          f"{row_ms:.2f} ms, torch.Generator draws {gen_ms:.2f} ms (difference "
+          f"{row_ms - gen_ms:.2f} ms)", flush=True)
+
+
+def mesh_phase(nb):
+    """The mesh route on one card: a one-rank NCCL group from a FileStore
+    under ``build/chip_smoke/``; at the training shape, the deterministic
+    ``forward_graph_parallel`` against the one-device ``forward`` under the
+    same decode order (log-probs < 1e-4); 5 steps of ``Trainer(mesh=(1,1))``
+    (launches per step: knn_qk 1, RBF 1, RBF dW 1, message table 9, its
+    backward 9); one step with the kernels against ``kernels="torch"``.
+    Returns the launches of the kernel runs."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from na_mpnn_tpu_torch.models import forward, init_params
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.parallel.graph_parallel import forward_graph_parallel
+    from na_mpnn_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                 make_mesh, shard_batch)
+    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
+                                                 to_device)
+
+    dev = torch.device("cuda")
+    store = os.path.join(OUT, "mesh_store")
+    if os.path.exists(store):
+        os.remove(store)
+    initialize_distributed(1, 0, "cuda", init_file=store)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        cfg = model_config_from_params({"MIXED_PRECISION": 0})
+        params = init_params(4, cfg, device=dev)
+        batch = to_device(nb, dev)
+        B, L = batch["S"].shape
+        g = torch.Generator().manual_seed(5)
+        order = torch.stack([torch.randperm(L, generator=g) for _ in range(B)]).to(dev)
+        reset_launches()
+        with torch.no_grad():
+            lp_gp = forward_graph_parallel(params, cfg, shard_batch(batch, mesh),
+                                           mesh, order)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            lp_1 = forward(params, cfg, {**batch, "decoding_order": order})[0]
+        want_fwd = {"knn_qk": 1, "rbf_classed": 1,
+                    **{f"message_table_{m}": 3 for m in MODES}}
+        if counts != want_fwd:
+            raise AssertionError(f"forward_graph_parallel launches {counts}, "
+                                 f"want {want_fwd}")
+        d = float((lp_gp - lp_1).abs().max())
+        if not d < 1e-4:
+            raise AssertionError(f"forward_graph_parallel vs forward: {d:.3g}")
+        print(f"mesh (1,1) NCCL: forward_graph_parallel vs forward B={B} L={L}, "
+              f"same decode order: max |d log p| {d:.3g} (< 1e-4); launches "
+              f"{counts}", flush=True)
+
+        trainer = Trainer(cfg, seed=0, mesh=mesh)
+        want = {**_expected_train_launches(cfg), "knn_qk": 1}
+        del want["knn"]
+        step_ms, peak, train_counts = _train_steps(trainer, nb, want, "mesh train")
+        for k, v in train_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        median = float(np.median(step_ms[1:]))
+        print(f"mesh (1,1) Trainer B=8 L=768 K=32 H=128: {median:.2f} ms per train "
+              f"step (median of steps 2-5; all: "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)}); peak memory "
+              f"{peak / 2**30:.3f} GiB; launches per step {want}", flush=True)
+        _stream_cost(cfg, nb)
+        path = os.path.join(OUT, "mesh_train.npz")
+        trainer.save(path, epoch=1, save_step=0)
+        plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, mesh=mesh)
+        plain.restore(path)
+        _grads_against_plain("mesh (1,1) training", trainer, plain,
+                             trainer.device_batch(nb), None, want)
+    finally:
+        dist.destroy_process_group()
+    return counts
 
 
 def main():
@@ -776,19 +1145,36 @@ def main():
     L = write_synthetic_pdb(pdb)
     rows = kernel_phase(pdb)
     launches = main_path_phase(pdb, L)
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
     breakdown_phase(pdb)
     reference_check_phase(pdb)
+    add(dense_inference_phase(pdb))
     nb = training_batch()
     train_rows, fwd_ms = train_kernel_phase(nb)
     rows.update(train_rows)
-    for name, n in training_phase(nb, fwd_ms, rows).items():
-        launches[name] = launches.get(name, 0) + n
+    rows.update(mesh_kernel_phase(nb))
+    counts, classed_ms = training_phase(nb, fwd_ms, rows)
+    add(counts)
+    counts, dense_ms = dense_training_phase(nb)
+    add(counts)
+    print(f"dense against classed training step: {dense_ms:.2f} ms vs "
+          f"{classed_ms:.2f} ms ({dense_ms / classed_ms:.3f}x)", flush=True)
+    add(mesh_phase(nb))
     sources = {
         "knn": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:106"),
+        "knn_qk": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:54"),
         "rbf_classed": ("na_mpnn_tpu_torch/csrc/rbf_classed.cu",
                         "na_mpnn_tpu/ops/rbf_classed.py:443"),
         "rbf_classed_dw": ("na_mpnn_tpu_torch/csrc/rbf_classed_dw.cu",
                            "na_mpnn_tpu/ops/rbf_classed.py:476"),
+        "rbf_edge": ("na_mpnn_tpu_torch/csrc/rbf_edge.cu",
+                     "na_mpnn_tpu/ops/rbf_edge.py:99"),
+        "rbf_edge_dw": ("na_mpnn_tpu_torch/csrc/rbf_edge_dw.cu",
+                        "na_mpnn_tpu/ops/rbf_edge.py:197"),
     }
     for mode in MODES:
         sources[f"message_table_{mode}"] = (

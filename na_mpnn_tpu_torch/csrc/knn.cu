@@ -1,21 +1,25 @@
-// Masked exact k-nearest-neighbour graph for Hopper (sm_90a).
+// Masked exact k-nearest-neighbour graph for Hopper (sm_90a), in two entry
+// points over one kernel:
+//   knn_forward     replaces na_mpnn_tpu/ops/knn.py::knn_graph_pallas
+//                   (knn.py:106): the L rows of a structure against each other;
+//   knn_qk_forward  replaces knn_graph_pallas_qk (knn.py:54): Lq query rows
+//                   against Lk key rows (the graph-parallel forward: a shard's
+//                   rows against the all-gathered structure).
+// Both TPU kernels (_kernel, knn.py:26) give each grid step a [256, Lk] tile
+// of the distance matrix in VMEM and run K min/argmin sweeps over it.
 //
-// Replaces the TPU kernel na_mpnn_tpu/ops/knn.py::knn_graph_pallas (_kernel,
-// knn.py:26), which gives each grid step a [256, L] tile of the distance
-// matrix in VMEM and runs K min/argmin sweeps over it.
-//
-// Semantics (those of the plain version, ops/knn.py::knn_graph_plain):
-//   D[i,j] = m_i*m_j * sqrt(dx*dx + dy*dy + dz*dz + eps)
+// Semantics (those of the plain version, ops/knn.py::knn_graph_qk_plain):
+//   D[i,j] = m_i*m_j * sqrt(dx*dx + dy*dy + dz*dz + eps), j over the Lk keys
 //   invalid pairs get the row max added (they sort last)
-//   the k smallest, ascending, ties to the lowest index.
+//   the k smallest, ascending, ties to the lowest key index.
 // E_idx must equal the plain version exactly, so the distance is built with
 // the round-to-nearest intrinsics (__fmul_rn, __fadd_rn, __fsqrt_rn) in the
 // plain version's order: no multiply-add is contracted into an FMA.
 //
-// What bounds it on the card: the B*L*L distances and the k passes over
+// What bounds it on the card: the B*Lq*Lk distances and the k passes over
 // each row (operations, with a few bytes per row in and k*12 bytes out).
-// Design: one block of 256 threads per query row. The row's L distances
-// live in shared memory (4*L bytes, 24.6 KB at L = 6144), so each of the k
+// Design: one block of 256 threads per query row. The row's Lk distances
+// live in shared memory (4*Lk bytes, 24.6 KB at Lk = 6144), so each of the k
 // argmin passes reads shared memory only; a pass is a per-thread scan, a warp
 // shuffle reduction on (value, index) and one across the 8 warps.
 #include <cuda_runtime.h>
@@ -44,21 +48,22 @@ __device__ __forceinline__ float pair_dist(const float* xi, const float* xj,
 }
 
 __global__ void __launch_bounds__(kThreads)
-knn_kernel(const float* __restrict__ X, const float* __restrict__ mask, int L,
-           int k, float eps, float* __restrict__ D_out,
+knn_kernel(const float* __restrict__ Xq, const float* __restrict__ mask_q,
+           const float* __restrict__ Xk, const float* __restrict__ mask_k,
+           int Lq, int L, int k, float eps, float* __restrict__ D_out,
            long long* __restrict__ E_out) {
-  extern __shared__ float dist[];  // [L]
+  extern __shared__ float dist[];  // [L]: this row's distances to the L keys
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ float row_max;
 
-  const int row = blockIdx.x;  // b*L + i
-  const int b = row / L;
-  const float* Xb = X + (size_t)b * L * 3;
-  const float* mb = mask + (size_t)b * L;
-  const float xi[3] = {X[(size_t)row * 3], X[(size_t)row * 3 + 1],
-                       X[(size_t)row * 3 + 2]};
-  const float mi = mask[row];
+  const int row = blockIdx.x;  // b*Lq + i
+  const int b = row / Lq;
+  const float* Xb = Xk + (size_t)b * L * 3;
+  const float* mb = mask_k + (size_t)b * L;
+  const float xi[3] = {Xq[(size_t)row * 3], Xq[(size_t)row * 3 + 1],
+                       Xq[(size_t)row * 3 + 2]};
+  const float mi = mask_q[row];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   float local_max = -CUDART_INF_F;
@@ -109,16 +114,34 @@ knn_kernel(const float* __restrict__ X, const float* __restrict__ mask, int L,
   }
 }
 
-}  // namespace
-
-extern "C" int knn_forward(const float* X, const float* mask, int B, int L,
-                           int k, float eps, float* D_out, long long* E_out,
-                           cudaStream_t stream) {
-  size_t smem = (size_t)L * sizeof(float);
+int launch(const float* Xq, const float* mask_q, const float* Xk,
+           const float* mask_k, int B, int Lq, int Lk, int k, float eps,
+           float* D_out, long long* E_out, cudaStream_t stream) {
+  if (B < 1 || Lq < 1 || k < 1 || k > Lk) return (int)cudaErrorInvalidValue;
+  size_t smem = (size_t)Lk * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  knn_kernel<<<B * L, kThreads, smem, stream>>>(X, mask, L, k, eps, D_out,
-                                                E_out);
+  knn_kernel<<<B * Lq, kThreads, smem, stream>>>(Xq, mask_q, Xk, mask_k, Lq,
+                                                 Lk, k, eps, D_out, E_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// X [B, L, 3], mask [B, L] -> D_out [B, L, k], E_out [B, L, k].
+extern "C" int knn_forward(const float* X, const float* mask, int B, int L,
+                           int k, float eps, float* D_out, long long* E_out,
+                           cudaStream_t stream) {
+  return launch(X, mask, X, mask, B, L, L, k, eps, D_out, E_out, stream);
+}
+
+// Xq [B, Lq, 3], mask_q [B, Lq], Xk [B, Lk, 3], mask_k [B, Lk]
+// -> D_out [B, Lq, k], E_out [B, Lq, k] (key indices).
+extern "C" int knn_qk_forward(const float* Xq, const float* mask_q,
+                              const float* Xk, const float* mask_k, int B,
+                              int Lq, int Lk, int k, float eps, float* D_out,
+                              long long* E_out, cudaStream_t stream) {
+  return launch(Xq, mask_q, Xk, mask_k, B, Lq, Lk, k, eps, D_out, E_out,
+                stream);
 }

@@ -4,10 +4,12 @@
 // Replaces the TPU kernel na_mpnn_tpu/ops/message_kernels.py::
 // _message_table_fwd_call (_fwd_kernel_table, message_kernels.py:314).
 // Per edge row e = (node n, neighbour slot k), with j = eidx[e] local to the
-// structure b = n / L and table row b*L + j:
-//   enc modes: x = h_V[n]@Wa + e_in[e]@Wb + table[b*L+j] + b1
+// structure b = n / L and table row t = b*Lk + j (the table holds Lk rows per
+// structure: Lk = L on one device; on the graph-parallel route the nodes are a
+// shard's L rows and the table the all-gathered structure's Lk rows):
+//   enc modes: x = h_V[n]@Wa + e_in[e]@Wb + table[t] + b1
 //   dec mode:  x = h_V[n]@Wa + m1d[e]*(e_in[e]@Wb)
-//                  + mbw[e]*A[b*L+j] + m1d[e]*B[b*L+j] + b1,   table = [A | B]
+//                  + mbw[e]*A[t] + m1d[e]*B[t] + b1,   table = [A | B]
 //   m = W3 . gelu(W2 . gelu(x) + b2) + b3          (exact erf GELU)
 //   enc-node: out[n] = sum_k mask_att[e]*m / 30     -> [N, H]
 //   enc-edge: out[e] = m                            -> [N*K, H]
@@ -50,7 +52,7 @@ struct Params {
   const float* b3;
   float* out;
   float* x_out;
-  int N, K, L, T;
+  int N, K, L, Lk, T;
 };
 
 template <int H>
@@ -92,7 +94,7 @@ message_table_kernel(Params p, int mode) {
     }
     const size_t e = e0 + r;
     const int t = r / p.K;
-    const size_t grow = (size_t)((n0 + t) / p.L) * p.L + p.eidx[e];
+    const size_t grow = (size_t)((n0 + t) / p.L) * p.Lk + p.eidx[e];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int h = tx * CPT + c;
@@ -173,11 +175,11 @@ extern "C" int message_table_forward(
     const long long* eidx, const float* m_att, const float* mbw,
     const float* wa, const float* wb, const float* b1, const float* w2,
     const float* b2, const float* w3, const float* b3, float* out,
-    float* x_out, int N, int K, int L, int H, cudaStream_t stream) {
-  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec)
+    float* x_out, int N, int K, int L, int Lk, int H, cudaStream_t stream) {
+  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec || L < 1 || Lk < 1)
     return (int)cudaErrorInvalidValue;
-  Params p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1, w2,
-           b2,  w3,   b3,    out,  x_out, N,   K,  L,  kRows / K};
+  Params p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1, w2, b2,
+           w3,  b3,   out,   x_out, N,   K,   L,  Lk, kRows / K};
   switch (H) {
     case 32: return launch<32>(p, mode, stream);
     case 64: return launch<64>(p, mode, stream);

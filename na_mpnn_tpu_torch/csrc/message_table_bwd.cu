@@ -5,13 +5,14 @@
 // _message_table_bwd_call (_bwd_kernel_table, message_kernels.py:359). It
 // resumes from the pre-GELU x that the forward saved (x_out of
 // message_table.cu), so the gather is never recomputed. Per edge row e
-// (node n, structure b = n / L, neighbour row b*L + eidx[e]):
+// (node n, structure b = n / L, table row t = b*Lk + eidx[e]; Lk = L on one
+// device, the all-gathered structure's length on the graph-parallel route):
 //   u1 = gelu(x), y = u1@W2 + b2, u2 = gelu(y)
 //   g_m = g[e] (enc-edge) | g[n]*mask_att[e]/30 (enc-node) | g[n]/30 (dec)
 //   dW3 += u2^T g_m, db3 += g_m, g_y = (g_m@W3^T) * gelu'(y)
 //   dW2 += u1^T g_y, db2 += g_y, g_x = (g_y@W2^T) * gelu'(x), db1 += g_x
-//   enc: g_table[b*L+eidx] += g_x; g_e = g_x
-//   dec: g_table[b*L+eidx] += [mbw*g_x | m1d*g_x]; g_e = m1d*g_x (m1d rides
+//   enc: g_table[t] += g_x; g_e = g_x
+//   dec: g_table[t] += [mbw*g_x | m1d*g_x]; g_e = m1d*g_x (m1d rides
 //        mask_att)
 //   g_ein = g_e@Wb^T, dWb += e_in^T g_e
 //   s[n] = sum_k g_x, g_hV = s@Wa^T, dWa += h_V^T s
@@ -61,7 +62,7 @@ struct Params {
   float* g_tab;
   float* part;
   float* wT;  // [4][H][H]: Wa^T, Wb^T, W2^T, W3^T (written per launch)
-  int N, K, L, T, tiles;
+  int N, K, L, Lk, T, tiles;
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -262,7 +263,7 @@ message_table_bwd_kernel(Params p, int mode) {
       const int idx = 4 * (tid + v * kThreads), r = idx / H, h = idx % H;
       if (r >= rows) continue;
       const size_t e = e0 + r;
-      const size_t grow = (size_t)((n0 + r / p.K) / p.L) * p.L + p.eidx[e];
+      const size_t grow = (size_t)((n0 + r / p.K) / p.L) * p.Lk + p.eidx[e];
       const float4 gx = *reinterpret_cast<const float4*>(XS + idx);
       float* dst = p.g_tab + grow * C + h;
       if (mode == kDec) {
@@ -381,22 +382,23 @@ int launch(const Params& p, int mode, int nparts, float* wgrad,
 }  // namespace
 
 // wgrad [4H^2 + 3H] = [dWa | dWb | dW2 | dW3 | db1 | db2 | db3];
-// scratch part [nparts, 4H^2 + 3H] and wT [4H^2]; g_tab [N, C] must be zero
-// on entry.
+// scratch part [nparts, 4H^2 + 3H] and wT [4H^2]; g_tab [(N / L) * Lk, C]
+// must be zero on entry.
 extern "C" int message_table_backward(
     int mode, const float* h_V, const float* e_in, const float* x,
     const long long* eidx, const float* m_att, const float* mbw,
     const float* wa, const float* wb, const float* w2, const float* b2,
     const float* w3, const float* g, float* g_hV, float* g_ein, float* g_tab,
-    float* part, float* wT, float* wgrad, int N, int K, int L, int H,
+    float* part, float* wT, float* wgrad, int N, int K, int L, int Lk, int H,
     int nparts, cudaStream_t stream) {
-  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec || nparts < 1)
+  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec || nparts < 1 ||
+      L < 1 || Lk < 1)
     return (int)cudaErrorInvalidValue;
   const int T = kRows / K;
   const int tiles = (N + T - 1) / T;
   if (nparts > tiles) nparts = tiles;
-  Params p{h_V,  e_in,  x,    eidx, m_att, mbw, wa, wb, w2, b2,   w3, g,
-           g_hV, g_ein, g_tab, part, wT,    N,   K,  L,  T,  tiles};
+  Params p{h_V,  e_in,  x,     eidx, m_att, mbw, wa, wb, w2, b2, w3, g,
+           g_hV, g_ein, g_tab, part, wT,    N,   K,  L,  Lk, T,  tiles};
   switch (H) {
     case 32: return launch<32>(p, mode, nparts, wgrad, stream);
     case 64: return launch<64>(p, mode, nparts, wgrad, stream);

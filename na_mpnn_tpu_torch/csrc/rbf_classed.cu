@@ -14,24 +14,24 @@
 // only that group; a mixed tile runs all four and sums them, which equals the
 // dense result because every masked pair contributes exactly 0 (explicit mask
 // on the bin, exact per-bin expf: the fp32 path of the TPU kernel).
+// The neighbour rows are a gathered operand (Xk, Mk, indexed by nbr): the
+// query/key entry rbf_edge_features_classed_qk (rbf_classed.py:600), with a
+// shard's query rows against the all-gathered structure, is the same launch.
 //
 // What bounds it on the card: operations. Per edge the populated block costs
 // 2*H*16*Aq*An multiply-adds (about 0.7 MFLOP for an NN edge at H = 128)
 // against about 1.3 KB of coordinates, masks, index and output.
 // Design: one block of 128 threads per tile of 32 edges. The block gathers
-// its edges' query and neighbour rows itself (global row b*L + E_idx), keeps
+// its edges' query and neighbour rows itself (rbf_common.cuh), keeps
 // one bin's values for the tile's atom pairs in shared memory, and each
 // thread accumulates 32 edges x (H/128) output columns in registers while the
 // group table streams through L2 (read once per tile, coalesced across the
 // threads' columns).
-#include <cuda_runtime.h>
+#include "rbf_common.cuh"
 
 namespace {
 
-constexpr int kA = 18;        // augmented atom slots
 constexpr int kNP = 5;        // protein block P = PERM slots [0, 5)
-constexpr int kR = 16;        // RBF bins
-constexpr int kTE = 32;       // edges per tile
 constexpr int kThreads = 128;
 constexpr int kMaxAA = 13 * 13;
 
@@ -49,6 +49,7 @@ __device__ __forceinline__ int side_code(const float* m) {
 template <int HC>
 __global__ void __launch_bounds__(kThreads)
 rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
+                   const float* __restrict__ Xk, const float* __restrict__ Mk,
                    const long long* __restrict__ nbr, int E, int K, int H,
                    Tables tabs, float* __restrict__ out) {
   __shared__ float qx[kTE][3 * kA], nx[kTE][3 * kA];
@@ -62,28 +63,8 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
     code_lo[tid] = 3;
     code_hi[tid] = -1;
   }
-  for (int idx = tid; idx < kTE * 3 * kA; idx += kThreads) {
-    int e = idx / (3 * kA), c = idx % (3 * kA);
-    int ge = e0 + e;
-    float q = 0.f, n = 0.f;
-    if (ge < E) {
-      q = Xq[(size_t)(ge / K) * 3 * kA + c];
-      n = Xq[(size_t)nbr[ge] * 3 * kA + c];
-    }
-    qx[e][c] = q;
-    nx[e][c] = n;
-  }
-  for (int idx = tid; idx < kTE * kA; idx += kThreads) {
-    int e = idx / kA, c = idx % kA;
-    int ge = e0 + e;
-    float q = 0.f, n = 0.f;
-    if (ge < E) {
-      q = Mq[(size_t)(ge / K) * kA + c];
-      n = Mq[(size_t)nbr[ge] * kA + c];
-    }
-    qm[e][c] = q;
-    nm[e][c] = n;
-  }
+  load_edge_tile(Xq, Mq, Xk, Mk, nbr, E, K, e0, &qx[0][0], &nx[0][0],
+                 &qm[0][0], &nm[0][0]);
   __syncthreads();
   if (tid < kTE && e0 + tid < E) {
     int cq = side_code(qm[tid]), cn = side_code(nm[tid]);
@@ -103,8 +84,6 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
 #pragma unroll
     for (int e = 0; e < kTE; ++e) acc[c][e] = 0.f;
 
-  const float sigma = 1.25f;
-  const double step = 20.0 / (kR - 1);
   for (int gi = 0; gi < 4; ++gi) {
     const int g = pure ? g_pure : gi;
     const int q0 = (g >> 1) ? kNP : 0, Aq = (g >> 1) ? kA - kNP : kNP;
@@ -112,22 +91,14 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
     const int AA = Aq * An;
     const float* W = tabs.w[g];
     for (int r = 0; r < kR; ++r) {
-      const float mu = (float)(2.0 + r * step);
+      const float mu = bin_mu(r);
       // Each bin recomputes its pair distances (a few operations against
       // the 2*H of the projection) so that only one [AA][32] buffer fits
       // in the 48 KB of static shared memory.
       for (int idx = tid; idx < AA * kTE; idx += kThreads) {
-        int a = idx / kTE, e = idx % kTE;
-        int qa = q0 + a / An, na = n0 + a % An;
-        float v = 0.f;
-        if (qm[e][qa] != 0.f && nm[e][na] != 0.f) {
-          float dx = qx[e][qa] - nx[e][na];
-          float dy = qx[e][kA + qa] - nx[e][kA + na];
-          float dz = qx[e][2 * kA + qa] - nx[e][2 * kA + na];
-          float z = (sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f) - mu) / sigma;
-          v = expf(-z * z);
-        }
-        bins[a][e] = v;
+        const int a = idx / kTE, e = idx % kTE;
+        bins[a][e] = rbf_bin(&qx[0][0], &nx[0][0], &qm[0][0], &nm[0][0], e,
+                             q0 + a / An, n0 + a % An, mu);
       }
       __syncthreads();
       const float* Wr = W + (size_t)r * AA * H;
@@ -168,7 +139,11 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
 
 }  // namespace
 
+// Xq [Nq, 3*18], Mq [Nq, 18] (query rows, PERM order), Xk [Nk, 3*18],
+// Mk [Nk, 18] (key rows), nbr [E] (key row of each edge; the query row of
+// edge e is e / K), the four group tables; out [E, H].
 extern "C" int rbf_classed_forward(const float* Xq, const float* Mq,
+                                   const float* Xk, const float* Mk,
                                    const long long* nbr, int E, int K, int H,
                                    const float* w0, const float* w1,
                                    const float* w2, const float* w3,
@@ -176,11 +151,11 @@ extern "C" int rbf_classed_forward(const float* Xq, const float* Mq,
   Tables t{{w0, w1, w2, w3}};
   int blocks = (E + kTE - 1) / kTE;
   if (H <= kThreads) {
-    rbf_classed_kernel<1><<<blocks, kThreads, 0, stream>>>(Xq, Mq, nbr, E, K,
-                                                           H, t, out);
+    rbf_classed_kernel<1><<<blocks, kThreads, 0, stream>>>(Xq, Mq, Xk, Mk, nbr,
+                                                           E, K, H, t, out);
   } else if (H <= 2 * kThreads) {
-    rbf_classed_kernel<2><<<blocks, kThreads, 0, stream>>>(Xq, Mq, nbr, E, K,
-                                                           H, t, out);
+    rbf_classed_kernel<2><<<blocks, kThreads, 0, stream>>>(Xq, Mq, Xk, Mk, nbr,
+                                                           E, K, H, t, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -31,14 +31,12 @@
 // g (about 1 KB per edge). The cost of this design: g and the tile operands
 // are read once per slice of the tile's group (4 slices of PP, 9 of PN and
 // NP, 22 of NN, 44 for a mixed tile), mostly from L2.
-#include <cuda_runtime.h>
+// The neighbour rows are a gathered operand (Xk, Mk), as in the forward.
+#include "rbf_common.cuh"
 
 namespace {
 
-constexpr int kA = 18;        // augmented atom slots
 constexpr int kNP = 5;        // protein block P = PERM slots [0, 5)
-constexpr int kR = 16;        // RBF bins
-constexpr int kTE = 32;       // edges per tile
 constexpr int kThreads = 256;
 constexpr int kSliceRows = 128;
 constexpr int kSplit = 16;    // edge chunks
@@ -55,6 +53,7 @@ __device__ __forceinline__ int group_aq(int g) { return (g >> 1) ? kA - kNP : kN
 __device__ __forceinline__ int group_an(int g) { return (g & 1) ? kA - kNP : kNP; }
 
 __global__ void classify_tiles(const float* __restrict__ Mq,
+                               const float* __restrict__ Mk,
                                const long long* __restrict__ nbr, int E, int K,
                                int ntiles, int* __restrict__ code) {
   const int tile = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
@@ -64,7 +63,7 @@ __global__ void classify_tiles(const float* __restrict__ Mq,
   int q_lo = 3, q_hi = -1, n_lo = 3, n_hi = -1;
   if (ge < E) {
     q_lo = q_hi = side_code(Mq + (size_t)(ge / K) * kA);
-    n_lo = n_hi = side_code(Mq + (size_t)nbr[ge] * kA);
+    n_lo = n_hi = side_code(Mk + (size_t)nbr[ge] * kA);
   }
   for (int o = 16; o > 0; o >>= 1) {
     q_lo = min(q_lo, __shfl_xor_sync(0xffffffffu, q_lo, o));
@@ -87,6 +86,7 @@ constexpr int acc_smem_floats() {
 template <int H>
 __global__ void __launch_bounds__(kThreads)
 rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
+                  const float* __restrict__ Xk, const float* __restrict__ Mk,
                   const long long* __restrict__ nbr, const float* __restrict__ g,
                   const int* __restrict__ code, int E, int K, int ntiles,
                   float* __restrict__ part) {
@@ -123,34 +123,11 @@ rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
 
-  const float sigma = 1.25f;
-  const double step = 20.0 / (kR - 1);
   for (int t = t_begin; t < t_end; ++t) {
     const int cd = code[t];
     if (cd != grp && cd != 4) continue;
     const int e0 = t * kTE;
-    for (int idx = tid; idx < kTE * 3 * kA; idx += kThreads) {
-      const int e = idx / (3 * kA), c = idx % (3 * kA);
-      const int ge = e0 + e;
-      float q = 0.f, n = 0.f;
-      if (ge < E) {
-        q = Xq[(size_t)(ge / K) * 3 * kA + c];
-        n = Xq[(size_t)nbr[ge] * 3 * kA + c];
-      }
-      qx[idx] = q;
-      nx[idx] = n;
-    }
-    for (int idx = tid; idx < kTE * kA; idx += kThreads) {
-      const int e = idx / kA, c = idx % kA;
-      const int ge = e0 + e;
-      float q = 0.f, n = 0.f;
-      if (ge < E) {
-        q = Mq[(size_t)(ge / K) * kA + c];
-        n = Mq[(size_t)nbr[ge] * kA + c];
-      }
-      qm[idx] = q;
-      nm[idx] = n;
-    }
+    load_edge_tile(Xq, Mq, Xk, Mk, nbr, E, K, e0, qx, nx, qm, nm);
     for (int idx = tid; idx < kTE * H; idx += kThreads) {
       const int e = idx / H;
       gs[idx] = e0 + e < E ? g[(size_t)e0 * H + idx] : 0.f;
@@ -161,39 +138,12 @@ rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
       float v = 0.f;
       if (i < nrows) {
         const int rho = row0 + i, r = rho / AA, a = rho % AA;
-        const int qa = q0 + a / An, na = n0 + a % An;
-        if (qm[e * kA + qa] != 0.f && nm[e * kA + na] != 0.f) {
-          const float* xq = qx + e * 3 * kA;
-          const float* xn = nx + e * 3 * kA;
-          const float dx = xq[qa] - xn[na];
-          const float dy = xq[kA + qa] - xn[kA + na];
-          const float dz = xq[2 * kA + qa] - xn[2 * kA + na];
-          const float mu = (float)(2.0 + r * step);
-          const float z = (sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f) - mu) / sigma;
-          v = expf(-z * z);
-        }
+        v = rbf_bin(qx, nx, qm, nm, e, q0 + a / An, n0 + a % An, bin_mu(r));
       }
       bins[idx] = v;
     }
     __syncthreads();
-    for (int e4 = 0; e4 < kTE; e4 += 4) {
-      float4 bv[kSliceRows / 8];
-#pragma unroll
-      for (int i = 0; i < kSliceRows / 8; ++i)
-        bv[i] = *reinterpret_cast<const float4*>(bins + (ty + 8 * i) * kTE + e4);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float gv[CPT];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) gv[c] = gs[(e4 + j) * H + tx + 32 * c];
-#pragma unroll
-        for (int i = 0; i < kSliceRows / 8; ++i) {
-          const float b = j == 0 ? bv[i].x : j == 1 ? bv[i].y : j == 2 ? bv[i].z : bv[i].w;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(b, gv[c], acc[i][c]);
-        }
-      }
-    }
+    dw_tile_product<H, kSliceRows / 8>(bins, gs, acc);
     __syncthreads();  // the tile's buffers are consumed before the next load
   }
 
@@ -207,26 +157,14 @@ rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
   }
 }
 
-// dW[rowmap[row]][h] = sum_s part[s][row][h], s in order.
-__global__ void rbf_dw_reduce(const float* __restrict__ part,
-                              const long long* __restrict__ rowmap, int H,
-                              float* __restrict__ dW) {
-  const size_t n = (size_t)kTotalRows * H;
-  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float s = 0.f;
-  for (int c = 0; c < kSplit; ++c) s += part[c * n + j];
-  const size_t row = j / H, h = j % H;
-  dW[(size_t)rowmap[row] * H + h] = s;
-}
-
 template <int H>
-int launch(const float* Xq, const float* Mq, const long long* nbr,
-           const float* g, const long long* rowmap, int E, int K, int* code,
-           float* part, float* dW, cudaStream_t stream) {
+int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
+           const long long* nbr, const float* g, const long long* rowmap,
+           int E, int K, int* code, float* part, float* dW,
+           cudaStream_t stream) {
   const int ntiles = (E + kTE - 1) / kTE;
-  classify_tiles<<<(ntiles * 32 + 255) / 256, 256, 0, stream>>>(Mq, nbr, E, K,
-                                                                ntiles, code);
+  classify_tiles<<<(ntiles * 32 + 255) / 256, 256, 0, stream>>>(
+      Mq, Mk, nbr, E, K, ntiles, code);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = acc_smem_floats<H>() * sizeof(float);
@@ -240,12 +178,12 @@ int launch(const float* Xq, const float* Mq, const long long* nbr,
     slices += (kR * aq * an + kSliceRows - 1) / kSliceRows;
   }
   rbf_dw_accumulate<H><<<dim3(slices, kSplit), kThreads, smem, stream>>>(
-      Xq, Mq, nbr, g, code, E, K, ntiles, part);
+      Xq, Mq, Xk, Mk, nbr, g, code, E, K, ntiles, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)kTotalRows * H;
-  rbf_dw_reduce<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, rowmap,
-                                                                 H, dW);
+  dw_reduce<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, kSplit, rowmap, kTotalRows, H, dW);
   return (int)cudaGetLastError();
 }
 
@@ -253,18 +191,20 @@ int launch(const float* Xq, const float* Mq, const long long* nbr,
 
 extern "C" int rbf_classed_dw_splits() { return kSplit; }
 
-// Xq [B*L, 3*18] (x|y|z planes, PERM order), Mq [B*L, 18], nbr [E] (flat
-// neighbour rows), g [E, H], rowmap [5184] (kernel-order row -> reference
-// row); scratch code [ceil(E/32)] int, part [kSplit, 5184, H]; dW [5184, H].
+// Xq [Nq, 3*18], Mq [Nq, 18] (query rows: x|y|z planes, PERM order),
+// Xk [Nk, 3*18], Mk [Nk, 18] (key rows), nbr [E] (key row of each edge),
+// g [E, H], rowmap [5184] (kernel-order row -> reference row); scratch
+// code [ceil(E/32)] int, part [kSplit, 5184, H]; dW [5184, H].
 extern "C" int rbf_classed_dw(const float* Xq, const float* Mq,
+                              const float* Xk, const float* Mk,
                               const long long* nbr, const float* g,
                               const long long* rowmap, int E, int K, int H,
                               int* code, float* part, float* dW,
                               cudaStream_t stream) {
   switch (H) {
-    case 32: return launch<32>(Xq, Mq, nbr, g, rowmap, E, K, code, part, dW, stream);
-    case 64: return launch<64>(Xq, Mq, nbr, g, rowmap, E, K, code, part, dW, stream);
-    case 128: return launch<128>(Xq, Mq, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 32: return launch<32>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 64: return launch<64>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 128: return launch<128>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,119 @@
+// What the four RBF projection kernels share: the class-specialised forward
+// (rbf_classed.cu) and its weight gradient (rbf_classed_dw.cu), the dense
+// forward (rbf_edge.cu) and its weight gradient (rbf_edge_dw.cu).
+//
+// Operands, in every one of them: query rows Xq [Nq, 3*18] (x|y|z planes)
+// with atom masks Mq [Nq, 18], key rows Xk [Nk, 3*18] with masks Mk [Nk, 18],
+// and for each edge e its key row nbr[e]; the query row of edge e is e / K.
+// On one device the keys are the queries (Xk == Xq); on the graph-parallel
+// route the queries are a shard's rows and the keys the all-gathered
+// structure, so nothing here assumes the two come from one array.
+//
+// The bins are those of the plain version (models/features.py::all_pair_rbf):
+// 16 Gaussians, mu = 2..22 A, sigma = 1.25, of the distance between query
+// atom qa and key atom na, exactly 0 where either atom is absent. The sum of
+// a dense and a class-split projection then agree, and every kernel computes
+// a bin alike, so a backward recomputes what its forward used.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kA = 18;   // augmented atom slots
+constexpr int kR = 16;   // RBF bins
+constexpr int kTE = 32;  // edges per tile
+
+// Gather the query and key rows of the tile's edges [e0, e0 + kTE) into
+// shared memory: qx, nx [kTE][3*kA]; qm, nm [kTE][kA]; zeros past E.
+__device__ __forceinline__ void load_edge_tile(
+    const float* __restrict__ Xq, const float* __restrict__ Mq,
+    const float* __restrict__ Xk, const float* __restrict__ Mk,
+    const long long* __restrict__ nbr, int E, int K, int e0, float* qx,
+    float* nx, float* qm, float* nm) {
+  for (int idx = threadIdx.x; idx < kTE * 3 * kA; idx += blockDim.x) {
+    const int e = idx / (3 * kA), c = idx % (3 * kA);
+    const int ge = e0 + e;
+    float q = 0.f, n = 0.f;
+    if (ge < E) {
+      q = Xq[(size_t)(ge / K) * 3 * kA + c];
+      n = Xk[(size_t)nbr[ge] * 3 * kA + c];
+    }
+    qx[idx] = q;
+    nx[idx] = n;
+  }
+  for (int idx = threadIdx.x; idx < kTE * kA; idx += blockDim.x) {
+    const int e = idx / kA, c = idx % kA;
+    const int ge = e0 + e;
+    float q = 0.f, n = 0.f;
+    if (ge < E) {
+      q = Mq[(size_t)(ge / K) * kA + c];
+      n = Mk[(size_t)nbr[ge] * kA + c];
+    }
+    qm[idx] = q;
+    nm[idx] = n;
+  }
+}
+
+__device__ __forceinline__ float bin_mu(int r) {
+  return (float)(2.0 + r * (20.0 / (kR - 1)));
+}
+
+// Bin r (centre mu) of the distance between query atom qa and key atom na of
+// tile edge e; 0 where either atom is absent.
+__device__ __forceinline__ float rbf_bin(const float* qx, const float* nx,
+                                         const float* qm, const float* nm,
+                                         int e, int qa, int na, float mu) {
+  if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
+  const float* xq = qx + e * 3 * kA;
+  const float* xn = nx + e * 3 * kA;
+  const float dx = xq[qa] - xn[na];
+  const float dy = xq[kA + qa] - xn[kA + na];
+  const float dz = xq[2 * kA + qa] - xn[2 * kA + na];
+  const float z = (sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f) - mu) / 1.25f;
+  return expf(-z * z);
+}
+
+// The weight-gradient tile product: acc[i][c] += sum_e bins[ty + 8i][e] *
+// gs[e][tx + 32c] over the tile's kTE edges, for a block of 256 threads
+// (8 x 32) that owns 8 * NI weight rows; bins [8*NI][kTE], gs [kTE][H].
+template <int H, int NI>
+__device__ __forceinline__ void dw_tile_product(const float* bins,
+                                                const float* gs,
+                                                float (&acc)[NI][H / 32]) {
+  constexpr int CPT = H / 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int e4 = 0; e4 < kTE; e4 += 4) {
+    float4 bv[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+      bv[i] = *reinterpret_cast<const float4*>(bins + (ty + 8 * i) * kTE + e4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float gv[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) gv[c] = gs[(e4 + j) * H + tx + 32 * c];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const float b = j == 0 ? bv[i].x : j == 1 ? bv[i].y : j == 2 ? bv[i].z : bv[i].w;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(b, gv[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// dW[rowmap ? rowmap[row] : row][h] = sum_s part[s][row][h], s in order
+// (deterministic: no atomics anywhere in a weight gradient).
+__global__ void dw_reduce(const float* __restrict__ part, int splits,
+                          const long long* __restrict__ rowmap, int rows,
+                          int H, float* __restrict__ dW) {
+  const size_t n = (size_t)rows * H;
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float s = 0.f;
+  for (int c = 0; c < splits; ++c) s += part[c * n + j];
+  const size_t row = j / H, h = j % H;
+  dW[(size_t)(rowmap ? rowmap[row] : (long long)row) * H + h] = s;
+}
+
+}  // namespace

@@ -7,6 +7,7 @@ import dataclasses
 from .. import constants
 
 KERNEL_CHOICES = ("auto", "cuda", "torch")
+RBF_MODES = ("classed", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +82,5 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             "only the 18-atom backbone frame (atom_table='backbone', "
             "include_pred_na_N=True) is ported")
-    if cfg.rbf_mode != "classed":
-        raise NotImplementedError(
-            "rbf_mode='dense' needs ops/rbf_edge.py (ROADMAP Queue 2)")
+    if cfg.rbf_mode not in RBF_MODES:
+        raise ValueError(f"rbf_mode={cfg.rbf_mode!r}: choose from {RBF_MODES}")

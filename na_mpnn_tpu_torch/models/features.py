@@ -1,8 +1,9 @@
 """Geometric featurisation: virtual atoms, kNN graph, RBF edge features.
 
 Port of the JAX package's ``models/features.py``. The
-kNN graph and the RBF edge projection run on the kernels of ``ops/knn.py``
-and ``ops/rbf_classed.py``; ``knn_graph`` and ``all_pair_rbf`` here are the
+kNN graph and the RBF edge projection run on the kernels of ``ops/knn.py``,
+``ops/rbf_classed.py`` (``rbf_mode="classed"``) and ``ops/rbf_edge.py``
+(``rbf_mode="dense"``); ``knn_graph`` and ``all_pair_rbf`` here are the
 plain versions the kernels are held to.
 """
 from __future__ import annotations
@@ -37,16 +38,21 @@ def rbf_embed(D, num_rbf):
     return torch.exp(-z * z)
 
 
-def all_pair_rbf(X_aug, E_idx, X_m_aug, num_rbf):
+def all_pair_rbf(X_aug, E_idx, X_m_aug, num_rbf, X_aug_k=None, X_m_k=None):
     """All-pair-atom RBF features per edge, ``[B,L,K,A*A*num_rbf]``, masked
-    by atom presence on both endpoints."""
+    by atom presence on both endpoints; pair ``(a, b)``, bin ``r`` at
+    ``(a*A + b)*num_rbf + r``. The neighbours ``E_idx`` index the key rows
+    ``X_aug_k [B,Lk,A,3]``, ``X_m_k`` where given (the graph-parallel
+    forward's gathered structure), else the query rows."""
+    if X_aug_k is None:
+        X_aug_k, X_m_k = X_aug, X_m_aug
     B, L, A, _ = X_aug.shape
     K = E_idx.shape[2]
-    X_g = take_rows(X_aug.reshape(B, L, A * 3), E_idx).reshape(B, L, K, A, 3)
+    X_g = take_rows(X_aug_k.reshape(B, -1, A * 3), E_idx).reshape(B, L, K, A, 3)
     d = X_aug[:, :, None, :, None, :] - X_g[:, :, :, None, :, :]
     D = torch.sqrt((d * d).sum(-1) + 1e-6)                   # [B,L,K,A,A]
     RBF = rbf_embed(D, num_rbf)                              # [B,L,K,A,A,R]
-    X_m_g = take_rows(X_m_aug, E_idx)                        # [B,L,K,A]
+    X_m_g = take_rows(X_m_k, E_idx)                          # [B,L,K,A]
     RBF = RBF * X_m_aug[:, :, None, :, None, None] * X_m_g[:, :, :, None, :, None]
     return RBF.reshape(B, L, K, A * A * num_rbf)
 
@@ -88,26 +94,63 @@ def features_apply(p, cfg: ModelConfig, batch, plain: bool = False,
     ``plain=True`` takes the plain versions of the kNN and RBF kernels.
     With a ``generator`` (training), coordinates get the configured noise
     first; without one the function is deterministic."""
-    from ..ops.knn import knn_graph as knn_kernel
-    from ..ops.rbf_classed import (rbf_edge_features_classed,
-                                   rbf_edge_features_classed_plain)
-
-    X, X_m = batch["X"], batch["X_m"]
-    mask = batch["mask"].to(X.dtype)
+    X = batch["X"]
     if generator is not None and max(cfg.protein_augment_eps,
                                      cfg.dna_augment_eps,
                                      cfg.rna_augment_eps) > 0:
-        X = augment_coordinates(X, X_m, batch, cfg, generator)
-    X_aug, X_m_aug, X_ref = build_augmented_atoms(X, X_m, batch, cfg)
-    knn = knn_graph if plain else knn_kernel
-    _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
+        X = augment_coordinates(X, batch["X_m"], batch, cfg, generator)
+    return features_from_coords(p, cfg, batch, X, plain)
 
+
+def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
+                         gather=None):
+    """``features_apply`` on the (possibly noised) coordinates ``X``.
+
+    ``gather`` is None on one device. On the graph-parallel route the batch
+    holds a shard's query rows, ``gather`` all-gathers ``[B,Ls,...]`` rows
+    along the graph axis into the structure's ``[B,L,...]`` key rows, and the
+    query/key forms of the kNN and RBF kernels run; ``E_idx`` then holds key
+    (global) indices."""
+    from ..ops.knn import knn_graph as knn_kernel
+    from ..ops.knn import knn_graph_qk, knn_graph_qk_plain
+    from ..ops.rbf_classed import (rbf_edge_features_classed,
+                                   rbf_edge_features_classed_plain,
+                                   rbf_edge_features_classed_qk)
+    from ..ops.rbf_edge import (rbf_edge_features, rbf_edge_features_plain,
+                                rbf_edge_features_qk)
+
+    mask = batch["mask"].to(X.dtype)
+    X_aug, X_m_aug, X_ref = build_augmented_atoms(X, batch["X_m"], batch, cfg)
     # Relative position, same-chain indicator and neighbour mask through one
     # packed row gather (all values exact in the float type: ints < 2^24).
     R_idx = batch["R_idx"].long()
     chain_labels = batch["chain_labels"].long()
     scalar_tab = torch.stack([R_idx.to(X.dtype), chain_labels.to(X.dtype), mask],
                              dim=-1)
+    n_pos = cfg.num_positional_embeddings
+    W = p["edge_embedding"]["w"]
+    dense = cfg.rbf_mode == "dense"
+    if gather is None:
+        knn = knn_graph if plain else knn_kernel
+        _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
+        if dense:
+            rbf = rbf_edge_features_plain if plain else rbf_edge_features
+        else:
+            rbf = (rbf_edge_features_classed_plain if plain
+                   else rbf_edge_features_classed)
+        E_rbf = rbf(X_aug, X_m_aug, E_idx, W[n_pos:])
+    else:
+        knn = knn_graph_qk_plain if plain else knn_graph_qk
+        _, E_idx = knn(X_ref, gather(X_ref), mask, gather(mask),
+                       cfg.k_neighbors)
+        keys = (gather(X_aug), gather(X_m_aug))
+        if plain:
+            rbf = rbf_edge_features_plain if dense else rbf_edge_features_classed_plain
+            E_rbf = rbf(X_aug, X_m_aug, E_idx, W[n_pos:], *keys)
+        else:
+            rbf = rbf_edge_features_qk if dense else rbf_edge_features_classed_qk
+            E_rbf = rbf(X_aug, X_m_aug, *keys, E_idx, W[n_pos:])
+        scalar_tab = gather(scalar_tab)
     g = take_rows(scalar_tab, E_idx)                            # [B,L,K,3]
     offset = R_idx[:, :, None] - g[..., 0].long()
     E_chains = (chain_labels[:, :, None] == g[..., 1].long()).long()
@@ -115,8 +158,6 @@ def features_apply(p, cfg: ModelConfig, batch, plain: bool = False,
 
     # Positional block folded through the projection:
     # (table[d] + b) @ W_pos == (table @ W_pos)[d] + b @ W_pos.
-    n_pos = cfg.num_positional_embeddings
-    W = p["edge_embedding"]["w"]
     mrf = cfg.max_relative_feature
     d = torch.clamp(offset + mrf, 0, 2 * mrf)
     d = d * E_chains + (1 - E_chains) * (2 * mrf + 1)
@@ -124,8 +165,7 @@ def features_apply(p, cfg: ModelConfig, batch, plain: bool = False,
     E_pos = pos_table[d]
     if "b" in p["positional"]:
         E_pos = E_pos + p["positional"]["b"] @ W[:n_pos]
-    rbf = rbf_edge_features_classed_plain if plain else rbf_edge_features_classed
-    E = layer_norm(p["norm_edges"], E_pos + rbf(X_aug, X_m_aug, E_idx, W[n_pos:]))
+    E = layer_norm(p["norm_edges"], E_pos + E_rbf)
 
     V = F.one_hot(batch["R_polymer_type"].long(), cfg.num_polytypes).to(X.dtype)
     V = layer_norm(p["norm_nodes"], V @ p["node_embedding"]["w"])

@@ -6,10 +6,13 @@ parallel-decoder layer runs its message MLP on the message-table kernel
 (``ops/message_kernels.py``), whatever L is, in training (through its
 backward kernel) as in inference; the layer norms, feed-forward blocks,
 dropout and the node-level products around the kernel (``h_V @ wc``,
-``h_S @ ws``, ``h_V @ wv``) are plain PyTorch. ``encode`` and the decoder
-layers are shared: a ``torch.Generator`` turns on training randomness
-(dropout, coordinate noise), ``None`` makes them deterministic; the
-inference entry points run under ``torch.no_grad``. The autoregressive
+``h_S @ ws``, ``h_V @ wv``) are plain PyTorch. ``enc_layer`` and
+``dec_layer`` are the layers of every route: one device here, and the
+graph-parallel forward (``parallel/graph_parallel.py``), which hands them an
+all-gather of the node tables and its own dropout source. A
+``torch.Generator`` turns on training randomness (dropout, coordinate
+noise), ``None`` makes them deterministic; the inference entry points run
+under ``torch.no_grad``. The autoregressive
 sampler is plain PyTorch, as it is plain XLA in the JAX package.
 
 Sampling draws the decode order as ``argsort((chain_mask + 1e-4) * |randn|)``
@@ -119,6 +122,71 @@ def _plain(cfg: ModelConfig, X) -> bool:
     return cfg.kernels == "torch"
 
 
+def _identity(x):
+    return x
+
+
+def generator_dropout(rate, generator):
+    """The one-device dropout source of the layers: ``drop(x, slot)`` draws
+    its mask from ``generator`` (identity when ``generator`` is None)."""
+    def drop(x, slot):
+        return dropout(x, rate, generator)
+    return drop
+
+
+def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop, gather=_identity,
+              plain=False):
+    """One encoder layer on flat edges (two message-table launches): the
+    node update (``W1..W3``, LN1, FFN, LN2, mask), then the edge update
+    (``W11..W13``, LN3). ``h_V [B,L,H]``, ``h_E2 [B*L*K,H]``; ``drop(x,
+    slot)`` applies dropout to the node message (slot 0), the FFN output (1)
+    and the edge message (2, as ``[B,L,K*H]``); ``gather`` turns a node
+    table ``[B,L,C]`` into the rows that ``eidx2`` indexes (identity on one
+    device, the graph-axis all-gather on the graph-parallel route).
+    Returns (``h_V``, ``h_E2``)."""
+    B, L, H = h_V.shape
+    N = B * L
+    K = h_E2.shape[0] // N
+    h_V2 = h_V.reshape(N, H)
+    table = gather((h_V2 @ p["W1"]["w"][2 * H:]).view(B, L, H))
+    Lk = table.shape[1]
+    dh = mk.message_agg_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
+                                   eidx2, mask_att2, K=K, L=L, Lk=Lk,
+                                   plain=plain)
+    h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
+    h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
+    h_V = mask[..., None] * h_V
+    h_V2 = h_V.reshape(N, H)
+    table = gather((h_V2 @ p["W11"]["w"][2 * H:]).view(B, L, H))
+    m = mk.message_edge_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
+                                   eidx2, K=K, L=L, Lk=Lk, plain=plain)
+    h_E2 = layer_norm(p["norm3"], h_E2 + drop(m.view(B, L, K * H), 2).view(N * K, H))
+    return h_V, h_E2
+
+
+def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop,
+              gather=_identity, plain=False):
+    """One parallel-decoder layer on the message-table kernel (dec mode):
+    a 2H node table ``[h_S@ws + h_V@wv - h_Venc@wv | h_Venc@wv]`` replaces
+    the ``[B,L,K,3H]`` causal context (``mbw*A[j] + m1d*B[j]`` is the
+    three-term context exactly, because ``mask_fw = mask_1d - mask_bw``);
+    then LN1, FFN, LN2, mask. ``drop`` and ``gather`` as in ``enc_layer``
+    (slots 0 and 1)."""
+    B, L, H = h_V.shape
+    N = B * L
+    K = h_E2.shape[0] // N
+    (_, _, ws, wv), _ = _split_w1(p, H)
+    venc = h_V_enc @ wv
+    table = gather(torch.cat([h_S @ ws + h_V @ wv - venc, venc], dim=-1))
+    Lk = table.shape[1]
+    dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
+                                   table.reshape(B * Lk, 2 * H), eidx2, m1d2,
+                                   mbw2, K=K, L=L, Lk=Lk, plain=plain)
+    h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
+    h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
+    return mask[..., None] * h_V
+
+
 def encode(params, cfg: ModelConfig, batch, generator=None):
     """Features + encoder stack -> (``h_V [B,L,H]``, ``h_E [B,L,K,H]``,
     ``E_idx [B,L,K]``). Edge tensors stay flat ``[N*K,H]`` through the
@@ -128,60 +196,38 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     features coordinate noise."""
     check_supported(cfg)
     plain = _plain(cfg, batch["X"])
-    rate = cfg.dropout
     mask = batch["mask"].to(batch["X"].dtype)
     V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
                                               plain, generator)
     h_V = linear(params["W_v"], V)
     h_E = linear(params["W_e"], E)
     B, L, K = E_idx.shape
-    N, H = B * L, h_V.shape[-1]
-    h_E2 = h_E.reshape(N * K, H)
-    eidx2 = E_idx.reshape(N * K)
-    mask_att2 = mask_attend.reshape(N * K)
+    H = h_V.shape[-1]
+    h_E2 = h_E.reshape(B * L * K, H)
+    eidx2 = E_idx.reshape(-1)
+    mask_att2 = mask_attend.reshape(-1)
+    drop = generator_dropout(cfg.dropout, generator)
     for p in params["encoder"]:
-        h_V2 = h_V.reshape(N, H)
-        dh = mk.message_agg_table_flat(p, h_V2, h_E2, h_V2 @ p["W1"]["w"][2 * H:],
-                                       eidx2, mask_att2, K=K, L=L, plain=plain)
-        h_V = layer_norm(p["norm1"], h_V + dropout(dh.view(B, L, H), rate,
-                                                   generator))
-        h_V = layer_norm(p["norm2"], h_V + dropout(pff_apply(p["dense"], h_V),
-                                                   rate, generator))
-        h_V = mask[..., None] * h_V
-        h_V2 = h_V.reshape(N, H)
-        m = mk.message_edge_table_flat(p, h_V2, h_E2, h_V2 @ p["W11"]["w"][2 * H:],
-                                       eidx2, K=K, L=L, plain=plain)
-        h_E2 = layer_norm(p["norm3"], h_E2 + dropout(m, rate, generator))
+        h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
+                              plain=plain)
     return h_V, h_E2.view(B, L, K, H), E_idx
 
 
 def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
                       generator=None):
-    """Teacher-forced decoder stack on the message-table kernel (dec mode):
-    per layer a 2H node table ``[h_S@ws + h_V@wv - h_Venc@wv | h_Venc@wv]``
-    replaces the ``[B,L,K,3H]`` causal context. With a ``generator``, dropout
-    on the node message and the FFN output (``run_layer_kernel``)."""
+    """Teacher-forced decoder stack (``dec_layer``). With a ``generator``,
+    dropout on the node message and the FFN output (``run_layer_kernel``)."""
     plain = _plain(cfg, h_V)
-    rate = cfg.dropout
     B, L, K = E_idx.shape
-    N, H = B * L, h_V.shape[-1]
+    h_E2 = h_E.reshape(B * L * K, -1)
+    eidx2 = E_idx.reshape(-1)
+    m1d2 = mask[:, :, None].expand(B, L, K).reshape(-1)
+    mbw2 = mask_bw.reshape(-1)
+    drop = generator_dropout(cfg.dropout, generator)
     h_V_enc = h_V
-    h_E2 = h_E.reshape(N * K, H)
-    eidx2 = E_idx.reshape(N * K)
-    m1d2 = mask[:, :, None].expand(B, L, K).reshape(N * K)
-    mbw2 = mask_bw.reshape(N * K)
     for p in params["decoder"]:
-        (_, _, ws, wv), _ = _split_w1(p, H)
-        venc = h_V_enc @ wv
-        nodes2 = torch.cat([h_S @ ws + h_V @ wv - venc, venc], dim=-1)
-        dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
-                                       nodes2.reshape(N, 2 * H), eidx2, m1d2,
-                                       mbw2, K=K, L=L, plain=plain)
-        h_V = layer_norm(p["norm1"], h_V + dropout(dh.view(B, L, H), rate,
-                                                   generator))
-        h_V = layer_norm(p["norm2"], h_V + dropout(pff_apply(p["dense"], h_V),
-                                                   rate, generator))
-        h_V = mask[..., None] * h_V
+        h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,
+                        drop, plain=plain)
     return h_V
 
 

@@ -1,9 +1,12 @@
 """Masked exact k-nearest-neighbour graph: CUDA kernel ``csrc/knn.cu`` and
-its plain PyTorch version.
+its plain PyTorch version, in two forms.
 
-Replaces ``na_mpnn_tpu/ops/knn.py::knn_graph_pallas``. Invalid pairs get the
-row max added, ties go to the lowest column index, and the outputs are
-sorted ascending: the contract of ``lax.top_k(-D)``.
+``knn_graph`` replaces ``na_mpnn_tpu/ops/knn.py::knn_graph_pallas`` (the L
+rows of each structure against each other); ``knn_graph_qk`` replaces
+``knn_graph_pallas_qk`` (Lq query rows against Lk key rows, the
+graph-parallel forward's shard against the gathered structure). Invalid
+pairs get the row max over the keys added, ties go to the lowest key index,
+and the outputs are sorted ascending: the contract of ``lax.top_k(-D)``.
 """
 from __future__ import annotations
 
@@ -18,45 +21,73 @@ from . import LAUNCHES, check_operand, raise_on_error
 MAX_SHARED_BYTES = 232448
 
 
-def knn_graph_plain(X_ref, mask, k, eps=1e-6):
-    """``X_ref [B,L,3]``, ``mask [B,L]`` -> (``D_neighbors [B,L,k]``
-    ascending, ``E_idx [B,L,k]`` int64). The squared distance is summed as
-    ``(dx*dx + dy*dy) + dz*dz``, the order the kernel follows."""
-    mask = mask.to(X_ref.dtype)
-    mask_2d = mask[:, None, :] * mask[:, :, None]
-    dX = X_ref[:, :, None, :] - X_ref[:, None, :, :]
+def knn_graph_qk_plain(X_q, X_k, mask_q, mask_k, k, eps=1e-6):
+    """``X_q [B,Lq,3]``, ``X_k [B,Lk,3]``, ``mask_q [B,Lq]``, ``mask_k
+    [B,Lk]`` -> (``D_neighbors [B,Lq,k]`` ascending, ``E_idx [B,Lq,k]``
+    int64 key indices), ``k = min(k, Lk)``. The squared distance is summed
+    as ``(dx*dx + dy*dy) + dz*dz``, the order the kernel follows."""
+    mask_q, mask_k = mask_q.to(X_q.dtype), mask_k.to(X_q.dtype)
+    mask_2d = mask_k[:, None, :] * mask_q[:, :, None]
+    dX = X_q[:, :, None, :] - X_k[:, None, :, :]
     d2 = dX[..., 0] * dX[..., 0] + dX[..., 1] * dX[..., 1]
     d2 = d2 + dX[..., 2] * dX[..., 2]
     D = mask_2d * torch.sqrt(d2 + eps)
     D_max = D.amax(dim=-1, keepdim=True)
     D_adjust = D + (1.0 - mask_2d) * D_max
-    k = min(k, X_ref.shape[1])
+    k = min(k, X_k.shape[1])
     vals, idx = torch.sort(D_adjust, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
 
 
-def knn_graph_cuda(X_ref, mask, k, eps=1e-6):
-    """Launch ``csrc/knn.cu`` on fp32 CUDA tensors (same contract)."""
+def knn_graph_plain(X_ref, mask, k, eps=1e-6):
+    """``X_ref [B,L,3]``, ``mask [B,L]`` -> (``D_neighbors [B,L,k]``
+    ascending, ``E_idx [B,L,k]`` int64): the query/key form with the keys
+    equal to the queries."""
+    return knn_graph_qk_plain(X_ref, X_ref, mask, mask, k, eps)
+
+
+def _launch(entry, X_q, X_k, mask_q, mask_k, k, eps):
     from ._build import library, ptr, stream_ptr
 
-    B, L, _ = X_ref.shape
-    check_operand(X_ref, "X_ref", torch.float32, (B, L, 3))
-    check_operand(mask, "mask", torch.float32, (B, L))
-    if 4 * L > MAX_SHARED_BYTES:
-        raise ValueError(f"knn kernel: L={L} rows exceed shared memory")
-    k = min(k, L)
-    D = torch.empty((B, L, k), dtype=torch.float32, device=X_ref.device)
-    E_idx = torch.empty((B, L, k), dtype=torch.int64, device=X_ref.device)
-    fn = library("knn").knn_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    B, Lq, _ = X_q.shape
+    Lk = X_k.shape[1]
+    check_operand(X_q, "X_q", torch.float32, (B, Lq, 3))
+    check_operand(X_k, "X_k", torch.float32, (B, Lk, 3))
+    check_operand(mask_q, "mask_q", torch.float32, (B, Lq))
+    check_operand(mask_k, "mask_k", torch.float32, (B, Lk))
+    if 4 * Lk > MAX_SHARED_BYTES:
+        raise ValueError(f"knn kernel: Lk={Lk} key rows exceed shared memory")
+    k = min(k, Lk)
+    D = torch.empty((B, Lq, k), dtype=torch.float32, device=X_q.device)
+    E_idx = torch.empty((B, Lq, k), dtype=torch.int64, device=X_q.device)
+    lib = library("knn")
+    if entry == "knn":
+        fn = lib.knn_forward
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+        args = (ptr(X_q), ptr(mask_q), B, Lq, k)
+    else:
+        fn = lib.knn_qk_forward
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+        args = (ptr(X_q), ptr(mask_q), ptr(X_k), ptr(mask_k), B, Lq, Lk, k)
     fn.restype = ctypes.c_int
-    err = fn(ptr(X_ref), ptr(mask), B, L, k, eps, ptr(D), ptr(E_idx),
-             stream_ptr(X_ref.device))
-    raise_on_error(err, "knn")
-    LAUNCHES["knn"] += 1
+    err = fn(*args, eps, ptr(D), ptr(E_idx), stream_ptr(X_q.device))
+    raise_on_error(err, entry)
+    LAUNCHES[entry] += 1
     return D, E_idx
+
+
+def knn_graph_cuda(X_ref, mask, k, eps=1e-6):
+    """Launch ``knn_forward`` of ``csrc/knn.cu`` on fp32 CUDA tensors (the
+    contract of ``knn_graph_plain``)."""
+    return _launch("knn", X_ref, X_ref, mask, mask, k, eps)
+
+
+def knn_graph_qk_cuda(X_q, X_k, mask_q, mask_k, k, eps=1e-6):
+    """Launch ``knn_qk_forward`` of ``csrc/knn.cu`` on fp32 CUDA tensors (the
+    contract of ``knn_graph_qk_plain``)."""
+    return _launch("knn_qk", X_q, X_k, mask_q, mask_k, k, eps)
 
 
 def knn_graph(X_ref, mask, k, eps=1e-6):
@@ -64,3 +95,10 @@ def knn_graph(X_ref, mask, k, eps=1e-6):
     if X_ref.is_cuda:
         return knn_graph_cuda(X_ref, mask, k, eps)
     return knn_graph_plain(X_ref, mask, k, eps)
+
+
+def knn_graph_qk(X_q, X_k, mask_q, mask_k, k, eps=1e-6):
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if X_q.is_cuda:
+        return knn_graph_qk_cuda(X_q, X_k, mask_q, mask_k, k, eps)
+    return knn_graph_qk_plain(X_q, X_k, mask_q, mask_k, k, eps)

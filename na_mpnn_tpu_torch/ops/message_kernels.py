@@ -3,10 +3,13 @@
 version.
 
 Replaces ``na_mpnn_tpu/ops/message_kernels.py::message_mlp_table`` in its
-forward. Edge tensors are flat: ``h_V2 [N,H]``, ``h_E2 [N*K,H]``, ``eidx2
-[N*K]`` (int64, neighbour index local to its structure of L nodes), per-edge
-masks ``[N*K]``. The kernel reads table rows by their global index
-``(n // L) * L + eidx``, so it takes any L (the TPU kernel needs
+forward. Edge tensors are flat: ``h_V2 [N,H]`` (B structures of L nodes),
+``h_E2 [N*K,H]``, ``eidx2 [N*K]`` (int64, neighbour index local to its
+structure), per-edge masks ``[N*K]``. The node table holds ``Lk`` rows per
+structure, ``[B*Lk, C]``: ``Lk = L`` on one device; on the graph-parallel
+route the nodes are a shard's L rows and the table is all-gathered over the
+structure's Lk rows. The kernel reads table rows by their global index
+``(n // L) * Lk + eidx``, so it takes any L (the TPU kernel needs
 ``L % 32 == 0``).
 
 Modes:
@@ -40,12 +43,14 @@ MAX_K = 64
 
 
 def message_table_plain(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
-                        wa, wb, b1, w2, b2, w3, b3, *, K, L, save_x=False):
+                        wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None,
+                        save_x=False):
     """Plain version of the kernel (same arguments, same outputs). With
     ``save_x`` it returns ``(out, x)``, ``x`` the pre-GELU ``[N*K,H]``."""
     N, H = h_V2.shape
+    Lk = L if Lk is None else Lk
     node = torch.arange(N, device=h_V2.device).repeat_interleave(K)
-    g = table2[(node // L) * L + eidx2]
+    g = table2[(node // L) * Lk + eidx2]
     x = (h_V2 @ wa).repeat_interleave(K, dim=0) + b1
     e = h_E2 @ wb
     if mode == "dec":
@@ -61,26 +66,31 @@ def message_table_plain(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
     return (m, x) if save_x else m
 
 
-def _check_mode(mode, K, H):
+def _check_mode(mode, N, K, L, H):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: choose from {sorted(MODES)}")
     if not 1 <= K <= MAX_K or H not in (32, 64, 128):
         raise ValueError(f"message kernel: K={K} (1..{MAX_K}), "
                          f"H={H} (32, 64 or 128) not supported")
+    if N % L:
+        raise ValueError(f"message kernel: N={N} nodes are not whole "
+                         f"structures of L={L}")
 
 
 def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
-                       wa, wb, b1, w2, b2, w3, b3, *, K, L, save_x=False):
+                       wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None,
+                       save_x=False):
     """Launch ``csrc/message_table.cu`` on fp32 CUDA tensors."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V2.shape
-    _check_mode(mode, K, H)
+    Lk = L if Lk is None else Lk
+    _check_mode(mode, N, K, L, H)
     f32 = torch.float32
     C = 2 * H if mode == "dec" else H
     check_operand(h_V2, "h_V2", f32, (N, H))
     check_operand(h_E2, "h_E2", f32, (N * K, H))
-    check_operand(table2, "table2", f32, (N, C))
+    check_operand(table2, "table2", f32, (N // L * Lk, C))
     check_operand(eidx2, "eidx2", torch.int64, (N * K,))
     check_operand(mask_att2, "mask_att2", f32, (N * K,))
     check_operand(mbw2, "mbw2", f32, (N * K,))
@@ -94,12 +104,13 @@ def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
          if save_x else None)
     fn = library("message_table").message_table_forward
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, wa, wb, b1, w2,
                b2, w3, b3, out)
     err = fn(MODES[mode], *[ptr(t) for t in tensors],
-             ptr(x) if save_x else None, N, K, L, H, stream_ptr(h_V2.device))
+             ptr(x) if save_x else None, N, K, L, Lk, H,
+             stream_ptr(h_V2.device))
     raise_on_error(err, "message_table")
     LAUNCHES[f"message_table_{mode}"] += 1
     return (out, x) if save_x else out
@@ -112,12 +123,14 @@ def gelu_grad(x):
 
 
 def message_table_bwd_plain(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
-                            wa, wb, b1, w2, b2, w3, b3, g, *, K, L):
+                            wa, wb, b1, w2, b2, w3, b3, g, *, K, L, Lk=None):
     """Plain version of the backward kernel: from the saved pre-GELU ``x``
     and the cotangent ``g`` of the output (``[N,H]``, or ``[N*K,H]`` in
     enc_edge) -> ``(g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3,
-    db3)``, the outputs of ``_message_table_bwd_call`` (biases ``[H]``)."""
+    db3)``, the outputs of ``_message_table_bwd_call`` (biases ``[H]``;
+    ``g_table`` ``[B*Lk, C]``, as the table)."""
     N, H = h_V2.shape
+    Lk = L if Lk is None else Lk
     u1 = gelu(x)
     y = u1 @ w2 + b2
     if mode == "enc_edge":
@@ -137,21 +150,23 @@ def message_table_bwd_plain(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     else:
         g_e = tab = g_x
     node = torch.arange(N, device=x.device).repeat_interleave(K)
-    g_table = torch.zeros((N, tab.shape[1]), dtype=x.dtype, device=x.device)
-    g_table.index_add_(0, (node // L) * L + eidx2, tab)
+    g_table = torch.zeros((N // L * Lk, tab.shape[1]), dtype=x.dtype,
+                          device=x.device)
+    g_table.index_add_(0, (node // L) * Lk + eidx2, tab)
     s = g_x.view(N, K, H).sum(dim=1)
     return (s @ wa.T, g_e @ wb.T, g_table, h_V2.T @ s, h_E2.T @ g_e,
             g_x.sum(0), dw2, g_y.sum(0), dw3, g_m.sum(0))
 
 
 def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
-                           wa, wb, b1, w2, b2, w3, b3, g, *, K, L):
+                           wa, wb, b1, w2, b2, w3, b3, g, *, K, L, Lk=None):
     """Launch ``csrc/message_table_bwd.cu`` on fp32 CUDA tensors (same
     contract as ``message_table_bwd_plain``)."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V2.shape
-    _check_mode(mode, K, H)
+    Lk = L if Lk is None else Lk
+    _check_mode(mode, N, K, L, H)
     f32 = torch.float32
     C = 2 * H if mode == "dec" else H
     check_operand(h_V2, "h_V2", f32, (N, H))
@@ -167,7 +182,7 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     dev = h_V2.device
     g_hV = torch.empty((N, H), dtype=f32, device=dev)
     g_ein = torch.empty((N * K, H), dtype=f32, device=dev)
-    g_table = torch.zeros((N, C), dtype=f32, device=dev)
+    g_table = torch.zeros((N // L * Lk, C), dtype=f32, device=dev)
     nslot = 4 * H * H + 3 * H
     nparts = torch.cuda.get_device_properties(dev).multi_processor_count
     part = torch.empty((nparts, nslot), dtype=f32, device=dev)
@@ -175,11 +190,11 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     wgrad = torch.empty((nslot,), dtype=f32, device=dev)
     fn = library("message_table_bwd").message_table_backward
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     tensors = (h_V2, h_E2, x, eidx2, mask_att2, mbw2, wa, wb, w2, b2, w3, g,
                g_hV, g_ein, g_table, part, wT, wgrad)
-    err = fn(MODES[mode], *[ptr(t) for t in tensors], N, K, L, H, nparts,
+    err = fn(MODES[mode], *[ptr(t) for t in tensors], N, K, L, Lk, H, nparts,
              stream_ptr(dev))
     raise_on_error(err, "message_table_bwd")
     LAUNCHES[f"message_table_bwd_{mode}"] += 1
@@ -194,12 +209,12 @@ class _MessageTable(torch.autograd.Function):
     CPU). Saves the pre-GELU ``x`` for the backward."""
 
     @staticmethod
-    def forward(ctx, mode, K, L, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
-                wa, wb, b1, w2, b2, w3, b3):
+    def forward(ctx, mode, K, L, Lk, h_V2, h_E2, table2, eidx2, mask_att2,
+                mbw2, wa, wb, b1, w2, b2, w3, b3):
         fn = message_table_cuda if h_V2.is_cuda else message_table_plain
         out, x = fn(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
-                    wa, wb, b1, w2, b2, w3, b3, K=K, L=L, save_x=True)
-        ctx.mode, ctx.K, ctx.L = mode, K, L
+                    wa, wb, b1, w2, b2, w3, b3, K=K, L=L, Lk=Lk, save_x=True)
+        ctx.mode, ctx.K, ctx.L, ctx.Lk = mode, K, L, Lk
         ctx.save_for_backward(h_V2, h_E2, x, eidx2, mask_att2, mbw2,
                               wa, wb, b1, w2, b2, w3, b3)
         return out
@@ -209,21 +224,22 @@ class _MessageTable(torch.autograd.Function):
         fn = message_table_bwd_cuda if g.is_cuda else message_table_bwd_plain
         (g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3,
          db3) = fn(ctx.mode, *ctx.saved_tensors, g.contiguous(), K=ctx.K,
-                   L=ctx.L)
-        return (None, None, None, g_hV, g_ein, g_table, None, None, None,
-                dwa, dwb, db1, dw2, db2, dw3, db3)
+                   L=ctx.L, Lk=ctx.Lk)
+        return (None, None, None, None, g_hV, g_ein, g_table, None, None,
+                None, dwa, dwb, db1, dw2, db2, dw3, db3)
 
 
 def message_table(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
-                  wa, wb, b1, w2, b2, w3, b3, *, K, L):
+                  wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None):
     """Kernel for CUDA tensors, plain version for CPU tensors; through the
     autograd Function (which saves ``x``) only when a gradient is wanted."""
+    Lk = L if Lk is None else Lk
     args = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
             wa, wb, b1, w2, b2, w3, b3)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _MessageTable.apply(mode, K, L, *args)
+        return _MessageTable.apply(mode, K, L, Lk, *args)
     fn = message_table_cuda if h_V2.is_cuda else message_table_plain
-    return fn(mode, *args, K=K, L=L)
+    return fn(mode, *args, K=K, L=L, Lk=Lk)
 
 
 def _weights(p, H, w1, w2, w3):
@@ -233,31 +249,32 @@ def _weights(p, H, w1, w2, w3):
 
 
 def message_agg_table_flat(p, h_V2, h_E2, table2, eidx2, mask_att2, *, K, L,
-                           plain=False):
-    """Encoder node update (``W1..W3``): ``table2 = h_V2 @ W1c`` ``[N,H]`` ->
-    dh ``[N,H]``."""
+                           Lk=None, plain=False):
+    """Encoder node update (``W1..W3``): ``table2 = h_V2 @ W1c`` ``[B*Lk,H]``
+    -> dh ``[N,H]``."""
     fn = message_table_plain if plain else message_table
     ones = torch.ones_like(mask_att2)
     return fn("enc_node", h_V2, h_E2, table2, eidx2, mask_att2, ones,
-              *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L)
+              *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)
 
 
-def message_edge_table_flat(p, h_V2, h_E2, table2, eidx2, *, K, L,
+def message_edge_table_flat(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None,
                             plain=False):
     """Encoder edge update (``W11..W13``): ``table2 = h_V2 @ W11c`` -> per-edge
     message ``[N*K,H]``."""
     fn = message_table_plain if plain else message_table
     ones = torch.ones(h_E2.shape[0], dtype=h_E2.dtype, device=h_E2.device)
     return fn("enc_edge", h_V2, h_E2, table2, eidx2, ones, ones,
-              *_weights(p, h_V2.shape[1], "W11", "W12", "W13"), K=K, L=L)
+              *_weights(p, h_V2.shape[1], "W11", "W12", "W13"), K=K, L=L,
+              Lk=Lk)
 
 
 def message_dec_table_flat(p, h_V2, h_E2, table2, eidx2, m1d2, mbw2, *, K, L,
-                           plain=False):
+                           Lk=None, plain=False):
     """Parallel-decoder node update on the 2H table ``[A | B]``
     (``A = h_S@ws + h_V@wv - h_Venc@wv``, ``B = h_Venc@wv``) -> dh ``[N,H]``.
     ``mbw*A[j] + m1d*B[j]`` is the three-term causal context exactly,
     because ``mask_fw = mask_1d - mask_bw``."""
     fn = message_table_plain if plain else message_table
     return fn("dec", h_V2, h_E2, table2, eidx2, m1d2, mbw2,
-              *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L)
+              *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)

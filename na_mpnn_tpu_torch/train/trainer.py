@@ -1,6 +1,17 @@
 """The training step: forward + loss + gradients + Noam-Adam update, the
 evaluation step and ``.npz`` checkpoints (port of the JAX package's
-``train/trainer.py::Trainer``, one device, fp32).
+``train/trainer.py::Trainer``, fp32), on one device or on a
+``torch.distributed`` mesh.
+
+With a mesh (``parallel/mesh.py``), every rank holds the same parameters
+(rank 0's, broadcast after init and restore), takes its ``shard_batch`` of
+the global batch, and runs ``forward_graph_parallel`` at every mesh shape
+(at G = 1 its gathers are identities), whose random streams are keyed by
+(seed, step, global row); the loss is a sum over tokens divided by a
+constant, so one all-reduce of the flat gradient over the world gives the
+global gradient, and every rank then takes the same clipped Adam update.
+Metrics are computed on the log-probs all-gathered along the graph axis and
+then gathered over the data axis: the global ``[B, L]`` arrays.
 
 The parameters live in one flat buffer, in ``ravel_pytree`` order (lists in
 order, dict keys sorted), and the parameter tree the model reads is a tree of
@@ -19,9 +30,12 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import ModelConfig, forward, init_params
 from ..params import load_checkpoint_npz, save_checkpoint_npz
+from ..parallel.graph_parallel import all_gather_rows, forward_graph_parallel
+from ..parallel.mesh import Mesh, all_gather_batch, replicated, shard_batch
 from .losses import (compute_canonical_base_pair_accuracy, loss_nll,
                      loss_smoothed, make_polymer_restype_masks, mask_for_loss)
 from .optimizer import NoamAdam, OptState
@@ -60,17 +74,25 @@ BATCH_KEYS = [
 ]
 
 
-def to_device(np_batch, device) -> Dict[str, torch.Tensor]:
+# The batch arrays the metrics read (S, the loss per token's masks and PPM
+# labels, the canonical base pairs).
+METRIC_KEYS = ("S", "protein_mask", "dna_mask", "rna_mask", "ppm_mask",
+               "aligned_ppm", "canonical_base_pair_mask",
+               "canonical_base_pair_index")
+
+
+def to_device(np_batch, device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """The ``BATCH_KEYS`` arrays of a host batch on ``device``: floats as
-    float32, integers as they are; pinned and non-blocking on a card."""
+    ``dtype``, integers as they are; pinned and non-blocking on a card."""
     device = torch.device(device)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     out = {}
     for k in BATCH_KEYS:
         if k not in np_batch:
             continue
         a = np.asarray(np_batch[k])
-        if a.dtype == np.float64:
-            a = a.astype(np.float32)
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np_dtype, copy=False)
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
@@ -102,19 +124,24 @@ def _views(tree, flat, offsets):
 
 class Trainer:
     """Owns the parameters, the optimizer state and the train / eval steps
-    of one model on one device."""
+    of one model, on one device or, with ``mesh``, on this rank of a mesh
+    (the mesh's device; every rank constructs its Trainer alike)."""
 
     def __init__(self, cfg: ModelConfig, label_smoothing=0.1,
                  loss_tokens=6000.0, grad_clip_norm=1.0,
-                 na_shared_tokens=True, seed=0, device="cuda"):
+                 na_shared_tokens=True, seed=0, device="cuda",
+                 mesh: Mesh = None, dtype=torch.float32):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.seed = seed
+        self.dtype = dtype
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.label_smoothing = label_smoothing
         self.loss_tokens = loss_tokens
         self.na_shared_tokens = na_shared_tokens
         self.restype_masks = make_polymer_restype_masks(na_shared_tokens)
         self.optimizer = NoamAdam(cfg.hidden_dim, grad_clip_norm=grad_clip_norm)
-        tree = init_params(seed, cfg, device=self.device)
+        tree = init_params(seed, cfg, device=self.device, dtype=dtype)
         offsets, n = {}, 0
         for leaf in tree_leaves(tree):
             offsets[id(leaf)] = (n, n + leaf.numel())
@@ -122,8 +149,15 @@ class Trainer:
         self.flat = torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
         self.params = _views(tree, self.flat, offsets)
         self.leaves = list(tree_leaves(self.params))
+        self._replicate()
         self.opt_state = self.optimizer.init(self.flat)
         self.step = 0
+
+    def _replicate(self):
+        """Rank 0's parameters on every rank of the mesh."""
+        if self.mesh is not None:
+            with torch.no_grad():
+                replicated(self.mesh, self.flat)
 
     # -- steps -------------------------------------------------------------
 
@@ -138,12 +172,27 @@ class Trainer:
             tokens=self.loss_tokens, num_letters=self.cfg.num_letters,
             ppm_mask=batch["ppm_mask"], aligned_ppm=batch["aligned_ppm"])
 
-    def loss_and_grads(self, batch, generator):
+    def _log_probs(self, batch, generator, train):
+        if self.mesh is None:
+            return forward(self.params, self.cfg, batch, generator)[0]
+        if generator is not None:
+            raise ValueError("a mesh Trainer keys its random streams by "
+                             "(seed, step); it takes no generator")
+        return forward_graph_parallel(
+            self.params, self.cfg, batch, self.mesh,
+            batch.get("decoding_order"),
+            key=(self.seed, self.step) if train else None)
+
+    def loss_and_grads(self, batch, generator=None):
         """Forward + ``loss_smoothed`` + backward on a device batch ->
-        (loss_av, flat gradient, log_probs, mask_for_loss, loss per token)."""
+        (loss_av, flat gradient, log_probs, mask_for_loss, loss per token).
+        With a mesh, ``batch`` is this rank's shard (``shard_batch``), which
+        may carry this rank's rows of ``decoding_order`` ``[B/D, L]``; the
+        loss and the gradient are the global ones (summed over the world),
+        the rest this rank's rows."""
         for p in self.leaves:
             p.grad = None
-        log_probs, _ = forward(self.params, self.cfg, batch, generator)
+        log_probs = self._log_probs(batch, generator, train=True)
         mfl = mask_for_loss(batch["S"], batch["mask"],
                             self.na_shared_tokens).to(log_probs.dtype)
         loss_per_token, loss_av = self._loss(log_probs, batch, mfl)
@@ -153,8 +202,27 @@ class Trainer:
                           for p in self.leaves])
         for p in self.leaves:
             p.grad = None
-        return (loss_av.detach(), grad, log_probs.detach(), mfl,
+        loss_av = loss_av.detach()
+        if self.mesh is not None:
+            dist.all_reduce(grad)
+            dist.all_reduce(loss_av)
+        return (loss_av, grad, log_probs.detach(), mfl,
                 loss_per_token.detach())
+
+    def _metrics(self, batch, log_probs, mfl, loss_per_token=None):
+        """Per-token metrics of the global batch: with a mesh, from the
+        log-probs and batch arrays gathered along the graph axis, then over
+        the data axis."""
+        if self.mesh is None:
+            return self._metrics_from_logprobs(batch, log_probs, mfl,
+                                               loss_per_token)
+        with torch.no_grad():
+            rows = {k: all_gather_rows(batch[k], self.mesh)
+                    for k in METRIC_KEYS if k in batch}
+            m = self._metrics_from_logprobs(
+                rows, all_gather_rows(log_probs, self.mesh),
+                all_gather_rows(mfl, self.mesh))
+            return {k: all_gather_batch(v, self.mesh) for k, v in m.items()}
 
     def _metrics_from_logprobs(self, batch, log_probs, mfl,
                                loss_per_token=None):
@@ -180,41 +248,59 @@ class Trainer:
             batch, generator)
         with torch.no_grad():
             self.flat.add_(self.optimizer.update(grad, self.opt_state))
-        metrics = self._metrics_from_logprobs(batch, log_probs, mfl,
-                                              loss_per_token)
+        metrics = self._metrics(batch, log_probs, mfl, loss_per_token)
         metrics["loss_av"] = loss_av
         return metrics
 
     @torch.no_grad()
     def _eval_step_impl(self, batch):
-        log_probs, _ = forward(self.params, self.cfg, batch)
+        log_probs = self._log_probs(batch, None, train=False)
         mfl = mask_for_loss(batch["S"], batch["mask"], self.na_shared_tokens)
-        return self._metrics_from_logprobs(batch, log_probs,
-                                           mfl.to(log_probs.dtype))
+        return self._metrics(batch, log_probs, mfl.to(log_probs.dtype))
 
     # -- public API --------------------------------------------------------
 
-    def train_step(self, np_batch, generator: torch.Generator):
-        """One training step; ``generator`` (on the trainer's device) draws
-        the coordinate noise, dropout masks and decode order."""
-        metrics = self._train_step_impl(to_device(np_batch, self.device),
-                                         generator)
+    def device_batch(self, np_batch):
+        """A host batch on the trainer's device: with a mesh, this rank's
+        ``shard_batch`` of it (and its rows of ``decoding_order``, where
+        the host batch has one)."""
+        if self.mesh is None:
+            return to_device(np_batch, self.device, self.dtype)
+        batch = to_device(shard_batch(np_batch, self.mesh), self.device,
+                          self.dtype)
+        if "decoding_order" in np_batch:
+            order = shard_batch({"S": np_batch["S"],
+                                 "o": np.asarray(np_batch["decoding_order"])},
+                                self.mesh, shard_length=False)["o"]
+            batch["decoding_order"] = torch.from_numpy(order).to(self.device)
+        return batch
+
+    def train_step(self, np_batch, generator: torch.Generator = None):
+        """One training step. On one device ``generator`` (on the trainer's
+        device) draws the coordinate noise, dropout masks and decode order
+        (None: none of them). With a mesh they come from (seed, step)."""
+        metrics = self._train_step_impl(self.device_batch(np_batch), generator)
         self.step += 1
         return metrics
 
     def eval_step(self, np_batch):
-        return self._eval_step_impl(to_device(np_batch, self.device))
+        return self._eval_step_impl(self.device_batch(np_batch))
 
     # -- checkpoints -------------------------------------------------------
 
     def save(self, path: str, epoch: int, save_step: int):
-        """Write the ``.npz`` checkpoint both packages read."""
-        meta = {"epoch": epoch, "step": self.step, "save_step": save_step}
-        s = self.opt_state
-        leaves = (np.asarray(s.count, np.int32), s.mu.cpu().numpy(),
-                  s.nu.cpu().numpy(), np.asarray(s.schedule_count, np.int32))
-        save_checkpoint_npz(path, self.params, meta=meta, opt_state_flat={
-            f"leaf{i:04d}": v for i, v in enumerate(leaves)})
+        """Write the ``.npz`` checkpoint both packages read (with a mesh:
+        rank 0 writes, and every rank returns once the file is written)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            meta = {"epoch": epoch, "step": self.step, "save_step": save_step}
+            s = self.opt_state
+            leaves = (np.asarray(s.count, np.int32), s.mu.cpu().numpy(),
+                      s.nu.cpu().numpy(), np.asarray(s.schedule_count, np.int32))
+            save_checkpoint_npz(path, self.params, meta=meta, opt_state_flat={
+                f"leaf{i:04d}": v for i, v in enumerate(leaves)})
+        if self.mesh is not None:
+            dist.barrier(device_ids=([self.device.index]
+                                     if self.device.type == "cuda" else None))
 
     def restore(self, path: str) -> Dict:
         """Read an ``.npz`` checkpoint of either package; optimizer state in
@@ -248,9 +334,11 @@ class Trainer:
                                  f"{self.flat.numel()}")
 
             def moment(a):
-                return torch.from_numpy(np.array(a, np.float32)).to(self.device)
+                return torch.from_numpy(np.array(a, np.float32)).to(
+                    self.device, self.flat.dtype)
 
             self.opt_state = OptState(int(loaded[0]), moment(loaded[1]),
                                       moment(loaded[2]), int(loaded[3]))
+        self._replicate()
         self.step = int(meta.get("step", 0))
         return meta

@@ -45,6 +45,12 @@ trainer = Trainer(cfg, seed=0, device="cpu")
 gen = torch.Generator().manual_seed(0)
 losses = [float(trainer.train_step(batch, gen)["loss_av"]) for _ in range(2)]
 assert trainer.step == 2 and all(l == l for l in losses), losses
+from na_mpnn_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+initialize_distributed(1, 0, "cpu", init_file=out + "/store")
+mesh_trainer = Trainer(cfg, seed=0, mesh=make_mesh(1, 1, "cpu"))
+m = mesh_trainer.train_step(batch)
+assert mesh_trainer.step == 1 and float(m["loss_av"]) == float(m["loss_av"])
+assert tuple(m["S_pred"].shape) == tuple(batch["S"].shape)
 leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "na_mpnn_tpu" or m.startswith("na_mpnn_tpu.")]
 assert leaked == ["jax", "na_mpnn_tpu"], leaked   # only the blocked stubs

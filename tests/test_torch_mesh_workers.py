@@ -1,0 +1,133 @@
+"""Rank workers of the port's multi-process tests (``test_torch_graph_
+parallel.py``, ``test_torch_mesh_train.py``) and ``spawn``, which runs one
+on a gloo mesh of CPU processes. The workers import only ``torch``, numpy
+and the port; the JAX reference runs in the parent. This module holds no
+tests."""
+import queue
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from na_mpnn_tpu_torch.models import ModelConfig
+from na_mpnn_tpu_torch.params import from_jax_params
+from na_mpnn_tpu_torch.parallel.graph_parallel import forward_graph_parallel
+from na_mpnn_tpu_torch.parallel.mesh import (initialize_distributed, make_mesh,
+                                             shard_batch, sync_batch_length)
+from na_mpnn_tpu_torch.train.collate import repad_length
+from na_mpnn_tpu_torch.train.trainer import Trainer, tree_leaves
+
+TIMEOUT_S = 300
+
+
+def _entry(fn, rank, world_size, init_file, args, results):
+    try:
+        initialize_distributed(world_size, rank, "cpu", init_file)
+        value = fn(rank, *args)
+        dist.destroy_process_group()
+        results.put((rank, True, value))
+    except Exception:  # the rank's failure, reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn(fn, world_size, init_file, args=()):
+    """Run ``fn(rank, *args)`` in ``world_size`` fresh processes (``spawn``
+    start method), each in a gloo group started from a ``FileStore`` at
+    ``init_file`` (a path that does not exist yet); return the ranks' values
+    in rank order. A rank that raises makes this raise with its traceback;
+    the other ranks, which would wait on it in a collective, are stopped."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_entry, args=(fn, r, world_size, str(init_file),
+                                              args, results))
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        while len(out) < world_size:
+            try:
+                rank, ok, value = results.get(timeout=TIMEOUT_S)
+            except queue.Empty:
+                raise TimeoutError(f"mesh of {world_size}: no result in "
+                                   f"{TIMEOUT_S} s") from None
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(out) == world_size else 0)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [out[r] for r in range(world_size)]
+
+
+def _rows(mesh, batch_np, arr):
+    """This rank's rows of a ``[B, L, ...]`` array, all residues."""
+    return shard_batch({"S": batch_np["S"], "a": arr}, mesh,
+                       shard_length=False)["a"]
+
+
+def forward_and_grads(rank, data, graph, params_np, batch_np, order, R, modes,
+                      cfg_kw):
+    """Per ``rbf_mode``: this rank's deterministic log-probs (decode order
+    ``order``) and the world-summed flat gradient of ``sum(log_probs * R)``,
+    at float64."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(data, graph, device="cpu")
+    local = {k: torch.from_numpy(v) for k, v in shard_batch(batch_np, mesh).items()}
+    order_rows = torch.from_numpy(_rows(mesh, batch_np, order))
+    R_local = torch.from_numpy(shard_batch({"S": batch_np["S"], "R": R}, mesh)["R"])
+    out = {}
+    for mode in modes:
+        params = from_jax_params(params_np, device="cpu", dtype=torch.float64)
+        leaves = list(tree_leaves(params))
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        lp = forward_graph_parallel(params, ModelConfig(rbf_mode=mode, **cfg_kw),
+                                    local, mesh, order_rows)
+        (lp * R_local).sum().backward()
+        g = torch.cat([leaf.grad.reshape(-1) for leaf in leaves])
+        dist.all_reduce(g)
+        out[mode] = (lp.detach().numpy(), g.numpy())
+    return out
+
+
+def trainer_loss_and_grads(rank, data, graph, batch_np, cfg_kw, trainer_kw):
+    """One training loss and its flat gradient (dropout, noise and the decode
+    order from the row-keyed streams) of a float64 mesh ``Trainer``."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(data, graph, device="cpu")
+    tr = Trainer(ModelConfig(**cfg_kw), mesh=mesh, device="cpu",
+                 dtype=torch.float64, **trainer_kw)
+    loss, grad = tr.loss_and_grads(tr.device_batch(batch_np))[:2]
+    return float(loss), grad.numpy()
+
+
+def trainer_step(rank, data, graph, batch_np, cfg_kw, trainer_kw, ckpt):
+    """The flat gradient of one step, one ``train_step`` (fp32) and its
+    metrics; then ``save`` on rank 0 and ``restore`` on every rank, checked
+    bitwise here."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(data, graph, device="cpu")
+    # ranks that collate their own rows to other lengths agree on the longest
+    longer = sync_batch_length(repad_length(batch_np, 64 + 32 * rank), mesh)
+    synced = longer["S"].shape == (2, 32 + 32 * mesh.size)
+    cfg = ModelConfig(**cfg_kw)
+    tr = Trainer(cfg, mesh=mesh, device="cpu", **trainer_kw)
+    grad = tr.loss_and_grads(tr.device_batch(batch_np))[1]
+    m = tr.train_step(batch_np)
+    tr.save(ckpt, epoch=1, save_step=0)
+    back = Trainer(cfg, mesh=mesh, device="cpu", **{**trainer_kw, "seed": 5})
+    back.restore(ckpt)
+    s, r = tr.opt_state, back.opt_state
+    same = bool(torch.equal(tr.flat, back.flat) and torch.equal(s.mu, r.mu)
+                and torch.equal(s.nu, r.nu) and s.count == r.count
+                and back.step == tr.step == 1)
+    return {"grad": grad.numpy(), "flat": tr.flat.numpy().copy(),
+            "offsets": np.cumsum([0] + [p.numel() for p in tr.leaves]),
+            "metrics": {k: v.numpy() for k, v in m.items()},
+            "restored": same, "synced": synced}
