@@ -11,17 +11,26 @@ CUDA toolkit. Phases, each of which raises on failure:
    parallel) and prints the seconds;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: kNN (E_idx exact, also with the masked rows of
-   ``--pad_to_bucket 32``), class-specialised RBF and the message table in
-   its three modes (relative error < 1e-5; random masks, m1d = 0 on some
-   decoder edges);
+   ``--pad_to_bucket 32``), class-specialised RBF, the message table in
+   its three modes and the fused layer updates (encoder node, decoder node,
+   encoder edge; at design's, score's and a packed batch-design group's
+   shape) (relative error < 1e-5; random masks, m1d = 0 on some decoder
+   edges, masked nodes in the group);
 4. main path: the port's CLI on a synthetic protein-DNA PDB of 389
    residues with random full-width weights (H=128, K=32, 3+3 layers) in
-   design, specificity and score mode and in design mode with
-   ``--pad_to_bucket 32``; checks the outputs and that each path launched
-   every kernel; then the time of encode, sample, score and unconditional
-   probs at that shape; then score and unconditional probs with the kernels
-   against the plain path (``kernels="torch"``) on the card at that
-   structure padded to 416 rows, and against the CPU on a small structure;
+   design, specificity and score mode, in design mode with
+   ``--pad_to_bucket 32``, with ``--symmetry_residues`` (tied positions
+   draw equal tokens) and on the same structure written as mmCIF (the PDB
+   run's fields, shapes and native sequence); checks the outputs and that
+   each run took the fused route (3 encoder node and 3 edge updates per
+   encode, 3 decoder node updates per parallel decoder, no message-table
+   launch); then the time of encode, sample, score and unconditional
+   probs at that shape; encode and score on the fused route against the
+   message-table route, in turns; ``eval.batch_design`` on 5 structures
+   (design and specificity); then score and unconditional probs with the
+   kernels against the plain path (``kernels="torch"``) on the card at
+   that structure padded to 416 rows, and against the CPU on a small
+   structure;
 5. training: 8 synthetic protein-DNA structures of 600-768 residues through
    ``parse_pdb`` and ``collate_batch`` (B=8, L=768, K=32: 196,608 edges);
    at that shape, the kernels of the training step against their plain
@@ -155,6 +164,124 @@ def _message_table_bound(mode, N, K, H, C, save_x=False):
     nbytes = (4 * (N * H + N * K * H + N * C + 2 * N * K + 4 * H * H + 3 * H
                    + out + (N * K * H if save_x else 0)) + 8 * N * K)
     return _bound_ms(ops, nbytes)
+
+
+def _fused_bound(kind, N, K, H, C):
+    """Least work of the fused layer updates: the message table's count for
+    its mode (``_message_table_bound``), plus in the node update the
+    feed-forward block (16 H^2 per node) and two LayerNorms with their
+    residuals (about 10 operations per element each), in the edge update
+    LN3 and its residual (about 8 per edge element). Bytes: every input
+    once (node and edge rows, table, masks, indices, weights) and the
+    output once."""
+    w = 4 * H * H + 3 * H
+    if kind == "edge":
+        ops = N * K * (6 * H * H + 38 * H) + N * 2 * H * H
+        nbytes = 4 * (N * H + 2 * N * K * H + N * C + w + 2 * H) + 8 * N * K
+    else:
+        ops = N * K * (4 * H * H + 30 * H) + N * (20 * H * H + 20 * H)
+        nbytes = (4 * (2 * N * H + N * K * H + N * C + 2 * N * K + N + w
+                       + 8 * H * H + 9 * H) + 8 * N * K)
+    return _bound_ms(ops, nbytes)
+
+
+def _random_layer(cfg, seed, dev):
+    """An encoder and a decoder layer of random weights, with random biases
+    and LayerNorm scales/offsets (the initial zeros and ones would hide a
+    misplaced term)."""
+    import torch
+    from na_mpnn_tpu_torch.models import init_params
+    params = init_params(seed, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for p in (params["encoder"][0], params["decoder"][0]):
+        for name, sub in p.items():
+            for leaf in (sub["W_in"], sub["W_out"]) if name == "dense" else (sub,):
+                for k in ("b", "bias"):
+                    if k in leaf:
+                        leaf[k].copy_(0.3 * torch.randn(leaf[k].shape, generator=gen,
+                                                        device=dev))
+                if "scale" in leaf:
+                    leaf["scale"].copy_(1.0 + 0.3 * torch.randn(
+                        leaf["scale"].shape, generator=gen, device=dev))
+        out.append(p)
+    return out
+
+
+def fused_kernel_phase(pdb):
+    """The fused layer updates (rows 11, 12) against their plain versions on
+    the card: the encoder node update, the decoder node update and the edge
+    update at design's shape (B=1, L=389), score's (N = 3890) and one packed
+    batch-design group (two copies of the structure padded to 400 rows, so
+    masked nodes and masked edges); random operands, decoder masks m1d and
+    mbw random with mbw <= m1d. Passes at a relative error < 1e-5 (of the
+    plain output's max |value|). Returns the rows of the kernels JSON line
+    (design's shape)."""
+    import torch
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.ops import fused_layers as fl
+    from na_mpnn_tpu_torch.ops import knn
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig()
+    H, K = cfg.hidden_dim, cfg.k_neighbors
+    pe, pd = _random_layer(cfg, 6, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for tag, n_copies, pad_to in (("design", 1, 0), ("score", 10, 0),
+                                  ("group", 2, 400)):
+        _, _, _, X_ref, mask = _structure(pdb, dev, n_copies, pad_to)
+        B, L = mask.shape
+        N = B * L
+        _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
+        eidx2 = E_idx.reshape(-1).contiguous()
+        mask2 = mask.reshape(-1).contiguous()
+        nb_mask = torch.gather(mask, 1, E_idx.reshape(B, -1)).reshape(-1)
+        m_att = (mask2.repeat_interleave(K) * nb_mask).contiguous()
+        m1d = mask2.repeat_interleave(K).contiguous()
+        mbw = (m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5)).contiguous()
+        if pad_to and not (float(mask2.min()) == 0.0 and float(m_att.min()) == 0.0):
+            raise AssertionError("fused group case: no masked rows to check")
+        h_V2 = torch.randn((N, H), generator=gen, device=dev)
+        h_E2 = torch.randn((N * K, H), generator=gen, device=dev)
+        tab = torch.randn((N, H), generator=gen, device=dev)
+        tab2 = torch.randn((N, 2 * H), generator=gen, device=dev)
+        cases = {
+            "fused_node_update_enc": (
+                lambda f: f("enc", pe, h_V2, h_E2, tab, eidx2, m_att, None,
+                            mask2, K=K, L=L),
+                fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", H),
+            "fused_node_update_dec": (
+                lambda f: f("dec", pd, h_V2, h_E2, tab2, eidx2, m1d, mbw,
+                            mask2, K=K, L=L),
+                fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", 2 * H),
+            "fused_edge_update": (
+                lambda f: f(pe, h_V2, h_E2, tab, eidx2, K=K, L=L),
+                fl.fused_edge_update_cuda, fl.fused_edge_update_plain, "edge", H),
+        }
+        for name, (call, cuda, plain, kind, C) in cases.items():
+            out_k = call(cuda)
+            out_p = call(plain)
+            rel = _rel_err(out_k, out_p)
+            if not rel < REL_TOL:
+                raise AssertionError(f"{name} {tag} N={N}: rel err {rel:.3g}")
+            ms = _sync_time(lambda: call(cuda), 20)
+            plain_ms = _sync_time(lambda: call(plain), 5)
+            bound = _fused_bound(kind, N, K, H, C)
+            extra = ""
+            if kind == "node":
+                tile = fl.node_tile(N, torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+                extra = f", tile {tile}"
+            print(f"{name} {tag} N={N} K={K} H={H}: rel err {rel:.3g} (< {REL_TOL}), "
+                  f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by "
+                  f"{bound[1]}, {ms / bound[0]:.1f}x the bound){extra}", flush=True)
+            if tag == "design":
+                rows[name] = dict(max_abs_err=float((out_k - out_p).abs().max()),
+                                  ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1])
+            del out_k, out_p
+    return rows
 
 
 def device_phase():
@@ -318,8 +445,48 @@ def _check_finite(arr, shape, what):
                              f"finite={bool(np.all(np.isfinite(arr)))}")
 
 
+def write_synthetic_cif(pdb, path):
+    """The atoms of a PDB file written again as an mmCIF ``atom_site``
+    table (the same names, residues, chains, numbers and coordinates)."""
+    from na_mpnn_tpu_torch.data.pdb import read_pdb_atoms
+    rows = []
+    for a in read_pdb_atoms(pdb):
+        name = f'"{a.name}"' if "'" in a.name else a.name
+        rows.append(f"ATOM {a.element} {name} {a.resname} {a.chain} {a.resnum} ? . "
+                    f"{a.xyz[0]:.3f} {a.xyz[1]:.3f} {a.xyz[2]:.3f} "
+                    f"{a.occupancy:.2f} {a.bfactor:.2f} 1")
+    cols = ("group_PDB", "type_symbol", "label_atom_id", "label_comp_id",
+            "auth_asym_id", "auth_seq_id", "pdbx_PDB_ins_code", "label_alt_id",
+            "Cartn_x", "Cartn_y", "Cartn_z", "occupancy", "B_iso_or_equiv",
+            "pdbx_PDB_model_num")
+    with open(path, "w") as f:
+        f.write("data_synthetic\n#\nloop_\n"
+                + "".join(f"_atom_site.{c}\n" for c in cols)
+                + "\n".join(rows) + "\n")
+
+
+# Two tied groups of the DNA chains: C1 (residue 300) with D44 (388), and
+# C2, C3 (301, 302) with D43 (387).
+SYMMETRY = ("C1,D44|C2,C3,D43", "1.0,0.5|1.0,1.0,2.0", ((300, 388), (301, 302, 387)))
+
+
+def _fused_launches_ok(counts, n_dec):
+    """The fused route's launches: per encode (one kNN each) 3 encoder node
+    and 3 edge updates, 3 decoder node updates per parallel decoder, and no
+    message-table launch."""
+    n_enc = counts.get("knn", 0)
+    return (n_enc >= 1 and counts.get("rbf_classed", 0) == n_enc
+            and counts.get("fused_node_update_enc", 0) == 3 * n_enc
+            and counts.get("fused_edge_update", 0) == 3 * n_enc
+            and counts.get("fused_node_update_dec", 0) == 3 * n_dec
+            and not any(k.startswith("message_table") for k in counts))
+
+
 def main_path_phase(pdb, L):
-    """The port's CLI on the card, per mode; returns the launches."""
+    """The port's CLI on the card, per mode (design, specificity, score,
+    design padded to 416 rows, symmetry-tied design, design from mmCIF);
+    checks the outputs and the fused route's launches; returns the
+    launches."""
     import torch
     from na_mpnn_tpu_torch.cli.run import cli_entry
     from na_mpnn_tpu_torch.models import init_params
@@ -329,13 +496,22 @@ def main_path_phase(pdb, L):
 
     ckpt = os.path.join(OUT, "random_weights.npz")
     save_checkpoint_npz(ckpt, init_params(0, ModelConfig(), device="cpu"))
+    cif = os.path.join(OUT, "synthetic.cif")
+    write_synthetic_cif(pdb, cif)
     total = {}
-    runs = (("design", []), ("specificity", ["--output_specificity", "1"]),
-            ("score", []), ("design_pad32", ["--pad_to_bucket", "32"]))
-    for tag, extra in runs:
-        mode = "design" if tag.startswith("design") else tag
+    runs = (("design", pdb, []),
+            ("specificity", pdb, ["--output_specificity", "1"]),
+            ("score", pdb, []),
+            ("design_pad32", pdb, ["--pad_to_bucket", "32"]),
+            ("symmetry", pdb, ["--symmetry_residues", SYMMETRY[0],
+                               "--symmetry_weights", SYMMETRY[1],
+                               "--batch_size", "2"]),
+            ("cif", cif, []))
+    for tag, path, extra in runs:
+        mode = tag if tag in ("specificity", "score") else "design"
+        name = os.path.basename(path).rsplit(".", 1)[0]
         out = os.path.join(OUT, tag)
-        argv = ["--mode", mode, "--checkpoint_na_mpnn", ckpt, "--pdb_path", pdb,
+        argv = ["--mode", mode, "--checkpoint_na_mpnn", ckpt, "--pdb_path", path,
                 "--out_folder", out, "--seed", "7", "--save_stats", "1",
                 "--stats_format", "npz", "--device", "cuda", *extra]
         torch.cuda.synchronize()
@@ -347,35 +523,41 @@ def main_path_phase(pdb, L):
         counts = dict(LAUNCHES)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        stats = np.load(os.path.join(out, "stats", "synthetic.npz"))
-        enc = counts.get("message_table_enc_node", 0) + counts.get("message_table_enc_edge", 0)
-        dec = counts.get("message_table_dec", 0)
-        if counts.get("knn", 0) < 1 or counts.get("rbf_classed", 0) < 1:
-            raise AssertionError(f"{tag}: kNN/RBF kernels not launched: {counts}")
-        if enc < 6 * counts["knn"]:
-            raise AssertionError(f"{tag}: fewer than 6 message-table launches "
-                                 f"per encode: {counts}")
+        stats = np.load(os.path.join(out, "stats", f"{name}.npz"))
+        if not _fused_launches_ok(counts, 2 if mode == "score" else 0):
+            raise AssertionError(f"{tag}: launches {counts} are not the fused "
+                                 "route's (3 + 3 per encode, 3 per decoder)")
         if mode == "score":
-            if dec < 3:
-                raise AssertionError(f"score: decoder kernel not launched: {counts}")
             _check_finite(stats["log_probs"], (10, L, 33), "score log_probs")
             _check_finite(stats["unconditional_log_probs"], (L, 33), "uncond")
             if not np.allclose(np.exp(stats["log_probs"]).sum(-1), 1.0, atol=1e-4):
                 raise AssertionError("score: probabilities do not sum to 1")
         else:
-            B = 30 if mode == "specificity" else 1
+            B = {"specificity": 30, "symmetry": 2}.get(tag, 1)
             _check_finite(stats["log_probs"], (B, L, 33), f"{tag} log_probs")
             _check_finite(stats["sampling_probs"], (B, L, 33), f"{tag} probs")
             S = stats["generated_sequences"]
             if S.shape != (B, L) or S.min() < 0 or S.max() >= 33:
                 raise AssertionError(f"{tag}: bad sequences {S.shape}")
-            with open(os.path.join(out, "seqs", "synthetic.fa")) as f:
+            with open(os.path.join(out, "seqs", f"{name}.fa")) as f:
                 if f.read().count(">") != B + 1:
                     raise AssertionError(f"{tag}: FASTA records missing")
             if mode == "specificity":
                 spec = np.load(os.path.join(out, "specificity", "synthetic.npz"),
                                allow_pickle=True)
                 _check_finite(spec["predicted_ppm"], (L, 33), "predicted_ppm")
+            if tag == "symmetry":
+                for tied in SYMMETRY[2]:
+                    if not (S[:, list(tied)] == S[:, tied[:1]]).all():
+                        raise AssertionError(f"symmetry: tied positions {tied} "
+                                             f"differ: {S[:, list(tied)]}")
+            if tag == "cif":
+                ref = np.load(os.path.join(OUT, "design", "stats", "synthetic.npz"))
+                if sorted(ref.files) != sorted(stats.files) or any(
+                        ref[k].shape != stats[k].shape for k in ref.files) or not \
+                        np.array_equal(ref["native_sequence"], stats["native_sequence"]):
+                    raise AssertionError("cif: outputs differ from the PDB run's "
+                                         "fields, shapes or native sequence")
         print(f"main path {tag}: {dt:.2f} s, launches {counts}", flush=True)
     return total
 
@@ -425,6 +607,132 @@ def breakdown_phase(pdb):
     step = (ms["sample_B1"] - ms["encode_B1"]) / L
     print(f"breakdown L={L}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
           + f"; sampler {step:.3f} ms per decode step at B=1", flush=True)
+
+
+def fused_vs_table_phase(pdb):
+    """Encode at B=1 and score at B=10 (host clock, synchronised) on the
+    fused route, and in turns the same calls with every layer sent to the
+    message-table route (the route of layers with dropout or a gradient,
+    here under no gradient), fused / table / table / fused; the two routes'
+    score log-probs within 1e-4. Returns the launches of the first fused
+    pair of calls."""
+    import torch
+    from na_mpnn_tpu_torch.data.featurize import featurize_inference
+    from na_mpnn_tpu_torch.data.pdb import parse_pdb
+    from na_mpnn_tpu_torch.models import encode, init_params, mpnn, score
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+
+    cfg = ModelConfig()
+    params = init_params(0, cfg, device="cuda")
+    parsed = parse_pdb(pdb)
+    L = len(parsed["S"])
+    batch = featurize_inference(parsed, np.ones(L, np.int32), device="cuda")
+    tiled = {k: v.repeat_interleave(10, 0) for k, v in batch.items()}
+    order = torch.stack([torch.randperm(L, generator=torch.Generator().manual_seed(i))
+                         for i in range(10)]).to("cuda")
+    fused_route = mpnn.fused_route
+
+    def calls():
+        encode(params, cfg, batch)
+        return score(params, cfg, tiled, decoding_order=order)["log_probs"]
+
+    def run(route):
+        mpnn.fused_route = fused_route if route == "fused" else (lambda *a: False)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            lp = calls()
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            ms = (_host_ms(lambda: encode(params, cfg, batch), 10),
+                  _host_ms(lambda: score(params, cfg, tiled, decoding_order=order), 5))
+        finally:
+            mpnn.fused_route = fused_route
+        return lp, counts, ms
+
+    res = [run(r) for r in ("fused", "table", "table", "fused")]
+    for (lp, counts, _), route in zip(res, ("fused", "table", "table", "fused")):
+        fused = _fused_launches_ok(counts, 1)
+        table = (counts.get("message_table_enc_node") == 6
+                 and counts.get("message_table_dec") == 3
+                 and not any(k.startswith("fused") for k in counts))
+        if not (fused if route == "fused" else table):
+            raise AssertionError(f"{route} route: launches {counts}")
+    d = float((res[0][0] - res[1][0]).abs().max())
+    if not d < 1e-4:
+        raise AssertionError(f"fused vs table route: max |d log p| {d:.3g}")
+    f_ms = [res[0][2], res[3][2]]
+    t_ms = [res[1][2], res[2][2]]
+    print(f"fused vs table route L={L} (host clock, synchronised; in turns "
+          f"fused/table/table/fused): encode B=1 fused "
+          f"{f_ms[0][0]:.3f}, {f_ms[1][0]:.3f} ms vs table {t_ms[0][0]:.3f}, "
+          f"{t_ms[1][0]:.3f} ms; score B=10 fused {f_ms[0][1]:.3f}, "
+          f"{f_ms[1][1]:.3f} ms vs table {t_ms[0][1]:.3f}, {t_ms[1][1]:.3f} ms; "
+          f"score log-probs of the two routes max |d| {d:.3g} (< 1e-4)",
+          flush=True)
+    return res[0][1]
+
+
+BATCH_LENGTHS = (165, 170, 260, 270, 390)
+
+
+def batch_design_phase():
+    """``eval.batch_design`` on the card at full width: 5 synthetic
+    protein-DNA PDBs of 165-390 residues, ``--bucket 16`` and 2 structures
+    per group (groups padded to 176, 272 and 400 rows, none a multiple of
+    32; the last group holds a dummy row), design (1 sample) and
+    specificity (30 samples, T = 0.6); checks the FASTA records, the PPMs
+    and the fused route's launches (one encode per group). Returns the
+    launches."""
+    import torch
+    from na_mpnn_tpu_torch.eval.batch_design import main as batch_design
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+
+    folder = os.path.join(OUT, "batch")
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i, n in enumerate(BATCH_LENGTHS):
+        d = 20 + 2 * i
+        paths.append(os.path.join(folder, f"b{i}.pdb"))
+        write_synthetic_pdb(paths[-1], (("A", "protein", n - 2 * d), ("B", "dna", d),
+                                        ("C", "dna", d)), seed=30 + i)
+    csv_path = os.path.join(folder, "structures.csv")
+    with open(csv_path, "w") as f:
+        f.write("structure_path\n" + "\n".join(paths) + "\n")
+    ckpt = os.path.join(OUT, "random_weights.npz")
+    total = {}
+    for mode, extra in (("design", ["--samples", "1"]),
+                        ("specificity", ["--samples", "30", "--temperature", "0.6"])):
+        out = os.path.join(folder, mode)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        batch_design(["--csv", csv_path, "--checkpoint", ckpt, "--out_folder", out,
+                      "--mode", mode, "--bucket", "16", "--batch_structures", "2",
+                      "--seed", "5", "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = dict(LAUNCHES)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if not (counts.get("knn") == 3 and _fused_launches_ok(counts, 0)):
+            raise AssertionError(f"batch {mode}: launches {counts}, want the fused "
+                                 "route and one encode per group (3)")
+        for i, n in enumerate(BATCH_LENGTHS):
+            if mode == "design":
+                with open(os.path.join(out, "seqs", f"b{i}.fa")) as f:
+                    lines = f.read().splitlines()
+                if len(lines) != 4 or len(lines[3].replace("/", "")) != n:
+                    raise AssertionError(f"batch design b{i}: FASTA {lines[::2]}")
+            else:
+                ppm = np.load(os.path.join(out, "specificity", f"b{i}.npz"))["predicted_ppm"]
+                _check_finite(ppm, (n, 33), f"batch specificity b{i}")
+        print(f"batch {mode} (5 structures of {min(BATCH_LENGTHS)}-{max(BATCH_LENGTHS)} "
+              f"residues, bucket 16, 2 per group): {dt:.2f} s, "
+              f"{dt / len(BATCH_LENGTHS):.3f} s per structure, launches {counts}",
+              flush=True)
+    return total
 
 
 def _score_and_uncond(cfg, params, batch):
@@ -1101,8 +1409,8 @@ def mesh_phase(nb):
             torch.cuda.synchronize()
             counts = dict(LAUNCHES)
             lp_1 = forward(params, cfg, {**batch, "decoding_order": order})[0]
-        want_fwd = {"knn_qk": 1, "rbf_classed": 1,
-                    **{f"message_table_{m}": 3 for m in MODES}}
+        want_fwd = {"knn_qk": 1, "rbf_classed": 1, "fused_node_update_enc": 3,
+                    "fused_edge_update": 3, "fused_node_update_dec": 3}
         if counts != want_fwd:
             raise AssertionError(f"forward_graph_parallel launches {counts}, "
                                  f"want {want_fwd}")
@@ -1144,6 +1452,7 @@ def main():
     pdb = os.path.join(OUT, "synthetic.pdb")
     L = write_synthetic_pdb(pdb)
     rows = kernel_phase(pdb)
+    rows.update(fused_kernel_phase(pdb))
     launches = main_path_phase(pdb, L)
 
     def add(counts):
@@ -1151,6 +1460,8 @@ def main():
             launches[name] = launches.get(name, 0) + n
 
     breakdown_phase(pdb)
+    add(fused_vs_table_phase(pdb))
+    add(batch_design_phase())
     reference_check_phase(pdb)
     add(dense_inference_phase(pdb))
     nb = training_batch()
@@ -1184,6 +1495,10 @@ def main():
         sources[f"message_table_bwd_{mode}"] = (
             "na_mpnn_tpu_torch/csrc/message_table_bwd.cu",
             "na_mpnn_tpu/ops/message_kernels.py:500")
+    for name, line in (("fused_node_update_enc", 152), ("fused_node_update_dec", 152),
+                       ("fused_edge_update", 187)):
+        sources[name] = ("na_mpnn_tpu_torch/csrc/fused_layers.cu",
+                         f"na_mpnn_tpu/ops/fused_layers.py:{line}")
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches.get(name, 0) < 1:

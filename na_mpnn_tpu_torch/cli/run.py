@@ -4,8 +4,12 @@ and scoring.
 The same flags, mode defaults (design: B=1, T=0.1; specificity: B=30,
 T=0.6; score: B=10) and outputs (FASTA, backbone PDBs, specificity ``.npz``,
 stats) as the JAX package's ``cli/run.py``, plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain versions of the kernels). Reads ``.npz``
+``cuda``; ``cpu`` runs the plain versions of the kernels). Reads PDB and
+mmCIF structures (``.cif``, ``.mmcif``, gzipped or not), ``.npz``
 checkpoints in the JAX layout and reference ``.pt`` checkpoints.
+``--symmetry_residues "A1,B1|A2,B2"`` (with optional ``--symmetry_weights``
+of the same shape) ties positions: each group decodes together and draws
+one token (``models/mpnn.py::sample_tied``).
 
     python -m na_mpnn_tpu_torch.cli.run --mode design \\
         --checkpoint_na_mpnn model.npz --pdb_path 1am9.pdb --out_folder out
@@ -118,16 +122,14 @@ def main(args):
                                   make_pair_bias_ctx, resolve_device)
     from ..data.pdb import parse_pdb, write_backbone_pdb
     from ..models.config import ModelConfig
-    from ..models.mpnn import sample, score, unconditional_probs
+    from ..models.mpnn import (build_decode_groups, sample,
+                               sample_decoding_order, sample_tied, score,
+                               unconditional_probs)
     from ..params import load_params_any
 
     if args.model_type != "na_mpnn":
         print("Choose --model_type flag from currently available models")
         sys.exit(1)
-    if args.symmetry_residues:
-        raise NotImplementedError(
-            "--symmetry_residues (sample_tied) is not ported yet (ROADMAP "
-            "Queue 1, 'sample_tied / sample_multi')")
     device = resolve_device(args.device)
 
     restype_to_int = constants.restype_to_int_table(bool(args.na_shared_tokens))
@@ -207,6 +209,16 @@ def main(args):
                               for c in parsed["chain_letters"]], np.int32)
         chain_mask = chain_sel * fixed_positions * (1 - redesigned_positions)
 
+        sym_lists = ([[encoded_residue_dict[t] for t in x.split(",")]
+                      for x in args.symmetry_residues.split("|")]
+                     if args.symmetry_residues else [[]])
+        if args.symmetry_weights:
+            sym_weights = [[float(v) for v in x.split(",")]
+                           for x in args.symmetry_weights.split("|")]
+        else:
+            sym_weights = [[1.0] * len(x) for x in sym_lists]
+        use_symmetry = any(len(x) > 0 for x in sym_lists)
+
         pad_L = 0
         if args.pad_to_bucket:
             pad_L = -(-L // args.pad_to_bucket) * args.pad_to_bucket
@@ -269,9 +281,19 @@ def main(args):
         S_list, log_probs_list, probs_list, order_list = [], [], [], []
         loss_list, loss_pr_list = [], []
         for _ in range(args.number_of_batches):
-            out = sample(params, cfg, batch, generator, num_samples=args.batch_size,
-                         temperature=args.temperature, bias=bias,
-                         pair_bias_ctx=pair_bias_ctx)
+            if use_symmetry:
+                base_order = _np(sample_decoding_order(rec_mask, generator))[0]
+                groups, gweights, flat = build_decode_groups(
+                    base_order, sym_lists, sym_weights, L_run)
+                out = sample_tied(params, cfg, batch, generator, groups,
+                                  gweights, flat, num_samples=args.batch_size,
+                                  temperature=args.temperature, bias=bias,
+                                  pair_bias_ctx=pair_bias_ctx)
+            else:
+                out = sample(params, cfg, batch, generator,
+                             num_samples=args.batch_size,
+                             temperature=args.temperature, bias=bias,
+                             pair_bias_ctx=pair_bias_ctx)
             loss, loss_per_residue = get_score(out["S"], out["log_probs"],
                                                rec_mask, num_letters)
             S_list.append(_np(out["S"]))

@@ -37,14 +37,15 @@ def renumber_duplicate_resnums(R_idx: np.ndarray) -> np.ndarray:
 
 
 def featurize_inference(parsed: Dict, chain_mask: np.ndarray, pad_to: int = 0,
-                        device="cuda") -> Dict[str, torch.Tensor]:
-    """Parsed structure -> model batch of ``[1, ...]`` tensors on ``device``.
+                        device="cuda", as_numpy: bool = False) -> Dict:
+    """Parsed structure -> model batch of ``[1, ...]`` tensors on ``device``
+    (with ``as_numpy``: host-side numpy arrays, for callers that stack many
+    structures before one copy to the device).
 
     ``pad_to > L`` pads every per-residue array to that length with inert
     rows (mask 0, a fresh chain label, strictly increasing R_idx); padded
     rows never enter the kNN graph or a score, and callers truncate outputs
     back to L."""
-    device = resolve_device(device)
     L = len(parsed["S"])
     pad = max(int(pad_to) - L, 0)
 
@@ -63,16 +64,16 @@ def featurize_inference(parsed: Dict, chain_mask: np.ndarray, pad_to: int = 0,
     chain_labels = padded(chain_labels,
                           fill=int(chain_labels.max()) + 1 if pad else 0)
 
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a))[None].to(device)
-
-    batch = {"R_idx": tensor(R_idx),
-             "R_idx_original": tensor(padded(parsed["R_idx"])),
-             "chain_labels": tensor(chain_labels)}
+    arrays = {"R_idx": R_idx, "R_idx_original": padded(parsed["R_idx"]),
+              "chain_labels": chain_labels}
     for k in _BATCH_KEYS:
-        batch[k] = tensor(padded(parsed[k]))
-    batch["chain_mask"] = tensor(padded(chain_mask))
-    return batch
+        arrays[k] = padded(parsed[k])
+    arrays["chain_mask"] = padded(chain_mask)
+    batch = {k: np.ascontiguousarray(a)[None] for k, a in arrays.items()}
+    if as_numpy:
+        return batch
+    device = resolve_device(device)
+    return {k: torch.from_numpy(a).to(device) for k, a in batch.items()}
 
 
 def get_seq_rec(S_true, S_pred, mask):
@@ -90,15 +91,17 @@ def get_score(S, log_probs, mask, num_letters):
 
 
 def make_pair_bias_ctx(chain_labels: np.ndarray, R_idx: np.ndarray,
-                       pair_bias_AA: np.ndarray, device="cuda") -> Dict:
+                       pair_bias_AA: np.ndarray, device="cuda",
+                       as_numpy: bool = False) -> Dict:
     """Adjacency diagonal for the neighbour pair bias: ``u_diag[i] = 1`` iff
-    residues i, i+1 are sequence-consecutive on the same chain."""
+    residues i, i+1 are sequence-consecutive on the same chain (with
+    ``as_numpy``: numpy arrays on the host)."""
     R_idx = np.asarray(R_idx)
     chain_labels = np.asarray(chain_labels)
     adj = ((R_idx[1:] - R_idx[:-1]) == 1) & (chain_labels[1:] == chain_labels[:-1])
+    ctx = {"pair_bias_AA": np.asarray(pair_bias_AA, np.float32),
+           "u_diag": adj.astype(np.float32)}
+    if as_numpy:
+        return ctx
     device = resolve_device(device)
-    return {
-        "pair_bias_AA": torch.as_tensor(np.asarray(pair_bias_AA, np.float32),
-                                        device=device),
-        "u_diag": torch.as_tensor(adj.astype(np.float32), device=device),
-    }
+    return {k: torch.as_tensor(v, device=device) for k, v in ctx.items()}

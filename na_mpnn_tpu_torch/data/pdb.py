@@ -1,5 +1,5 @@
-"""PDB structure parsing for inference (the port's own copy of the JAX
-package's ``data/pdb.py`` on its pure-Python reader).
+"""PDB and mmCIF structure parsing for inference (the port's own copy of
+the JAX package's ``data/pdb.py`` on its pure-Python readers).
 
 * residues are those with a CA (protein resnames) or C1' (nucleic resnames)
   atom, in file order;
@@ -10,7 +10,10 @@ package's ``data/pdb.py`` on its pure-Python reader).
 * ``rna_mask_for_token_conversion`` marks residues with an O2' atom;
 * non-polymer heavy atoms become ligand context (Y / Y_t / Y_m).
 
-mmCIF input and the native tokenizer are not ported yet.
+mmCIF inputs (``.cif``, ``.mmcif``, gzipped or not) are read from their
+``atom_site`` table with the same filtering as PDB records. The native
+(C++) tokenizer is not ported: the pure-Python readers are its semantic
+reference.
 """
 from __future__ import annotations
 
@@ -115,6 +118,77 @@ def read_pdb_atoms(path: str) -> List[PDBAtom]:
     return atoms
 
 
+def read_cif_atoms(path: str, first_model_only: bool = True) -> List[PDBAtom]:
+    """ATOM/HETATM records from an mmCIF ``atom_site`` table, filtered as
+    ``read_pdb_atoms`` filters (altloc ' '/'A', occupancy > 0, first model
+    only). Author numbering and chain IDs win over the label scheme; a null
+    token ('.' or '?') falls back to the other scheme."""
+    from .cif import _float_or, read_cif
+
+    tables = read_cif(path)
+    if "atom_site" not in tables:
+        raise ValueError(f"{path}: no atom_site category — not a structure "
+                         "mmCIF (chemical-component or truncated file?)")
+    at = tables["atom_site"]
+    g = at.index.get
+    cols = {k: g(v) for k, v in [
+        ("group", "group_PDB"), ("symbol", "type_symbol"),
+        ("atm", "label_atom_id"), ("res", "label_comp_id"),
+        ("chain_auth", "auth_asym_id"), ("chain", "label_asym_id"),
+        ("num_auth", "auth_seq_id"), ("num", "label_seq_id"),
+        ("icode", "pdbx_PDB_ins_code"), ("alt", "label_alt_id"),
+        ("x", "Cartn_x"), ("y", "Cartn_y"), ("z", "Cartn_z"),
+        ("occ", "occupancy"), ("bfac", "B_iso_or_equiv"),
+        ("model", "pdbx_PDB_model_num"),
+    ]}
+
+    def field(row, key, default=""):
+        return row[cols[key]] if cols[key] is not None else default
+
+    def token(row, key):
+        """The field, with the null markers '.' and '?' read as ''."""
+        v = field(row, key)
+        return "" if v in (".", "?") else v
+
+    atoms: List[PDBAtom] = []
+    first_model = None
+    for row in at.rows:
+        if cols["model"] is not None:
+            m = row[cols["model"]]
+            if first_model is None:
+                first_model = m
+            elif first_model_only and m != first_model:
+                break  # models are contiguous, like ENDMDL in PDB files
+        alt = field(row, "alt", ".")
+        if alt not in (".", "?", "", "A"):
+            continue
+        occ = _float_or(field(row, "occ", None), 1.0)
+        if occ <= 0:
+            continue
+        num = token(row, "num_auth") or token(row, "num")
+        try:
+            resnum = int(num)
+        except (TypeError, ValueError):
+            continue  # no usable numbering in either scheme
+        name = field(row, "atm").strip('"')
+        icode = token(row, "icode")
+        element = token(row, "symbol").upper()
+        if not element:
+            element = next((c.upper() for c in name if c.isalpha()), "")
+        try:
+            xyz = np.array([float(field(row, "x")), float(field(row, "y")),
+                            float(field(row, "z"))], dtype=np.float32)
+        except (TypeError, ValueError):
+            continue
+        atoms.append(PDBAtom(
+            field(row, "group", "ATOM"), len(atoms) + 1, name,
+            "A" if alt == "A" else " ", field(row, "res"),
+            token(row, "chain_auth") or token(row, "chain") or "A",
+            resnum, icode,
+            xyz, occ, _float_or(field(row, "bfac", None), 0.0), element, ""))
+    return atoms
+
+
 def _res_key(a: PDBAtom) -> Tuple[str, int, str]:
     return (a.chain, a.resnum, a.icode)
 
@@ -126,7 +200,8 @@ def parse_pdb(
     na_shared_tokens: bool = True,
     load_residues_with_missing_atoms: bool = False,
 ) -> Dict:
-    """Parse a PDB into the inference feature contract.
+    """Parse a PDB (or, by its extension, an mmCIF file) into the inference
+    feature contract.
 
     Returns a dict of numpy arrays mirroring the reference parse_PDB output
     (reference inference/data_utils.py:360-405) plus the raw backbone /
@@ -134,10 +209,9 @@ def parse_pdb(
     """
     low = input_path.lower()
     if low.endswith((".cif", ".cif.gz", ".mmcif", ".mmcif.gz")):
-        raise NotImplementedError(
-            f"{input_path}: mmCIF input is not ported yet (ROADMAP Queue 1, "
-            "'mmCIF and the native tokenizer')")
-    atoms = read_pdb_atoms(input_path)
+        atoms = read_cif_atoms(input_path)
+    else:
+        atoms = read_pdb_atoms(input_path)
     # Chain indices enumerate chains by first appearance in the FULL file —
     # they keep their values under chain subsetting, as ProDy chindices do
     # (the reference's chain_labels are getChindices of a selection).

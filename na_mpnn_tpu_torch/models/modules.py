@@ -80,6 +80,12 @@ def gather_nodes(nodes, neighbor_idx):
     return take_rows(nodes, neighbor_idx)
 
 
+def cat_neighbors_nodes(h_nodes, h_neighbors, E_idx):
+    """``cat(h_neighbors, gather(h_nodes))`` along the features:
+    ``[B,L,K,C1]`` and ``[B,L,C2]`` -> ``[B,L,K,C1+C2]``."""
+    return torch.cat([h_neighbors, gather_nodes(h_nodes, E_idx)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------

@@ -1,25 +1,36 @@
 """NA-MPNN: the training forward, encoder, teacher-forced scoring,
-unconditional probs and autoregressive sampling.
+unconditional probs and autoregressive sampling (one structure, many
+structures in one batch, and symmetry-tied positions).
 
-Port of the JAX package's ``models/mpnn.py``. Every encoder layer and every
-parallel-decoder layer runs its message MLP on the message-table kernel
-(``ops/message_kernels.py``), whatever L is, in training (through its
-backward kernel) as in inference; the layer norms, feed-forward blocks,
-dropout and the node-level products around the kernel (``h_V @ wc``,
-``h_S @ ws``, ``h_V @ wv``) are plain PyTorch. ``enc_layer`` and
+Port of the JAX package's ``models/mpnn.py``. ``enc_layer`` and
 ``dec_layer`` are the layers of every route: one device here, and the
 graph-parallel forward (``parallel/graph_parallel.py``), which hands them an
-all-gather of the node tables and its own dropout source. A
+all-gather of the node tables and its own dropout source. A layer takes one
+of two routes, whatever L is:
+
+* a layer that applies no dropout and through which no gradient is wanted
+  (every inference entry point, ``Trainer.eval_step``, a no-grad
+  ``forward`` or ``forward_graph_parallel``) runs the fused kernels
+  (``ops/fused_layers.py``): the whole node update in one launch, and in the
+  encoder the edge update in a second;
+* otherwise the message MLP runs on the message-table kernel with its
+  autograd Function (``ops/message_kernels.py``), and the layer norms, the
+  feed-forward block and dropout are plain PyTorch around it.
+
+The node-level products (``h_V @ wc``, ``h_S @ ws``, ``h_V @ wv``) that make
+the tables the kernels gather from are plain PyTorch on both routes. A
 ``torch.Generator`` turns on training randomness (dropout, coordinate
 noise), ``None`` makes them deterministic; the inference entry points run
-under ``torch.no_grad``. The autoregressive
-sampler is plain PyTorch, as it is plain XLA in the JAX package.
+under ``torch.no_grad``. The autoregressive samplers are plain PyTorch, as
+they are plain XLA in the JAX package.
 
 Sampling draws the decode order as ``argsort((chain_mask + 1e-4) * |randn|)``
 and tokens as ``argmax(log(p + 1e-30) + Gumbel)`` (what
 ``jax.random.categorical`` computes), with noise from a ``torch.Generator``;
-``sample`` also takes the Gumbel noise ``[L,B,num_letters]`` (indexed by
-decode step) and ``batch["decoding_order"]`` from the caller.
+``sample`` and ``sample_multi`` also take the Gumbel noise ``[L,B,
+num_letters]`` (indexed by decode step) and ``batch["decoding_order"]`` from
+the caller, ``sample_tied`` the noise ``[G,B,num_letters]`` of its G decode
+groups.
 """
 from __future__ import annotations
 
@@ -29,10 +40,12 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..ops import fused_layers as fl
 from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
 from .features import features_apply
-from .modules import (MESSAGE_SCALE, _message_tail, _split_w1, dropout,
+from .modules import (MESSAGE_SCALE, _message_tail, _split_w1,
+                      cat_neighbors_nodes, dec_layer_apply, dropout,
                       gather_nodes, init_dec_layer, init_enc_layer,
                       init_layer_norm, init_linear, layer_norm, linear,
                       pff_apply, take_rows)
@@ -126,30 +139,69 @@ def _identity(x):
     return x
 
 
+def _no_dropout(x, slot):
+    return x
+
+
 def generator_dropout(rate, generator):
     """The one-device dropout source of the layers: ``drop(x, slot)`` draws
-    its mask from ``generator`` (identity when ``generator`` is None)."""
+    its mask from ``generator``; None (no dropout) when ``generator`` is
+    None or ``rate`` is 0."""
+    if generator is None or rate <= 0.0:
+        return None
+
     def drop(x, slot):
         return dropout(x, rate, generator)
     return drop
 
 
-def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop, gather=_identity,
-              plain=False):
-    """One encoder layer on flat edges (two message-table launches): the
-    node update (``W1..W3``, LN1, FFN, LN2, mask), then the edge update
-    (``W11..W13``, LN3). ``h_V [B,L,H]``, ``h_E2 [B*L*K,H]``; ``drop(x,
-    slot)`` applies dropout to the node message (slot 0), the FFN output (1)
-    and the edge message (2, as ``[B,L,K*H]``); ``gather`` turns a node
-    table ``[B,L,C]`` into the rows that ``eidx2`` indexes (identity on one
-    device, the graph-axis all-gather on the graph-parallel route).
-    Returns (``h_V``, ``h_E2``)."""
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def fused_route(drop, p, *tensors) -> bool:
+    """True when a layer runs the fused kernels: it applies no dropout
+    (``drop`` is None) and no gradient is wanted through it (grad mode off,
+    or neither an input nor a parameter requires one). Never depends on L."""
+    if drop is not None:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not (any(t.requires_grad for t in tensors)
+                or any(leaf.requires_grad for leaf in _leaves(p)))
+
+
+def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop=None,
+              gather=_identity, plain=False):
+    """One encoder layer on flat edges: the node update (``W1..W3``, LN1,
+    FFN, LN2, mask), then the edge update (``W11..W13``, LN3). ``h_V
+    [B,L,H]``, ``h_E2 [B*L*K,H]``; ``drop(x, slot)``, where given, applies
+    dropout to the node message (slot 0), the FFN output (1) and the edge
+    message (2, as ``[B,L,K*H]``); ``gather`` turns a node table ``[B,L,C]``
+    into the rows that ``eidx2`` indexes (identity on one device, the
+    graph-axis all-gather on the graph-parallel route). On the fused route
+    (``fused_route``) two launches, else two message-table launches with
+    the tail in PyTorch. Returns (``h_V``, ``h_E2``)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
     h_V2 = h_V.reshape(N, H)
     table = gather((h_V2 @ p["W1"]["w"][2 * H:]).view(B, L, H))
     Lk = table.shape[1]
+    if fused_route(drop, p, h_V, h_E2):
+        node = fl.fused_node_update_plain if plain else fl.fused_node_update
+        edge = fl.fused_edge_update_plain if plain else fl.fused_edge_update
+        h_V2 = node("enc", p, h_V2, h_E2, table.reshape(B * Lk, H), eidx2,
+                    mask_att2, None, mask.reshape(N), K=K, L=L, Lk=Lk)
+        table = gather((h_V2 @ p["W11"]["w"][2 * H:]).view(B, L, H))
+        h_E2 = edge(p, h_V2, h_E2, table.reshape(B * Lk, H), eidx2, K=K, L=L,
+                    Lk=Lk)
+        return h_V2.view(B, L, H), h_E2
+    drop = drop or _no_dropout
     dh = mk.message_agg_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
                                    eidx2, mask_att2, K=K, L=L, Lk=Lk,
                                    plain=plain)
@@ -164,14 +216,15 @@ def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop, gather=_identity,
     return h_V, h_E2
 
 
-def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop,
+def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
               gather=_identity, plain=False):
-    """One parallel-decoder layer on the message-table kernel (dec mode):
-    a 2H node table ``[h_S@ws + h_V@wv - h_Venc@wv | h_Venc@wv]`` replaces
-    the ``[B,L,K,3H]`` causal context (``mbw*A[j] + m1d*B[j]`` is the
-    three-term context exactly, because ``mask_fw = mask_1d - mask_bw``);
-    then LN1, FFN, LN2, mask. ``drop`` and ``gather`` as in ``enc_layer``
-    (slots 0 and 1)."""
+    """One parallel-decoder layer: a 2H node table ``[h_S@ws + h_V@wv -
+    h_Venc@wv | h_Venc@wv]`` replaces the ``[B,L,K,3H]`` causal context
+    (``mbw*A[j] + m1d*B[j]`` is the three-term context exactly, because
+    ``mask_fw = mask_1d - mask_bw``); then LN1, FFN, LN2, mask: one fused
+    launch on the fused route, else the message-table kernel (dec mode) and
+    the tail in PyTorch. ``drop`` and ``gather`` as in ``enc_layer`` (slots
+    0 and 1)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
@@ -179,6 +232,12 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop,
     venc = h_V_enc @ wv
     table = gather(torch.cat([h_S @ ws + h_V @ wv - venc, venc], dim=-1))
     Lk = table.shape[1]
+    if fused_route(drop, p, h_V, h_V_enc, h_S, h_E2):
+        node = fl.fused_node_update_plain if plain else fl.fused_node_update
+        return node("dec", p, h_V.reshape(N, H), h_E2,
+                    table.reshape(B * Lk, 2 * H), eidx2, m1d2, mbw2,
+                    mask.reshape(N), K=K, L=L, Lk=Lk).view(B, L, H)
+    drop = drop or _no_dropout
     dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
                                    table.reshape(B * Lk, 2 * H), eidx2, m1d2,
                                    mbw2, K=K, L=L, Lk=Lk, plain=plain)
@@ -190,10 +249,10 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop,
 def encode(params, cfg: ModelConfig, batch, generator=None):
     """Features + encoder stack -> (``h_V [B,L,H]``, ``h_E [B,L,K,H]``,
     ``E_idx [B,L,K]``). Edge tensors stay flat ``[N*K,H]`` through the
-    stack; each layer makes two message-table launches. With a
-    ``generator`` the layers apply dropout (on the node message, the FFN
-    output and the edge message, as ``_enc_layer_train_fused``) and the
-    features coordinate noise."""
+    stack; each layer makes two launches (fused or message-table, see
+    ``enc_layer``). With a ``generator`` the layers apply dropout (on the
+    node message, the FFN output and the edge message, as
+    ``_enc_layer_train_fused``) and the features coordinate noise."""
     check_supported(cfg)
     plain = _plain(cfg, batch["X"])
     mask = batch["mask"].to(batch["X"].dtype)
@@ -342,6 +401,49 @@ def sample(params, cfg: ModelConfig, batch, generator: Optional[torch.Generator]
                         pair_bias_ctx, generator, gumbel)
 
 
+def _gumbel(generator, shape, dtype, device):
+    """Standard Gumbel noise ``-log(-log(u))`` from ``generator``."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
+@torch.no_grad()
+def sample_multi(params, cfg: ModelConfig, batch, generator: Optional[torch.Generator],
+                 samples_per_structure: int = 1, temperature=0.1, bias=None,
+                 pair_bias_ctx=None, gumbel=None):
+    """Sampling of N different (padded) structures in one decode batch: all
+    are encoded in one pass, each row is repeated ``samples_per_structure``
+    (S) times and the N*S rows decode together. Rows ``i*S..(i+1)*S-1``
+    belong to structure i. ``bias`` is ``[N,L,nl]`` or ``[L,nl]``;
+    ``pair_bias_ctx["u_diag"]`` is ``[N,L-1]`` or ``[L-1]``;
+    ``batch["decoding_order"]``, where given, is the decode order of every
+    row ``[N*S,L]``; ``gumbel`` as in ``sample`` (``[L,N*S,nl]``). Returns
+    the dict of ``sample`` with leading dimension N*S."""
+    N, L = batch["S"].shape
+    nl = cfg.num_letters
+
+    def rep(x):
+        return x.repeat_interleave(samples_per_structure, dim=0)
+
+    h_V0, h_E, E_idx = encode(params, cfg, batch)
+    h_V0, h_E, E_idx = rep(h_V0), rep(h_E), rep(E_idx)
+    mask = rep(batch["mask"].to(h_V0.dtype))
+    chain_mask = mask * rep(batch["chain_mask"].to(h_V0.dtype))
+    S_true = rep(batch["S"].long())
+    if bias is not None:
+        bias = rep(bias.expand(N, L, nl))
+    if pair_bias_ctx is not None:
+        u = pair_bias_ctx["u_diag"].expand(N, L - 1)
+        pair_bias_ctx = {**pair_bias_ctx, "u_diag": rep(u)}
+    if "decoding_order" in batch:
+        decoding_order = batch["decoding_order"].expand(mask.shape)
+    else:
+        decoding_order = sample_decoding_order(chain_mask, generator)
+    return _sample_scan(params, cfg, h_V0, h_E, E_idx, mask, chain_mask,
+                        S_true, decoding_order, temperature, bias,
+                        pair_bias_ctx, generator, gumbel)
+
+
 def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
                  S_true, decoding_order, temperature, bias, pair_bias_ctx,
                  generator, gumbel):
@@ -409,12 +511,8 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
         probs = torch.softmax((logits + total_bias) / temperature, dim=-1)
         probs = probs * (1.0 - omit)
         probs_sample = probs / probs.sum(dim=-1, keepdim=True)
-        if gumbel is not None:
-            g = gumbel[step].to(dtype)
-        else:
-            u = torch.rand((B, nl), generator=generator, dtype=dtype,
-                           device=device)
-            g = -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+        g = (gumbel[step].to(dtype) if gumbel is not None
+             else _gumbel(generator, (B, nl), dtype, device))
         S_t = torch.argmax(torch.log(probs_sample + 1e-30) + g, dim=-1)
         cm_t = chain_mask[b_idx, t]
         S_t = torch.where(cm_t > 0, S_t, S_true[b_idx, t])
@@ -429,3 +527,128 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
 
     return {"S": S_out, "sampling_probs": probs_out,
             "log_probs": log_probs_out, "decoding_order": decoding_order}
+
+
+# ---------------------------------------------------------------------------
+# Tied-position (symmetry) sampling
+# ---------------------------------------------------------------------------
+
+def build_decode_groups(decoding_order, symmetry_residues, symmetry_weights, L):
+    """Group a decode order by symmetry-tied position sets (host side): walk
+    the order; the first time a member of a tied set appears, the whole set
+    decodes as one group. Returns (groups ``[G,M]`` int32 padded with -1,
+    weights ``[G,M]`` float32, the flat order ``[L]``)."""
+    order = [int(t) for t in np.asarray(decoding_order).reshape(-1)]
+    sym_sets = [list(s) for s in symmetry_residues if len(s) > 0]
+    sym_w = [list(w) for w in symmetry_weights if len(w) > 0]
+    new_groups = []
+    seen = set()
+    for t in order:
+        if t in seen:
+            continue
+        hit = next((i for i, s in enumerate(sym_sets) if t in s), None)
+        if hit is not None:
+            g = sym_sets[hit]
+            w = sym_w[hit] if hit < len(sym_w) else [1.0] * len(g)
+        else:
+            g, w = [t], [1.0]
+        seen.update(g)
+        new_groups.append((g, w))
+    M = max(len(g) for g, _ in new_groups)
+    groups = np.full((len(new_groups), M), -1, np.int32)
+    weights = np.zeros((len(new_groups), M), np.float32)
+    for i, (g, w) in enumerate(new_groups):
+        groups[i, :len(g)] = g
+        weights[i, :len(g)] = w
+    flat = np.concatenate([np.asarray(g, np.int32) for g, _ in new_groups])
+    if flat.shape[0] != L:
+        raise ValueError("decode groups must cover every position exactly once")
+    return groups, weights, flat
+
+
+@torch.no_grad()
+def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Generator],
+                groups, group_weights, flat_order, num_samples: int = 1,
+                temperature=0.1, bias=None, pair_bias_ctx=None, gumbel=None):
+    """Symmetry-tied sampling: the positions of a group decode together,
+    their weighted logits are summed, the last position's bias is added and
+    one token is drawn for the whole group (it carries across the group's
+    positions; a fixed position keeps its native token and passes that on).
+    ``groups [G,M]`` (padded with -1), ``group_weights [G,M]`` and
+    ``flat_order [L]`` come from ``build_decode_groups``; every decode row
+    shares the order. ``gumbel`` (optional) is the noise ``[G,num_samples,
+    nl]`` of each group's draw. Returns the dict of ``sample``. The decoder
+    runs position by position on the ``[B,1,K,3H]`` context
+    (``dec_layer_apply``), as the JAX package's scan does."""
+    L = batch["S"].shape[-1]
+    B = num_samples
+    nl = cfg.num_letters
+    n_dec = cfg.num_decoder_layers
+    groups = np.asarray(groups)
+    h_V0, h_E, E_idx = encode(params, cfg, batch)
+    dtype, device = h_V0.dtype, h_V0.device
+    h_V0 = h_V0[0].expand(B, *h_V0.shape[1:])
+    h_E = h_E[0].expand(B, *h_E.shape[1:])
+    E_idx = E_idx[0].expand(B, *E_idx.shape[1:])
+    mask = batch["mask"][0].to(dtype).expand(B, L)
+    chain_mask = mask * batch["chain_mask"][0].to(dtype).expand(B, L)
+    S_true = batch["S"][0].long().expand(B, L)
+    decoding_order = torch.as_tensor(np.asarray(flat_order), dtype=torch.int64,
+                                     device=device).expand(B, L)
+    mask_bw, mask_fw = autoregressive_edge_masks(decoding_order, E_idx, mask)
+    h_EX_encoder = cat_neighbors_nodes(torch.zeros_like(h_V0), h_E, E_idx)
+    h_EXV_encoder_fw = mask_fw * cat_neighbors_nodes(h_V0, h_EX_encoder, E_idx)
+    bias = (torch.zeros((B, L, nl), dtype=dtype, device=device) if bias is None
+            else bias.expand(B, L, nl).to(dtype))
+    omit = torch.zeros(nl, dtype=dtype, device=device)
+    omit[_OMIT_ALWAYS] = 1.0
+    weights = np.asarray(group_weights, np.float64)
+
+    h_V_stack = [h_V0] + [torch.zeros((B, L, h_V0.shape[-1]), dtype=dtype,
+                                      device=device) for _ in range(n_dec)]
+    h_S = torch.zeros((B, L, h_V0.shape[-1]), dtype=dtype, device=device)
+    S = torch.full((B, L), nl - 1, dtype=torch.int64, device=device)
+    all_probs = torch.zeros((B, L, nl), dtype=dtype, device=device)
+    all_log_probs = torch.zeros((B, L, nl), dtype=dtype, device=device)
+
+    def decode_position(t):
+        """The decoder stack at position t of every row -> logits [B,nl]."""
+        E_idx_t = E_idx[:, t][:, None]                              # [B,1,K]
+        h_ES_t = cat_neighbors_nodes(h_S, h_E[:, t][:, None], E_idx_t)
+        h_EXV_t = h_EXV_encoder_fw[:, t][:, None]
+        mask_bw_t = mask_bw[:, t][:, None]
+        for l, p in enumerate(params["decoder"]):
+            h_ESV_t = (mask_bw_t * cat_neighbors_nodes(h_V_stack[l], h_ES_t, E_idx_t)
+                       + h_EXV_t)
+            out = dec_layer_apply(p, h_V_stack[l][:, t][:, None], h_ESV_t,
+                                  mask_V=mask[:, t][:, None])
+            h_V_stack[l + 1][:, t] = out[:, 0]
+        return linear(params["W_out"], h_V_stack[n_dec][:, t])
+
+    t_all = torch.arange(L, device=device)
+    for g in range(groups.shape[0]):
+        members = [(m, int(t)) for m, t in enumerate(groups[g]) if t >= 0]
+        total_logits = torch.zeros((B, nl), dtype=dtype, device=device)
+        for m, t in members:
+            logits = decode_position(t)
+            all_log_probs[:, t] = chain_mask[:, t, None] * torch.log_softmax(logits, dim=-1)
+            total_logits = total_logits + float(weights[g, m]) * logits
+        t_last = members[-1][1]
+        total_bias = bias[:, t_last]
+        if pair_bias_ctx is not None:
+            total_bias = total_bias + _pair_bias_step(
+                pair_bias_ctx, t_all[t_last].expand(B), S)
+        probs = torch.softmax((total_logits + total_bias) / temperature, dim=-1)
+        probs = probs * (1.0 - omit)
+        probs_sample = probs / probs.sum(dim=-1, keepdim=True)
+        noise = (gumbel[g].to(dtype) if gumbel is not None
+                 else _gumbel(generator, (B, nl), dtype, device))
+        S_t = torch.argmax(torch.log(probs_sample + 1e-30) + noise, dim=-1)
+        for _, t in members:
+            cm_t = chain_mask[:, t]
+            all_probs[:, t] = cm_t[:, None] * probs_sample
+            S_t = torch.where(cm_t > 0, S_t, S_true[:, t])
+            h_S[:, t] = embed_tokens(params, S_t).to(dtype)
+            S[:, t] = S_t
+    return {"S": S, "sampling_probs": all_probs, "log_probs": all_log_probs,
+            "decoding_order": decoding_order}

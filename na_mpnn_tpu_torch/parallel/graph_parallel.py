@@ -12,7 +12,9 @@ one-device layers (``models/mpnn.py::enc_layer`` / ``dec_layer``) on the
 same kernels; they get the gathered table (``Lk = L`` key rows against the
 shard's ``Ls`` query rows) and this module's dropout source. The kNN and the
 RBF features take their query/key forms (``ops/knn.py::knn_graph_qk``, the
-``_qk`` entries of the RBF modules) at every graph size, G = 1 included.
+``_qk`` entries of the RBF modules) at every graph size, G = 1 included. A
+deterministic pass under no gradient takes the layers' fused route, a
+training pass the message-table route (see ``models/mpnn.py``).
 
 ``all_gather_rows`` is autograd-aware: its backward sums the cotangent over
 the graph row (an all-reduce) and keeps this rank's slice, so a rank's
@@ -188,10 +190,13 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     K, H = E_idx.shape[2], h_V.shape[-1]
     h_E2 = h_E.reshape(B * Ls * K, H)
     eidx2 = E_idx.reshape(-1)
+
+    def drop(tag):
+        return row_dropout(rate, key, tag, rid) if rate > 0 else None
+
     for i, p in enumerate(params["encoder"]):
         h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_attend.reshape(-1),
-                              mask, row_dropout(rate, key, TAG_ENC + 10 * i, rid),
-                              gather, plain)
+                              mask, drop(TAG_ENC + 10 * i), gather, plain)
 
     if decoding_order is None:
         if key is None:
@@ -212,6 +217,5 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     h_V_enc = h_V
     for i, p in enumerate(params["decoder"]):
         h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,
-                        row_dropout(rate, key, TAG_DEC + 10 * i, rid), gather,
-                        plain)
+                        drop(TAG_DEC + 10 * i), gather, plain)
     return torch.log_softmax(linear(params["W_out"], h_V), dim=-1)

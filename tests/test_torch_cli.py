@@ -3,7 +3,9 @@ on the same PDB (protein, DNA and RNA with the full backbone, O2' on RNA)
 and the same ``.npz`` checkpoint written by the JAX package, at the full
 width of the released model: the same output files, fields and shapes, and
 in score mode the same unconditional log-probs (1e-4; the two sample with
-different generators, so only deterministic outputs are compared)."""
+different generators, so only deterministic outputs are compared). The
+``symmetry`` mode ties positions with ``--symmetry_residues``: both CLIs
+draw equal tokens at tied positions in every sample."""
 import os
 
 import numpy as np
@@ -30,7 +32,12 @@ MODES = {
     "score": ["--mode", "score", "--batch_size", "2",
               "--redesigned_residues", "A3 A4", "--number_of_batches", "2"],
     "na_only": ["--mode", "design", "--parse_na_only", "1", "--batch_size", "2"],
+    "symmetry": ["--mode", "design", "--symmetry_residues", "B1,C1|B2,C2,C3",
+                 "--symmetry_weights", "1.0,0.5|1.0,1.0,2.0", "--batch_size", "3",
+                 "--pair_bias_AA", "ac:1.0", "--number_of_batches", "2"],
 }
+# positions tied by the symmetry mode (A holds residues 0-17, B 18-25, C 26-33)
+TIED = ([18, 26], [19, 27, 28])
 
 
 @pytest.fixture(scope="module")
@@ -89,16 +96,14 @@ def compare_with_jax_cli(inputs, mode):
                                       np.broadcast_to(b["native_sequence"][fixed],
                                                       (4, 3)))
         assert not (S[:, :18] == 4).any()   # 'C' (CYS) omitted
+    if mode == "symmetry":
+        for out in (out_j, out_t):
+            S = np.load(os.path.join(out, "stats", "mix.npz"))["generated_sequences"]
+            assert S.shape == (6, 40)
+            for tied in TIED:
+                assert (S[:, tied] == S[:, tied[:1]]).all(), (out, S[:, tied])
 
 
-@pytest.mark.parametrize("mode", ["design", "na_only"])
+@pytest.mark.parametrize("mode", ["design", "na_only", "symmetry"])
 def test_cli_outputs_match_jax_cli(inputs, mode):
     compare_with_jax_cli(inputs, mode)
-
-
-def test_symmetry_flag_is_refused_by_name(inputs):
-    d, pdb, ckpt = inputs
-    with pytest.raises(NotImplementedError, match="sample_tied"):
-        cli_entry(["--mode", "design", "--checkpoint_na_mpnn", ckpt,
-                   "--pdb_path", pdb, "--out_folder", str(d / "sym"),
-                   "--device", "cpu", "--symmetry_residues", "A1,A2"])

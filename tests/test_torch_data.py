@@ -117,11 +117,6 @@ def test_parse_pdb_matches_jax(pdb_path):
             assert a[k] == b[k], k
 
 
-def test_cif_input_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_pdb(str(tmp_path / "x.cif"))
-
-
 @pytest.mark.parametrize("pad_to", [0, 64])
 def test_featurize_inference_matches_jax(pdb_path, pad_to):
     parsed_j, parsed_t = jax_parse(pdb_path), parse_pdb(pdb_path)

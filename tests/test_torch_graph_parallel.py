@@ -79,6 +79,29 @@ def test_forward_graph_parallel_matches_jax_forward(reference, tmp_path, data,
     assert np.abs(grad_j).max() > 1e-3
 
 
+def test_no_grad_forward_graph_parallel_takes_fused_route(reference, tmp_path):
+    """Under no gradient the edge-partitioned forward runs the fused layer
+    updates on the all-gathered tables (never the message table), and at
+    mesh (1,2) equals the one-device ``forward`` and JAX within 1e-8."""
+    from na_mpnn_tpu_torch.models import ModelConfig, forward
+    from na_mpnn_tpu_torch.params import from_jax_params
+
+    b, params, order, _, lp_j, _ = reference
+    res = spawn(workers.forward_no_grad, 2, tmp_path / "store",
+                (1, 2, params, b, order, {"dropout": 0.0}))
+    lp = np.concatenate([out[0] for out in res], axis=1)
+    for _, calls in res:
+        assert calls == {"fused_node_update_plain": 6,
+                         "fused_edge_update_plain": 3}
+    with torch.no_grad():
+        lp_1 = forward(from_jax_params(params, device="cpu", dtype=torch.float64),
+                       ModelConfig(dropout=0.0),
+                       {**{k: torch.from_numpy(v) for k, v in b.items()},
+                        "decoding_order": torch.from_numpy(order)})[0].numpy()
+    np.testing.assert_allclose(lp, lp_1, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lp, lp_j, atol=ATOL, rtol=0)
+
+
 def test_row_streams_statistics_and_partition_invariance():
     """Dropout keeps 1 - rate of the entries and scales them by 1/keep;
     the noise is standard normal; the streams of a row block equal the

@@ -1,5 +1,7 @@
 """The port stands alone: ``na_mpnn_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``na_mpnn_tpu``."""
+neither ``jax`` nor anything of the JAX package ``na_mpnn_tpu``, and the
+port runs its CLI (design, symmetry-tied design, score), batch design and
+trainer where neither JAX nor pandas can be imported."""
 import ast
 import os
 import pkgutil
@@ -15,6 +17,7 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any import of jax now fails
 sys.modules["na_mpnn_tpu"] = None    # and so does any of the JAX package
+sys.modules["pandas"] = None         # and pandas
 import na_mpnn_tpu_torch
 for m in pkgutil.walk_packages(na_mpnn_tpu_torch.__path__, "na_mpnn_tpu_torch."):
     importlib.import_module(m.name)
@@ -30,6 +33,14 @@ for mode in ("design", "score"):
     cli_entry(["--mode", mode, "--checkpoint_na_mpnn", out + "/w.npz",
                "--pdb_path", out + "/s.pdb", "--out_folder", out + "/" + mode,
                "--device", "cpu", "--stats_format", "npz"])
+cli_entry(["--mode", "design", "--checkpoint_na_mpnn", out + "/w.npz",
+           "--pdb_path", out + "/s.pdb", "--out_folder", out + "/sym",
+           "--device", "cpu", "--symmetry_residues", "B1,B2|C1,C2"])
+from na_mpnn_tpu_torch.eval.batch_design import main as batch_design
+with open(out + "/s.csv", "w") as f:
+    f.write("structure_path\n" + out + "/s.pdb\n")
+batch_design(["--csv", out + "/s.csv", "--checkpoint", out + "/w.npz",
+              "--out_folder", out + "/bd", "--bucket", "16", "--device", "cpu"])
 import dataclasses, torch
 from na_mpnn_tpu_torch.data.pdb import parse_pdb
 from na_mpnn_tpu_torch.train.collate import collate_batch
@@ -52,8 +63,9 @@ m = mesh_trainer.train_step(batch)
 assert mesh_trainer.step == 1 and float(m["loss_av"]) == float(m["loss_av"])
 assert tuple(m["S_pred"].shape) == tuple(batch["S"].shape)
 leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-          or m == "na_mpnn_tpu" or m.startswith("na_mpnn_tpu.")]
-assert leaked == ["jax", "na_mpnn_tpu"], leaked   # only the blocked stubs
+          or m == "na_mpnn_tpu" or m.startswith("na_mpnn_tpu.")
+          or m == "pandas" or m.startswith("pandas.")]
+assert sorted(leaked) == ["jax", "na_mpnn_tpu", "pandas"], leaked   # the stubs
 print("ISOLATED")
 """
 
@@ -67,6 +79,8 @@ def test_port_runs_its_cli_with_jax_unimportable(tmp_path):
     assert "ISOLATED" in r.stdout
     assert os.path.exists(tmp_path / "design" / "seqs" / "s.fa")
     assert os.path.exists(tmp_path / "score" / "stats" / "s.npz")
+    assert os.path.exists(tmp_path / "sym" / "seqs" / "s.fa")
+    assert os.path.exists(tmp_path / "bd" / "seqs" / "s.fa")
 
 
 def _imported_modules(path):
@@ -92,6 +106,6 @@ def test_no_source_imports_jax_or_the_jax_package():
     for f in files:
         for name in _imported_modules(f):
             root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "na_mpnn_tpu"):
+            if root in ("jax", "jaxlib", "na_mpnn_tpu", "pandas"):
                 bad.append((os.path.relpath(f, ROOT), name))
     assert bad == []

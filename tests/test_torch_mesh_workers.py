@@ -3,6 +3,7 @@ parallel.py``, ``test_torch_mesh_train.py``) and ``spawn``, which runs one
 on a gloo mesh of CPU processes. The workers import only ``torch``, numpy
 and the port; the JAX reference runs in the parent. This module holds no
 tests."""
+import collections
 import queue
 import traceback
 
@@ -94,6 +95,38 @@ def forward_and_grads(rank, data, graph, params_np, batch_np, order, R, modes,
         dist.all_reduce(g)
         out[mode] = (lp.detach().numpy(), g.numpy())
     return out
+
+
+def forward_no_grad(rank, data, graph, params_np, batch_np, order, cfg_kw):
+    """This rank's deterministic log-probs under no gradient (decode order
+    ``order``, float64) and the calls of each layer route's plain function
+    (the fused updates, the message table)."""
+    from na_mpnn_tpu_torch.ops import fused_layers as fl
+    from na_mpnn_tpu_torch.ops import message_kernels as mk
+
+    calls = collections.Counter()
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        setattr(mod, name, wrapper)
+
+    for mod, name in ((fl, "fused_node_update_plain"),
+                      (fl, "fused_edge_update_plain"),
+                      (mk, "message_table_plain")):
+        counted(mod, name)
+    torch.set_num_threads(1)
+    mesh = make_mesh(data, graph, device="cpu")
+    local = {k: torch.from_numpy(v) for k, v in shard_batch(batch_np, mesh).items()}
+    order_rows = torch.from_numpy(_rows(mesh, batch_np, order))
+    params = from_jax_params(params_np, device="cpu", dtype=torch.float64)
+    with torch.no_grad():
+        lp = forward_graph_parallel(params, ModelConfig(**cfg_kw), local, mesh,
+                                    order_rows)
+    return lp.numpy(), dict(calls)
 
 
 def trainer_loss_and_grads(rank, data, graph, batch_np, cfg_kw, trainer_kw):

@@ -3,9 +3,9 @@ Pallas kernels (``kernels="pallas"``, interpret mode): encode, score and
 unconditional probs within 1e-4.
 
 At L = 64 the JAX package runs the message-table kernel; at L = 50 (not a
-multiple of 32) it runs the fused-layer kernels instead. The port runs the
-message-table kernel at every L, so L = 50 pins that both routes compute
-the same function. ``sample`` is held at float64 only
+multiple of 32) it runs the fused-layer kernels instead. The port's
+inference entry points run its fused layer updates at every L, so the test
+pins both JAX routes to the port's fused route. ``sample`` is held at float64 only
 (``test_torch_model64.py``): at fp32 a near-tie could flip a token and with
 it every later step."""
 import numpy as np
