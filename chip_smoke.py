@@ -43,7 +43,21 @@ CUDA toolkit. Phases, each of which raises on failure:
    checked, ms per step and peak memory printed, save -> restore bitwise,
    and one step's loss and gradients with the kernels against
    ``kernels="torch"`` on the card;
-6. one JSON line of the kernels (launches on the main paths, error, times,
+6. the pre-gathered message MLP (rows 7, 8: ``csrc/message_mlp.cu``,
+   ``csrc/message_mlp_bwd.cu``) against its plain versions at N = 6000,
+   K = 32, H = 128 in all four (contract_e, aggregate) variants, the
+   backward bitwise equal across two launches; 5 full-width Trainer steps
+   on a batch collated with ``use_buckets=False`` (B=8, L=750), where the
+   decoder takes the gathered route (launches per step: kNN 1, RBF 1, RBF
+   dW 1, message table 6 and its backward 6, ``message_mlp`` 3 and its
+   backward 3), and one such step against ``kernels="torch"``;
+7. the training loop: 16 synthetic PDBs through the port's
+   ``cli/preprocess``, then ``run_training`` for 2 epochs (2 loader
+   workers, 6000-token batches, a ``torch.profiler`` capture of 3 steps)
+   and resumed for 1; logs, checkpoint, resumed step, no ``message_mlp``
+   launch on the bucketed batches; seconds per epoch, ms per step, the
+   loader's wait, the profile's top device operations and idle share;
+8. one JSON line of the kernels (launches on the main paths, error, times,
    bound), then the card's name and power limit as ``nvidia-smi`` gives
    them and, last, the device JSON.
 
@@ -102,6 +116,84 @@ def write_synthetic_pdb(path, chains=DESIGN_CHAINS, seed=0):
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return n_res
+
+
+SIDE_FILES = ("interface_masks", "side_chain_interface_masks",
+              "nearest_protein_side_chain_index", "base_pair_masks",
+              "base_pair_index", "canonical_base_pair_masks",
+              "canonical_base_pair_index")
+
+
+def write_training_set(folder, structures, seed=0):
+    """A training set on disk: one synthetic PDB per entry of ``structures``
+    (the chains of each, as ``write_synthetic_pdb`` takes them), the port's
+    ``cli/preprocess`` over them (backbone atoms), and the training CSV that
+    ``run_training`` reads (the side files' paths, sampling probability 1,
+    date 2020-01-01, no PPMs). Returns the CSV's path."""
+    from na_mpnn_tpu_torch.cli.preprocess import main as preprocess
+
+    os.makedirs(os.path.join(folder, "structures"), exist_ok=True)
+    names = [f"s{i}" for i in range(len(structures))]
+    paths = [os.path.join(folder, "structures", f"{n}.pdb") for n in names]
+    for i, (path, chains) in enumerate(zip(paths, structures)):
+        write_synthetic_pdb(path, chains, seed=seed + i)
+    csv_in = os.path.join(folder, "input.csv")
+    with open(csv_in, "w") as f:
+        f.write("structure_path\n" + "\n".join(paths) + "\n")
+    pp = os.path.join(folder, "preprocess.json")
+    with open(pp, "w") as f:
+        json.dump({"ATOMS_TO_LOAD": "backbone"}, f)
+    out = os.path.join(folder, "preprocessed")
+    preprocess([csv_in, out, "1", "0", pp])
+    bad = os.listdir(os.path.join(out, "bad"))
+    if bad:
+        raise AssertionError(f"preprocessing failed for {bad}")
+    cols = (["structure_path", "sampling_probability", "date", "ppm_paths",
+             "asmb_lengths_path"] + [f"asmb_{s}_path" for s in SIDE_FILES])
+    lines = [",".join(cols)]
+    for name, path in zip(names, paths):
+        side = [f"{out}/asmb_{s}/{name}.npy" for s in ("lengths",) + SIDE_FILES]
+        lines.append(",".join([path, "1.0", "2020-01-01", "[]"] + side))
+    train_csv = os.path.join(folder, "train.csv")
+    with open(train_csv, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return train_csv
+
+
+def training_config(train_csv, base, **overrides):
+    """A ``run_training`` config at the reference regime (H=128, K=32, 3+3
+    layers, 6000-token batches, dropout 0.1, noise 0.1 A, fp32), validating
+    on the training CSV; ``overrides`` replace any key."""
+    cfg = {
+        "VOCAB_SIZE": 33, "NUM_LETTERS": 33,
+        "PARSE_PROTEIN": 1, "PARSE_DNA": 1, "PARSE_RNA": 1,
+        "PARSE_RNA_AS_DNA": 0, "NA_SHARED_TOKENS": 1, "NA_REF_ATOM": "C1'",
+        "INCLUDE_PRED_NA_N": 1,
+        "PROTEIN_BACKBONE_OCC_CUTOFF": 0.8, "PROTEIN_SIDE_CHAIN_OCC_CUTOFF": 0.5,
+        "DNA_BACKBONE_OCC_CUTOFF": 0.8, "DNA_SIDE_CHAIN_OCC_CUTOFF": 0.5,
+        "RNA_BACKBONE_OCC_CUTOFF": 0.8, "RNA_SIDE_CHAIN_OCC_CUTOFF": 0.5,
+        "DATE_CUTOFF": "2030-01-01",
+        "MAX_NUMBER_OF_PDBS_TRAIN": 1000, "MAX_NUMBER_OF_PDBS_VALID": 1000,
+        "BATCH_TOKENS": 6000, "LOSS_TOKENS": 6000, "LABEL_SMOOTHING": 0.1,
+        "EXCLUDE_RES": ["HOH"], "MIN_PROTEIN_LENGTH_CUTOFF": 1,
+        "NUM_WORKERS": 0, "TOTAL_STEPS": 100000, "RANDOMIZE_NMR_MODEL": 0,
+        "CROP_LARGE_STRUCTURES": 0, "MIN_OVERLAP_LENGTH": 5,
+        "DF_PATH_TRAIN": train_csv, "DF_PATH_VALID": train_csv,
+        "BASE_FOLDER": base, "PREV_CHECKPOINT": "",
+        "HIDDEN_DIM": 128, "NUM_ENCODER_LAYERS": 3, "NUM_DECODER_LAYERS": 3,
+        "NUM_NEIGHBORS": 32, "DROPOUT": 0.1, "DECODE_PROTEIN_FIRST": 0,
+        "PROTEIN_BACKBONE_NOISE": 0.1, "DNA_BACKBONE_NOISE": 0.1,
+        "RNA_BACKBONE_NOISE": 0.1, "PARSE_PPMS": 0,
+        "NA_ONLY_AS_UNIFORM_PPM": 0, "DROP_PROTEIN_PROBABILITY": 0,
+        "PROTEIN_INTERFACE_RESIDUE_MUTATION_PROBABILITY": 0,
+        "MUTATE_BASE_PAIR_TOGETHER": 0,
+        "MUTATE_ENTIRE_SIDE_CHAIN_INTERFACE_PROBABILITY": 0,
+        "NA_NON_INTERFACE_AS_UNIFORM_PPM": 0, "GRADIENT_NORM": 1.0,
+        "MIXED_PRECISION": 0, "SAVE_EVERY_N_STEPS": 1000,
+        "ATOMS_TO_LOAD": "backbone", "METRICS_TO_COMPUTE": "basic",
+    }
+    cfg.update(overrides)
+    return cfg
 
 
 def _sync_time(fn, iters):
@@ -613,15 +705,16 @@ def fused_vs_table_phase(pdb):
     """Encode at B=1 and score at B=10 (host clock, synchronised) on the
     fused route, and in turns the same calls with every layer sent to the
     message-table route (the route of layers with dropout or a gradient,
-    here under no gradient), fused / table / table / fused; the two routes'
-    score log-probs within 1e-4. Returns the launches of the first fused
-    pair of calls."""
+    here under no gradient; the decoder's gathered route, which such layers
+    take at L % 32 != 0 on one device, is turned off too), fused / table /
+    table / fused; the two routes' score log-probs within 1e-4. Returns the
+    launches of the first fused pair of calls."""
     import torch
     from na_mpnn_tpu_torch.data.featurize import featurize_inference
     from na_mpnn_tpu_torch.data.pdb import parse_pdb
     from na_mpnn_tpu_torch.models import encode, init_params, mpnn, score
     from na_mpnn_tpu_torch.models.config import ModelConfig
-    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.ops import LAUNCHES, message_kernels, reset_launches
 
     cfg = ModelConfig()
     params = init_params(0, cfg, device="cuda")
@@ -632,13 +725,16 @@ def fused_vs_table_phase(pdb):
     order = torch.stack([torch.randperm(L, generator=torch.Generator().manual_seed(i))
                          for i in range(10)]).to("cuda")
     fused_route = mpnn.fused_route
+    table_gather_ok = message_kernels.table_gather_ok
 
     def calls():
         encode(params, cfg, batch)
         return score(params, cfg, tiled, decoding_order=order)["log_probs"]
 
     def run(route):
-        mpnn.fused_route = fused_route if route == "fused" else (lambda *a: False)
+        if route == "table":
+            mpnn.fused_route = lambda *a: False
+            message_kernels.table_gather_ok = lambda L: True
         try:
             torch.cuda.synchronize()
             reset_launches()
@@ -649,6 +745,7 @@ def fused_vs_table_phase(pdb):
                   _host_ms(lambda: score(params, cfg, tiled, decoding_order=order), 5))
         finally:
             mpnn.fused_route = fused_route
+            message_kernels.table_gather_ok = table_gather_ok
         return lp, counts, ms
 
     res = [run(r) for r in ("fused", "table", "table", "fused")]
@@ -966,6 +1063,103 @@ def train_kernel_phase(nb):
     return rows, fwd_ms
 
 
+MLP_FLAGS = ((False, True), (True, True), (True, False), (False, False))
+
+
+def _message_mlp_bound(N, K, H, contract_e, aggregate, backward=False):
+    """Least work of the pre-gathered message MLP (rows 7, 8), in the
+    convention of ``_message_table_bound``: forward, per edge the W2 product
+    (2 H^2), e_in@Wb with ``contract_e`` and W3 without ``aggregate`` (in the
+    summing form W3 acts once per node, as there), about 30 H elementwise;
+    per node h_V@Wa and, summing, W3. Backward (activations recomputed): per
+    edge W2 again, dW2 and g_x (6 H^2), with ``contract_e`` e_in@Wb, g_ein and
+    dWb (6 H^2), without ``aggregate`` dW3 and g_m@W3^T (4 H^2), about 40 H
+    elementwise; per node h_V@Wa, g_hV and dWa (6 H^2) and, summing, dW3 and
+    g_m@W3^T (4 H^2). Bytes: every input read once, every output written
+    once."""
+    ce, agg = int(contract_e), int(aggregate)
+    w = 4 * H * H + 3 * H
+    out = N * H if agg else N * K * H
+    inputs = N * H + 2 * N * K * H + N * K + w
+    if backward:
+        ops = (N * K * ((6 + 6 * ce + 4 * (1 - agg)) * H * H + 40 * H)
+               + N * (6 + 4 * agg) * H * H)
+        nbytes = 4 * (inputs + out + N * H + 2 * N * K * H + w)
+    else:
+        ops = (N * K * ((2 + 2 * ce + 2 * (1 - agg)) * H * H + 30 * H)
+               + N * (2 + 2 * agg) * H * H)
+        nbytes = 4 * (inputs + out)
+    return _bound_ms(ops, nbytes)
+
+
+def message_mlp_phase():
+    """Rows 7 and 8 (``csrc/message_mlp.cu``, ``csrc/message_mlp_bwd.cu``)
+    against their plain versions on the card at N = 6000 nodes, K = 32, H =
+    128, in all four (contract_e, aggregate) variants: relative error < 1e-5
+    on outputs and per-node / per-edge gradients, < 1e-4 on the weight and
+    bias gradients (sums over all edges); the backward bitwise equal across
+    two launches. Returns the JSON rows of the decoder's variant (False,
+    True), the one on the training path."""
+    import torch
+    from na_mpnn_tpu_torch.ops import message_kernels as mk
+
+    dev = torch.device("cuda")
+    N, K, H = 6000, 32, 128
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h_V = torch.randn((N, H), generator=gen, device=dev)
+    e_in = torch.randn((N * K, H), generator=gen, device=dev)
+    G = torch.randn((N * K, H), generator=gen, device=dev)
+    mask = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).float()
+    wa, wb, w2, w3 = (torch.randn((H, H), generator=gen, device=dev) / H ** 0.5
+                      for _ in range(4))
+    b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev) for _ in range(3))
+    args = (h_V, e_in, G, mask, wa, wb, b1, w2, b2, w3, b3)
+    names = ("g_hV", "g_ein", "g_G", "dwa", "dwb", "db1", "dw2", "db2", "dw3", "db3")
+    rows = {}
+    for ce, agg in MLP_FLAGS:
+        flags = dict(K=K, contract_e=ce, aggregate=agg)
+        out_k = mk.message_mlp_cuda(*args, **flags)
+        out_p = mk.message_mlp_plain(*args, **flags)
+        rel = _rel_err(out_k, out_p)
+        if not rel < REL_TOL:
+            raise AssertionError(f"message_mlp {ce, agg}: rel err {rel:.3g}")
+        g = torch.randn((N if agg else N * K, H), generator=gen, device=dev)
+        got = [t.clone() for t in mk.message_mlp_bwd_cuda(*args, g, **flags)]
+        again = mk.message_mlp_bwd_cuda(*args, g, **flags)
+        want = mk.message_mlp_bwd_plain(*args, g, **flags)
+        errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, want)}
+        for n, e in errs.items():
+            tol = REL_TOL if n in ("g_hV", "g_ein", "g_G") else 1e-4
+            if not e < tol:
+                raise AssertionError(f"message_mlp_bwd {ce, agg} {n}: rel err "
+                                     f"{e:.3g} (tol {tol})")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"message_mlp_bwd {ce, agg}: two launches differ")
+        ms = _sync_time(lambda: mk.message_mlp_cuda(*args, **flags), 10)
+        plain_ms = _sync_time(lambda: mk.message_mlp_plain(*args, **flags), 3)
+        bms = _sync_time(lambda: mk.message_mlp_bwd_cuda(*args, g, **flags), 10)
+        bplain_ms = _sync_time(lambda: mk.message_mlp_bwd_plain(*args, g, **flags), 3)
+        fb = _message_mlp_bound(N, K, H, ce, agg)
+        bb = _message_mlp_bound(N, K, H, ce, agg, backward=True)
+        worst = max(errs, key=errs.get)
+        print(f"message_mlp contract_e={ce} aggregate={agg} N={N} K={K} H={H}: "
+              f"rel err {rel:.3g} (< {REL_TOL}), {ms:.4f} ms (plain {plain_ms:.4f} "
+              f"ms, bound {fb[0]:.5f} ms by {fb[1]}, {ms / fb[0]:.1f}x); backward "
+              f"worst rel err {errs[worst]:.3g} ({worst}), g_hV {errs['g_hV']:.3g}, "
+              f"g_G {errs['g_G']:.3g}, two launches bitwise equal, {bms:.4f} ms "
+              f"(plain {bplain_ms:.4f} ms, bound {bb[0]:.5f} ms by {bb[1]}, "
+              f"{bms / bb[0]:.1f}x)", flush=True)
+        if (ce, agg) == (False, True):
+            rows["message_mlp"] = dict(
+                max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=fb[0], bound_by=fb[1])
+            rows["message_mlp_bwd"] = dict(
+                max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                ms=bms, plain_ms=bplain_ms, bound_ms=bb[0], bound_by=bb[1])
+        del out_k, out_p, got, again, want, g
+    return rows
+
+
 def _expected_train_launches(cfg):
     n_enc, n_dec = cfg.num_encoder_layers, cfg.num_decoder_layers
     want = {"knn": 1, "rbf_classed": 1, "rbf_classed_dw": 1,
@@ -1097,6 +1291,182 @@ def training_phase(nb, fwd_ms, rows):
     plain.restore(path)
     _grads_against_plain("training", trainer, plain, to_device(nb, dev), 7, want)
     return total, median
+
+
+UNBUCKETED_L = 750
+
+
+def unbucketed_batch():
+    """8 synthetic protein-DNA structures of 610-750 residues collated with
+    ``use_buckets=False``: B=8, L=750 (750 % 32 = 14), the batch on which
+    the JAX training decoder runs rows 7 and 8."""
+    from na_mpnn_tpu_torch.data.pdb import parse_pdb
+    from na_mpnn_tpu_torch.train.collate import collate_batch
+    structs = []
+    for i in range(TRAIN_STRUCTURES):
+        n = UNBUCKETED_L - 20 * i
+        n_dna = 40 + 2 * i
+        path = os.path.join(OUT, f"unbucketed{i}.pdb")
+        write_synthetic_pdb(path, (("A", "protein", n - 2 * n_dna), ("C", "dna", n_dna),
+                                   ("D", "dna", n_dna)), seed=50 + i)
+        parsed = parse_pdb(path)
+        structs.append({k: parsed[k] for k in TRAIN_KEYS})
+    batch = collate_batch(structs, use_buckets=False)
+    if batch["S"].shape != (TRAIN_STRUCTURES, UNBUCKETED_L):
+        raise AssertionError(f"unbucketed batch {batch['S'].shape}")
+    return batch
+
+
+def unbucketed_training_phase(nb):
+    """5 full-width Trainer steps (dropout 0.1, noise 0.1 A, fp32) on the
+    unbucketed batch, where the decoder takes the gathered route: launches
+    per step kNN 1, RBF 1, RBF dW 1, message table 6 and its backward 6
+    (the encoder), ``message_mlp`` 3 and ``message_mlp_bwd`` 3 (the
+    decoder); then one step with the kernels against ``kernels="torch"``.
+    Returns the launches and the median step ms."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
+                                                 to_device)
+
+    dev = torch.device("cuda")
+    cfg = model_config_from_params({"MIXED_PRECISION": 0})
+    trainer = Trainer(cfg, seed=0, device=dev)
+    want = {k: v for k, v in _expected_train_launches(cfg).items()
+            if not k.endswith("dec")}
+    want.update(message_mlp=cfg.num_decoder_layers,
+                message_mlp_bwd=cfg.num_decoder_layers)
+    step_ms, peak, counts = _train_steps(
+        trainer, nb, want, "unbucketed train",
+        generator=torch.Generator(device=dev).manual_seed(0))
+    median = float(np.median(step_ms[1:]))
+    B, L = nb["S"].shape
+    print(f"unbucketed training B={B} L={L} K=32 H=128: {median:.2f} ms per train "
+          f"step (median of steps 2-5; all: {', '.join(f'{t:.2f}' for t in step_ms)}); "
+          f"peak memory {peak / 2**30:.3f} GiB; launches per step {want}", flush=True)
+    path = os.path.join(OUT, "unbucketed.npz")
+    trainer.save(path, epoch=1, save_step=0)
+    plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
+    plain.restore(path)
+    _grads_against_plain("unbucketed training", trainer, plain, to_device(nb, dev), 7,
+                         want)
+    return counts, median
+
+
+def _trace_summary(path, steps):
+    """Device time per step by operation from a ``torch.profiler`` Chrome
+    trace: the union of the device intervals (kernels, copies, sets) against
+    the trace's span gives the idle share."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        raise AssertionError(f"{path}: the trace holds no device operation")
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    busy, end = 0.0, None
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        s, t = e["ts"], e["ts"] + e["dur"]
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    by_name = {}
+    for e in dev:
+        name = e["name"].replace("(anonymous namespace)::", "")
+        n, d = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, d + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return (t1 - t0) / 1e3 / steps, busy / 1e3 / steps, top
+
+
+def training_loop_phase():
+    """The training loop as a user runs it: 16 synthetic protein-DNA PDBs of
+    300-700 residues under ``build/chip_smoke/train_data``, the port's
+    ``cli/preprocess`` over them, the training CSV, then ``run_training`` on
+    the card at the reference regime (6000-token batches, 2 loader workers,
+    fp32) for 2 epochs with a profiler capture of 3 steps, and resumed from
+    its ``last.npz`` for 1 more. Checks the logs and the checkpoint, that
+    the resumed epoch starts at the saved step, and that no bucketed batch
+    launched ``message_mlp``. Prints seconds per epoch, ms per step inside
+    the loop, the loader's wait and the profile's top device operations.
+    Returns the launches."""
+    import shutil
+
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.train.trainer import run_training
+
+    data = os.path.join(OUT, "train_data")
+    run = os.path.join(OUT, "train_loop")
+    for d in (data, run):
+        if os.path.exists(d):
+            shutil.rmtree(d)
+    structures = []
+    for i in range(16):
+        n = 300 + (400 * i) // 15
+        d = 20 + 2 * i
+        structures.append((("A", "protein", n - 2 * d), ("B", "dna", d), ("C", "dna", d)))
+    t0 = time.time()
+    csv_path = write_training_set(data, structures, seed=100)
+    prep_s = time.time() - t0
+    profile = os.path.join(run, "profile")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    run_training(training_config(csv_path, run, NUM_WORKERS=2, PROFILE_DIR=profile),
+                 max_epochs=2, device="cuda")
+    first_s = time.time() - t0
+    last = os.path.join(run, "last.npz")
+    t0 = time.time()
+    run_training(training_config(csv_path, run, NUM_WORKERS=2, PREV_CHECKPOINT=last),
+                 max_epochs=1, device="cuda")
+    resume_s = time.time() - t0
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    for name in ("log.txt", "log.jsonl", "last.npz"):
+        if not os.path.exists(os.path.join(run, name)):
+            raise AssertionError(f"training loop: {name} missing")
+    with open(os.path.join(run, "log.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    with open(os.path.join(run, "log.txt")) as f:
+        text = f.read().splitlines()[1:]
+    if [r["epoch"] for r in logs] != [1, 2, 3] or len(text) != 3:
+        raise AssertionError(f"training loop: epochs logged {[r['epoch'] for r in logs]}")
+    if logs[2]["step"] - logs[2]["steps"] != logs[1]["step"]:
+        raise AssertionError(f"resumed epoch starts at step "
+                             f"{logs[2]['step'] - logs[2]['steps']}, saved "
+                             f"{logs[1]['step']}")
+    if not all(np.isfinite(r["train_loss"]) and np.isfinite(r["valid_loss"])
+               for r in logs):
+        raise AssertionError("training loop: a logged loss is not finite")
+    if any(k.startswith("message_mlp") for k in counts) or not counts.get("knn"):
+        raise AssertionError(f"training loop on bucketed batches: launches {counts}")
+    per_epoch = []
+    for r, line in zip(logs, text):
+        fields = dict(kv.split(": ") for kv in line.split(", ")[2:4])
+        train_s = float(fields["train_time"])
+        per_epoch.append(f"epoch {r['epoch']}: train {train_s:.2f} s, valid "
+                         f"{float(fields['valid_time']):.2f} s, {r['steps']} steps, "
+                         f"{1e3 * train_s / r['steps']:.1f} ms per step, loader "
+                         f"wait {r['loader_wait_s']:.3f} s, train loss "
+                         f"{r['train_loss']:.4f}")
+    print(f"training loop (16 structures of 300-700 residues, preprocessed in "
+          f"{prep_s:.1f} s; run_training 2 epochs {first_s:.1f} s, resumed 1 epoch "
+          f"{resume_s:.1f} s): " + "; ".join(per_epoch) + f"; launches {counts}",
+          flush=True)
+    window, busy, top = _trace_summary(os.path.join(profile, "train_steps.json"), 3)
+    print(f"profile of 3 train steps (torch.profiler, CUDA activity): {window:.2f} ms "
+          f"per step, device busy {busy:.2f} ms ({100 * busy / window:.1f}%), idle "
+          f"{100 * (1 - busy / window):.1f}%; top device operations per step:",
+          flush=True)
+    for name, (n, us) in top:
+        print(f"  {us / 1e3 / 3:8.3f} ms  {n / 3:5.1f}x  {name[:90]}", flush=True)
+    return counts
 
 
 def mesh_kernel_phase(nb):
@@ -1467,14 +1837,20 @@ def main():
     nb = training_batch()
     train_rows, fwd_ms = train_kernel_phase(nb)
     rows.update(train_rows)
+    rows.update(message_mlp_phase())
     rows.update(mesh_kernel_phase(nb))
     counts, classed_ms = training_phase(nb, fwd_ms, rows)
     add(counts)
+    counts, unbucketed_ms = unbucketed_training_phase(unbucketed_batch())
+    add(counts)
+    print(f"unbucketed (L=750, gathered decoder) against bucketed (L=768) training "
+          f"step: {unbucketed_ms:.2f} ms vs {classed_ms:.2f} ms", flush=True)
     counts, dense_ms = dense_training_phase(nb)
     add(counts)
     print(f"dense against classed training step: {dense_ms:.2f} ms vs "
           f"{classed_ms:.2f} ms ({dense_ms / classed_ms:.3f}x)", flush=True)
     add(mesh_phase(nb))
+    add(training_loop_phase())
     sources = {
         "knn": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:106"),
         "knn_qk": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:54"),
@@ -1499,6 +1875,9 @@ def main():
                        ("fused_edge_update", 187)):
         sources[name] = ("na_mpnn_tpu_torch/csrc/fused_layers.cu",
                          f"na_mpnn_tpu/ops/fused_layers.py:{line}")
+    for name, line in (("message_mlp", 187), ("message_mlp_bwd", 212)):
+        sources[name] = (f"na_mpnn_tpu_torch/csrc/{name}.cu",
+                         f"na_mpnn_tpu/ops/message_kernels.py:{line}")
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches.get(name, 0) < 1:

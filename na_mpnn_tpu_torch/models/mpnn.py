@@ -6,19 +6,27 @@ Port of the JAX package's ``models/mpnn.py``. ``enc_layer`` and
 ``dec_layer`` are the layers of every route: one device here, and the
 graph-parallel forward (``parallel/graph_parallel.py``), which hands them an
 all-gather of the node tables and its own dropout source. A layer takes one
-of two routes, whatever L is:
+of three routes:
 
 * a layer that applies no dropout and through which no gradient is wanted
   (every inference entry point, ``Trainer.eval_step``, a no-grad
   ``forward`` or ``forward_graph_parallel``) runs the fused kernels
   (``ops/fused_layers.py``): the whole node update in one launch, and in the
-  encoder the edge update in a second;
-* otherwise the message MLP runs on the message-table kernel with its
-  autograd Function (``ops/message_kernels.py``), and the layer norms, the
-  feed-forward block and dropout are plain PyTorch around it.
+  encoder the edge update in a second, whatever L is;
+* a decoder layer with dropout or a gradient on one device at
+  ``L % 32 != 0`` (a batch collated with ``use_buckets=False``) takes the
+  gathered route, as the JAX training decoder does at such L: the causal
+  context gathered in PyTorch, then the pre-gathered message MLP with its
+  autograd Function (``ops/message_kernels.py::message_agg_batched``);
+* otherwise (every encoder layer with dropout or a gradient, the decoder at
+  ``L % 32 == 0``, and every layer of the graph-parallel route) the message
+  MLP runs on the message-table kernel with its autograd Function, at any L.
+
+Off the fused route the layer norms, the feed-forward block and dropout are
+plain PyTorch around the message kernel.
 
 The node-level products (``h_V @ wc``, ``h_S @ ws``, ``h_V @ wv``) that make
-the tables the kernels gather from are plain PyTorch on both routes. A
+the tables the kernels gather from are plain PyTorch on every route. A
 ``torch.Generator`` turns on training randomness (dropout, coordinate
 noise), ``None`` makes them deterministic; the inference entry points run
 under ``torch.no_grad``. The autoregressive samplers are plain PyTorch, as
@@ -223,24 +231,43 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
     (``mbw*A[j] + m1d*B[j]`` is the three-term context exactly, because
     ``mask_fw = mask_1d - mask_bw``); then LN1, FFN, LN2, mask: one fused
     launch on the fused route, else the message-table kernel (dec mode) and
-    the tail in PyTorch. ``drop`` and ``gather`` as in ``enc_layer`` (slots
-    0 and 1)."""
+    the tail in PyTorch. On one device (``gather`` the identity) a layer with
+    dropout or a gradient at ``L % 32 != 0`` takes the gathered route
+    instead: the ``[B,L,K,H]`` causal context and edge term gathered in
+    PyTorch into the pre-gathered message MLP (``mk.message_agg_batched``),
+    as the JAX training decoder does at such L. ``drop`` and ``gather`` as
+    in ``enc_layer`` (slots 0 and 1)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
-    (_, _, ws, wv), _ = _split_w1(p, H)
-    venc = h_V_enc @ wv
-    table = gather(torch.cat([h_S @ ws + h_V @ wv - venc, venc], dim=-1))
-    Lk = table.shape[1]
-    if fused_route(drop, p, h_V, h_V_enc, h_S, h_E2):
-        node = fl.fused_node_update_plain if plain else fl.fused_node_update
-        return node("dec", p, h_V.reshape(N, H), h_E2,
-                    table.reshape(B * Lk, 2 * H), eidx2, m1d2, mbw2,
-                    mask.reshape(N), K=K, L=L, Lk=Lk).view(B, L, H)
+    (_, wb, ws, wv), _ = _split_w1(p, H)
+    fused = fused_route(drop, p, h_V, h_V_enc, h_S, h_E2)
+    if not fused and gather is _identity and not mk.table_gather_ok(L):
+        # The gathered route (JAX ``edge_context`` + ``message_agg_batched``,
+        # mpnn.py:303-316, 383-387): the three neighbour terms through one
+        # gather, ``mask_fw = mask_1d - mask_bw`` exactly (0/1 masks).
+        E_idx = eidx2.reshape(B, L, K)
+        mbw, m1d = mbw2.reshape(B, L, K, 1), m1d2.reshape(B, L, K, 1)
+        g = gather_nodes(torch.cat([h_S @ ws, h_V @ wv, h_V_enc @ wv], dim=-1),
+                         E_idx)
+        ctx = mbw * (g[..., :H] + g[..., H:2 * H]) + (m1d - mbw) * g[..., 2 * H:]
+        e_term = m1d * (h_E2.view(B, L, K, H) @ wb)
+        dh = mk.message_agg_batched(p, h_V, ctx, e_term,
+                                    torch.ones_like(m1d2), contract_e=False,
+                                    plain=plain)
+    else:
+        venc = h_V_enc @ wv
+        table = gather(torch.cat([h_S @ ws + h_V @ wv - venc, venc], dim=-1))
+        Lk = table.shape[1]
+        if fused:
+            node = fl.fused_node_update_plain if plain else fl.fused_node_update
+            return node("dec", p, h_V.reshape(N, H), h_E2,
+                        table.reshape(B * Lk, 2 * H), eidx2, m1d2, mbw2,
+                        mask.reshape(N), K=K, L=L, Lk=Lk).view(B, L, H)
+        dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
+                                       table.reshape(B * Lk, 2 * H), eidx2,
+                                       m1d2, mbw2, K=K, L=L, Lk=Lk, plain=plain)
     drop = drop or _no_dropout
-    dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
-                                   table.reshape(B * Lk, 2 * H), eidx2, m1d2,
-                                   mbw2, K=K, L=L, Lk=Lk, plain=plain)
     h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
     h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
     return mask[..., None] * h_V

@@ -34,3 +34,9 @@ def raise_on_error(code: int, kernel: str):
     """Raise for a nonzero ``cudaError_t`` returned by a launcher."""
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {code}")
+
+
+# The wrappers import ``models.modules``, whose package imports the model,
+# which imports the wrappers: load the model package first, so that a
+# wrapper module imported on its own finds its siblings complete.
+from .. import models  # noqa: E402,F401

@@ -19,7 +19,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "na_mpnn_tpu_torch"
 SOURCES = ("knn", "rbf_classed", "rbf_classed_dw", "rbf_edge", "rbf_edge_dw",
-           "message_table", "message_table_bwd", "fused_layers")
+           "message_table", "message_table_bwd", "message_mlp", "message_mlp_bwd",
+           "fused_layers")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

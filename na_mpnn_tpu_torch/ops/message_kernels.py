@@ -28,6 +28,15 @@ resumes from the pre-GELU ``x`` that the forward saves (``save_x=True``), and
 in a ``torch.autograd.Function`` when a gradient is wanted: ``eidx2``,
 ``mask_att2`` and ``mbw2`` are structural and get none; the weights enter as
 row blocks of ``W1`` (views), so autograd carries ``dwa``/``dwb`` into ``W1``.
+
+The same message MLP on a pre-gathered neighbour operand ``G [N*K,H]``
+(replaces ``message_mlp``: ``_message_fwd_call`` and ``_message_bwd_call``)
+is ``csrc/message_mlp.cu`` and ``csrc/message_mlp_bwd.cu`` with their plain
+versions ``message_mlp_plain`` and ``message_mlp_bwd_plain``, behind the
+autograd Function ``_MessageMLP``; ``message_agg_batched`` and
+``message_edge_batched`` are its layer-level entries. The JAX training
+decoder runs it at ``L % 32 != 0`` (``table_gather_ok``), and so does the
+port's (``models/mpnn.py::dec_layer``, the gathered route).
 """
 from __future__ import annotations
 
@@ -278,3 +287,206 @@ def message_dec_table_flat(p, h_V2, h_E2, table2, eidx2, m1d2, mbw2, *, K, L,
     fn = message_table_plain if plain else message_table
     return fn("dec", h_V2, h_E2, table2, eidx2, m1d2, mbw2,
               *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)
+
+
+# ---------------------------------------------------------------------------
+# The message MLP on a pre-gathered neighbour operand
+# ---------------------------------------------------------------------------
+
+# The JAX package's node tile (na_mpnn_tpu/ops/message_kernels.py:64): its
+# table kernel maps a structure's table into VMEM and needs L % 32 == 0.
+NODE_TILE = 32
+
+
+def table_gather_ok(L) -> bool:
+    """The JAX package's predicate for its table kernel (``L % 32 == 0``).
+    The port's table kernels take any L; the decoder keeps the predicate
+    only to pick its training route where the JAX package picks it
+    (``models/mpnn.py::dec_layer``)."""
+    return L % NODE_TILE == 0
+
+
+def _mlp_x(h_V, e_in, G, wa, wb, b1, K, contract_e):
+    """Pre-GELU ``x = rep_K(h_V@wa) + G + b1 + (e_in@wb or e_in)``, summed in
+    the kernels' order."""
+    x = (h_V @ wa).repeat_interleave(K, dim=0) + G + b1
+    return x + (e_in @ wb if contract_e else e_in)
+
+
+def message_mlp_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
+                      K, contract_e, aggregate):
+    """Plain version of ``csrc/message_mlp.cu``: ``h_V [N,H]``, ``e_in`` and
+    ``G [N*K,H]``, ``mask_att [N*K]`` -> ``sum_k(mask_att * m) / 30``
+    ``[N,H]`` (``aggregate``) or the per-edge ``m [N*K,H]``, with
+    ``m = W3 . gelu(W2 . gelu(x) + b2) + b3``."""
+    N, H = h_V.shape
+    x = _mlp_x(h_V, e_in, G, wa, wb, b1, K, contract_e)
+    m = gelu(gelu(x) @ w2 + b2) @ w3 + b3
+    if aggregate:
+        return (m * mask_att[:, None]).view(N, K, H).sum(dim=1) / MESSAGE_SCALE
+    return m
+
+
+def _check_mlp(N, K, H, h_V, e_in, G, mask_att, weights, biases):
+    if not 1 <= K <= MAX_K or H not in (32, 64, 128):
+        raise ValueError(f"message_mlp kernel: K={K} (1..{MAX_K}), "
+                         f"H={H} (32, 64 or 128) not supported")
+    f32 = torch.float32
+    check_operand(h_V, "h_V", f32, (N, H))
+    check_operand(e_in, "e_in", f32, (N * K, H))
+    check_operand(G, "G", f32, (N * K, H))
+    check_operand(mask_att, "mask_att", f32, (N * K,))
+    for name, w in zip(("wa", "wb", "w2", "w3"), weights):
+        check_operand(w, name, f32, (H, H))
+    for name, b in zip(("b1", "b2", "b3"), biases):
+        check_operand(b, name, f32, (H,))
+
+
+def message_mlp_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
+                     K, contract_e, aggregate):
+    """Launch ``csrc/message_mlp.cu`` on fp32 CUDA tensors (the contract of
+    ``message_mlp_plain``)."""
+    from ._build import library, ptr, stream_ptr
+
+    N, H = h_V.shape
+    _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3), (b1, b2, b3))
+    out = torch.empty((N if aggregate else N * K, H), dtype=torch.float32,
+                      device=h_V.device)
+    fn = library("message_mlp").message_mlp_forward
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, out)
+    err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
+             int(aggregate), stream_ptr(h_V.device))
+    raise_on_error(err, "message_mlp")
+    LAUNCHES["message_mlp"] += 1
+    return out
+
+
+def message_mlp_bwd_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
+                          g, *, K, contract_e, aggregate):
+    """Plain version of ``csrc/message_mlp_bwd.cu``: recomputes the
+    activations from the inputs and takes the cotangent ``g`` of the output
+    -> ``(g_hV, g_ein, g_G, dwa, dwb, db1, dw2, db2, dw3, db3)`` (biases
+    ``[H]``; ``dwb`` zero without ``contract_e``, as the JAX VJP returns)."""
+    N, H = h_V.shape
+    x = _mlp_x(h_V, e_in, G, wa, wb, b1, K, contract_e)
+    u1 = gelu(x)
+    y = u1 @ w2 + b2
+    if aggregate:
+        g_m = g.repeat_interleave(K, dim=0) * (mask_att[:, None] / MESSAGE_SCALE)
+    else:
+        g_m = g
+    dw3 = gelu(y).T @ g_m
+    g_y = (g_m @ w3.T) * gelu_grad(y)
+    dw2 = u1.T @ g_y
+    g_x = (g_y @ w2.T) * gelu_grad(x)
+    if contract_e:
+        g_ein, dwb = g_x @ wb.T, e_in.T @ g_x
+    else:
+        g_ein, dwb = g_x, torch.zeros_like(wb)
+    s = g_x.view(N, K, H).sum(dim=1)
+    return (s @ wa.T, g_ein, g_x, h_V.T @ s, dwb, g_x.sum(0), dw2, g_y.sum(0),
+            dw3, g_m.sum(0))
+
+
+def message_mlp_bwd_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
+                         g, *, K, contract_e, aggregate):
+    """Launch ``csrc/message_mlp_bwd.cu`` on fp32 CUDA tensors (the contract
+    of ``message_mlp_bwd_plain``)."""
+    from ._build import library, ptr, stream_ptr
+
+    N, H = h_V.shape
+    _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3), (b1, b2, b3))
+    f32 = torch.float32
+    check_operand(g, "g", f32, (N if aggregate else N * K, H))
+    dev = h_V.device
+    g_hV = torch.empty((N, H), dtype=f32, device=dev)
+    g_ein = torch.empty((N * K, H), dtype=f32, device=dev)
+    g_G = torch.empty((N * K, H), dtype=f32, device=dev)
+    nslot = 4 * H * H + 3 * H
+    nparts = torch.cuda.get_device_properties(dev).multi_processor_count
+    part = torch.empty((nparts, nslot), dtype=f32, device=dev)
+    wT = torch.empty((4, H, H), dtype=f32, device=dev)
+    wgrad = torch.empty((nslot,), dtype=f32, device=dev)
+    fn = library("message_mlp_bwd").message_mlp_backward
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, g, g_hV, g_ein,
+               g_G, part, wT, wgrad)
+    err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
+             int(aggregate), nparts, stream_ptr(dev))
+    raise_on_error(err, "message_mlp_bwd")
+    LAUNCHES["message_mlp_bwd"] += 1
+    HH = H * H
+    dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
+    db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))
+    return g_hV, g_ein, g_G, dwa, dwb, db1, dw2, db2, dw3, db3
+
+
+class _MessageMLP(torch.autograd.Function):
+    """The pre-gathered message MLP with its backward kernel (plain versions
+    on the CPU). Saves only the inputs: the backward recomputes the
+    activations, as the TPU kernel does. ``mask_att`` is structural and gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, K, contract_e, aggregate, h_V, e_in, G, mask_att, wa, wb,
+                b1, w2, b2, w3, b3):
+        fn = message_mlp_cuda if h_V.is_cuda else message_mlp_plain
+        ctx.K, ctx.contract_e, ctx.aggregate = K, contract_e, aggregate
+        ctx.save_for_backward(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3)
+        return fn(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, K=K,
+                  contract_e=contract_e, aggregate=aggregate)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = message_mlp_bwd_cuda if g.is_cuda else message_mlp_bwd_plain
+        (g_hV, g_ein, g_G, dwa, dwb, db1, dw2, db2, dw3,
+         db3) = fn(*ctx.saved_tensors, g.contiguous(), K=ctx.K,
+                   contract_e=ctx.contract_e, aggregate=ctx.aggregate)
+        return (None, None, None, g_hV, g_ein, g_G, None, dwa, dwb, db1, dw2,
+                db2, dw3, db3)
+
+
+def message_mlp(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *, K,
+                contract_e, aggregate):
+    """Kernel for CUDA tensors, plain version for CPU tensors; through the
+    autograd Function only when a gradient is wanted."""
+    args = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _MessageMLP.apply(K, contract_e, aggregate, *args)
+    fn = message_mlp_cuda if h_V.is_cuda else message_mlp_plain
+    return fn(*args, K=K, contract_e=contract_e, aggregate=aggregate)
+
+
+def message_agg_batched(p, h_V, e_in, G, mask_att, *, contract_e, w1="W1",
+                        w2="W2", w3="W3", plain=False):
+    """Node-message aggregation on gathered operands: ``h_V [B,L,H]``,
+    ``e_in``/``G [B,L,K,H]``, ``mask_att [B,L,K]`` -> ``dh [B,L,H]`` (pre-
+    dropout, pre-LayerNorm). Without ``contract_e`` the edge operand is added
+    as it is and ``W1``'s edge block is not used (a zero ``wb``, as in the
+    JAX package)."""
+    B, L, K, H = e_in.shape
+    N = B * L
+    wa, wb, b1, w2_, b2, w3_, b3 = _weights(p, H, w1, w2, w3)
+    if not contract_e:
+        wb = torch.zeros((H, H), dtype=wa.dtype, device=wa.device)
+    fn = message_mlp_plain if plain else message_mlp
+    dh = fn(h_V.reshape(N, H), e_in.reshape(N * K, H), G.reshape(N * K, H),
+            mask_att.reshape(N * K).to(h_V.dtype), wa, wb, b1, w2_, b2, w3_, b3,
+            K=K, contract_e=contract_e, aggregate=True)
+    return dh.view(B, L, H)
+
+
+def message_edge_batched(p, h_V, h_E, G, *, w1="W11", w2="W12", w3="W13",
+                         plain=False):
+    """Per-edge message on gathered operands (the encoder edge update's
+    form): ``h_V [B,L,H]``, ``h_E``/``G [B,L,K,H]`` -> ``m [B,L,K,H]``."""
+    B, L, K, H = h_E.shape
+    N = B * L
+    ones = torch.ones((N * K,), dtype=h_V.dtype, device=h_V.device)
+    fn = message_mlp_plain if plain else message_mlp
+    m = fn(h_V.reshape(N, H), h_E.reshape(N * K, H), G.reshape(N * K, H), ones,
+           *_weights(p, H, w1, w2, w3), K=K, contract_e=True, aggregate=False)
+    return m.view(B, L, K, H)

@@ -1,7 +1,9 @@
 """The training step: forward + loss + gradients + Noam-Adam update, the
 evaluation step and ``.npz`` checkpoints (port of the JAX package's
 ``train/trainer.py::Trainer``, fp32), on one device or on a
-``torch.distributed`` mesh.
+``torch.distributed`` mesh; and ``run_training``, the training loop over
+the data stack (``data/dataset.py``, ``data/loader.py``) with metrics, logs,
+checkpoints and resume.
 
 With a mesh (``parallel/mesh.py``), every rank holds the same parameters
 (rank 0's, broadcast after init and restore), takes its ``shard_batch`` of
@@ -25,8 +27,10 @@ pinned-memory, non-blocking copy per array.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -286,6 +290,28 @@ class Trainer:
     def eval_step(self, np_batch):
         return self._eval_step_impl(self.device_batch(np_batch))
 
+    def profile_steps(self, np_batch, generator, out_dir: str, n_steps: int = 3):
+        """A ``torch.profiler`` trace (CPU and, on a card, CUDA activity) of
+        ``n_steps`` train steps after one untraced step, written as a Chrome
+        trace to ``out_dir/train_steps.json``; returns its path. The steps
+        train: they advance the parameters and ``step`` as any other."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self.train_step(np_batch, generator)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)
+        with profile(activities=activities) as prof:
+            for _ in range(n_steps):
+                self.train_step(np_batch, generator)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "train_steps.json")
+        prof.export_chrome_trace(path)
+        return path
+
     # -- checkpoints -------------------------------------------------------
 
     def save(self, path: str, epoch: int, save_step: int):
@@ -342,3 +368,237 @@ class Trainer:
         self._replicate()
         self.step = int(meta.get("step", 0))
         return meta
+
+
+def _epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The one-device random stream of an epoch (noise, dropout, decode
+    order), a function of (seed, epoch) only: the role of JAX's
+    ``fold_in(PRNGKey(seed), epoch)``."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1000003 + epoch) % 2 ** 63)
+
+
+def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
+                 steps_override: Optional[int] = None, device="cuda"):
+    """The training loop from a reference-style JSON config (the JAX
+    package's ``run_training``): dataset and prefetch loader, ``Trainer``,
+    metrics, ``log.txt`` / ``log.jsonl`` and ``.npz`` checkpoints under
+    ``BASE_FOLDER``, resume from ``PREV_CHECKPOINT``. Runs on ``device``
+    (a card unless the caller asks for the CPU).
+
+    The example tables are read with ``csv`` (``read_examples_csv``). Every
+    per-epoch random stream is a function of (``SEED``, epoch): the cluster
+    draws (``split_rng``, the JAX formula) and the device's noise, dropout
+    and decode order (``_epoch_generator``; with a mesh, streams keyed by
+    (seed, step)), so a run restored from the epoch-boundary checkpoint
+    replays the interrupted epoch exactly. Under ``torchrun`` (or any
+    initialised process group) the Trainer runs on a
+    ``(WORLD_SIZE / MESH_GRAPH_AXIS, MESH_GRAPH_AXIS)`` mesh: every rank
+    loads the whole batch, the batch dimension is padded to the data axis,
+    rank 0 writes logs and checkpoints. ``log.jsonl`` adds two keys per
+    epoch to the JAX package's: ``loader_wait_s`` (host seconds spent
+    waiting for the next training batch) and ``steps`` (training steps taken
+    in the epoch, a ``PROFILE_DIR`` capture's included).
+
+    ``MIXED_PRECISION: 1`` (the bf16 trunk) and ``CHECKPOINT_FORMAT:
+    "orbax"`` are not ported and raise."""
+    from .. import constants
+    from ..data.dataset import (DatasetConfig, NADataset, make_batch_iter,
+                                parse_date, read_examples_csv)
+    from ..data.loader import PrefetchLoader
+    from ..data.parsers import make_parsers
+    from ..parallel.mesh import initialize_distributed, make_mesh
+    from .metrics import generate_metric_manager
+
+    if isinstance(config_path_or_dict, str):
+        with open(config_path_or_dict) as f:
+            p = json.load(f)
+    else:
+        p = dict(config_path_or_dict)
+    if p.get("MIXED_PRECISION", 1):
+        raise NotImplementedError(
+            "MIXED_PRECISION: 1 (the bf16 trunk) is not ported; set "
+            "MIXED_PRECISION: 0 to train in fp32")
+    if p.get("CHECKPOINT_FORMAT", "npz") != "npz":
+        raise NotImplementedError(
+            f"CHECKPOINT_FORMAT {p['CHECKPOINT_FORMAT']!r}: only npz is ported")
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        initialize_distributed(world, int(os.environ["RANK"]), device)
+    mesh = None
+    if dist.is_initialized():
+        mesh = make_mesh(graph=int(p.get("MESH_GRAPH_AXIS", 1)), device=device)
+    lead = mesh is None or mesh.rank == 0
+
+    base = p["BASE_FOLDER"]
+    if base[-1] != "/":
+        base += "/"
+    logfile = base + "log.txt"
+    jsonl_log = base + "log.jsonl"
+    if lead:
+        os.makedirs(base, exist_ok=True)
+        if not p.get("PREV_CHECKPOINT"):
+            with open(logfile, "w") as f:
+                f.write("Epoch\tTrain\tValidation\n")
+
+    atoms = (constants.ALL_ATOMS if p.get("ATOMS_TO_LOAD") == "all"
+             else constants.BACKBONE_ATOMS)
+    ds_cfg = DatasetConfig(
+        atom_list_to_save=tuple(atoms),
+        parse_protein=bool(p["PARSE_PROTEIN"]), parse_dna=bool(p["PARSE_DNA"]),
+        parse_rna=bool(p["PARSE_RNA"]),
+        parse_rna_as_dna=bool(p["PARSE_RNA_AS_DNA"]),
+        na_shared_tokens=bool(p["NA_SHARED_TOKENS"]),
+        protein_backbone_occ_cutoff=p["PROTEIN_BACKBONE_OCC_CUTOFF"],
+        protein_side_chain_occ_cutoff=p["PROTEIN_SIDE_CHAIN_OCC_CUTOFF"],
+        dna_backbone_occ_cutoff=p["DNA_BACKBONE_OCC_CUTOFF"],
+        dna_side_chain_occ_cutoff=p["DNA_SIDE_CHAIN_OCC_CUTOFF"],
+        rna_backbone_occ_cutoff=p["RNA_BACKBONE_OCC_CUTOFF"],
+        rna_side_chain_occ_cutoff=p["RNA_SIDE_CHAIN_OCC_CUTOFF"],
+        crop_large_structures=bool(p["CROP_LARGE_STRUCTURES"]),
+        batch_tokens=p["BATCH_TOKENS"], na_ref_atom=p["NA_REF_ATOM"],
+        parse_ppms=bool(p["PARSE_PPMS"]),
+        min_overlap_length=p["MIN_OVERLAP_LENGTH"],
+        drop_protein_probability=p["DROP_PROTEIN_PROBABILITY"],
+        na_only_as_uniform_ppm=bool(p["NA_ONLY_AS_UNIFORM_PPM"]),
+        protein_interface_residue_mutation_probability=p[
+            "PROTEIN_INTERFACE_RESIDUE_MUTATION_PROBABILITY"],
+        mutate_base_pair_together=bool(p["MUTATE_BASE_PAIR_TOGETHER"]),
+        mutate_entire_side_chain_interface_probability=p[
+            "MUTATE_ENTIRE_SIDE_CHAIN_INTERFACE_PROBABILITY"],
+        na_non_interface_as_uniform_ppm=bool(p["NA_NON_INTERFACE_AS_UNIFORM_PPM"]),
+    )
+    cif_parser, pdb_parser = make_parsers(
+        skip_res=p.get("EXCLUDE_RES", []),
+        randomize_nmr_model=bool(p.get("RANDOMIZE_NMR_MODEL", 0)))
+    dataset = NADataset(cif_parser=cif_parser, pdb_parser=pdb_parser, config=ds_cfg)
+
+    cfg = model_config_from_params(p)
+    seed = int(p.get("SEED", 0))
+    trainer = Trainer(cfg, label_smoothing=p["LABEL_SMOOTHING"],
+                      loss_tokens=float(p["LOSS_TOKENS"]),
+                      grad_clip_norm=p["GRADIENT_NORM"],
+                      na_shared_tokens=bool(p["NA_SHARED_TOKENS"]),
+                      seed=seed, device=device, mesh=mesh)
+
+    epoch0, save_step = 0, 0
+    if p.get("PREV_CHECKPOINT"):
+        try:
+            meta = trainer.restore(p["PREV_CHECKPOINT"])
+            epoch0 = int(meta.get("epoch", 0))
+            save_step = int(meta.get("save_step", 0))
+            print(f"Starting from step {trainer.step}")
+        except (OSError, ValueError, KeyError) as e:
+            print(f"LOADING FROM BAD PATH CHECKPOINT ({type(e).__name__}: {e})")
+
+    rows_train = read_examples_csv(p["DF_PATH_TRAIN"])
+    rows_valid = read_examples_csv(p["DF_PATH_VALID"])
+    date_cutoff = parse_date(p["DATE_CUTOFF"])
+
+    metric_manager = generate_metric_manager(
+        dataset.restype_to_int, metrics_to_compute=p["METRICS_TO_COMPUTE"])
+    use_interface = p["METRICS_TO_COMPUTE"] == "all"
+    total_steps = steps_override or p["TOTAL_STEPS"]
+    profile_dir = p.get("PROFILE_DIR") or os.environ.get("NA_MPNN_PROFILE_DIR")
+    dev = trainer.device
+
+    # Persistent per-split loaders: the worker pool (and each worker's parse
+    # cache) survives across epochs; only the epoch's clusters are swapped in.
+    loaders = {}
+
+    def get_loader(split, batch_iter):
+        if split not in loaders:
+            loaders[split] = PrefetchLoader(
+                dataset, batch_iter, num_workers=int(p.get("NUM_WORKERS", 0)),
+                pad_batch_multiple=mesh.data if mesh is not None else None)
+        else:
+            loaders[split].set_clusters(batch_iter)
+        return loaders[split]
+
+    try:
+        epoch = epoch0
+        while True:
+            metric_manager.zero_metrics()
+            t0 = time.time()
+            generator = None if mesh is not None else _epoch_generator(seed, epoch, dev)
+            step0 = trainer.step
+            loader_wait_s = 0.0
+
+            def run_split(rows, max_pdbs, split):
+                nonlocal profile_dir, loader_wait_s
+                split_rng = np.random.RandomState(
+                    (seed * 1000003 + epoch * 31 + (0 if split == "train" else 1))
+                    % (2 ** 31))
+                batch_iter = make_batch_iter(
+                    rows, p["BATCH_TOKENS"], p["MIN_PROTEIN_LENGTH_CUTOFF"],
+                    date_cutoff, bool(p["CROP_LARGE_STRUCTURES"]), max_pdbs,
+                    rng=split_rng)
+                batches = iter(get_loader(split, batch_iter))
+                while True:
+                    t_wait = time.perf_counter()
+                    np_batch = next(batches, None)
+                    if split == "train":
+                        loader_wait_s += time.perf_counter() - t_wait
+                    if np_batch is None:
+                        break
+
+                    def host(key):
+                        return torch.as_tensor(np_batch[key], device=dev)
+
+                    interface = {}
+                    if use_interface:
+                        interface = {"interface": host("interface_mask"),
+                                     "nonInterface": 1 - host("interface_mask")}
+                    if split == "train":
+                        if profile_dir:
+                            trainer.profile_steps(np_batch, generator, profile_dir)
+                            profile_dir = None
+                        m = trainer.train_step(np_batch, generator)
+                    else:
+                        m = trainer.eval_step(np_batch)
+                    polymer_masks = {k: host(f"{k}_mask")
+                                     for k in ("protein", "dna", "rna")}
+                    metric_manager.accumulate(
+                        m["loss_per_token"], m["accuracy"], m["cbp_accuracy"],
+                        host("canonical_base_pair_mask"), host("S"), m["S_pred"],
+                        split, m["mask_for_loss"], polymer_masks, interface)
+
+            run_split(rows_train, p["MAX_NUMBER_OF_PDBS_TRAIN"], "train")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t1 = time.time()
+            run_split(rows_valid, p["MAX_NUMBER_OF_PDBS_VALID"], "valid")
+            t2 = time.time()
+
+            metric_manager.compute_metrics()
+            out_str = metric_manager.create_print_string(
+                epoch, trainer.step,
+                np.format_float_positional(np.float32(t1 - t0), unique=False, precision=3),
+                np.format_float_positional(np.float32(t2 - t1), unique=False, precision=3))
+            if lead:
+                with open(logfile, "a") as f:
+                    f.write(out_str + "\n")
+                with open(jsonl_log, "a") as f:
+                    f.write(json.dumps({"epoch": epoch + 1, "step": trainer.step,
+                                        **metric_manager.as_dict(),
+                                        "loader_wait_s": loader_wait_s,
+                                        "steps": trainer.step - step0})
+                            + "\n")
+                print(out_str)
+
+            trainer.save(base + "last.npz", epoch + 1, save_step)
+            if trainer.step > save_step + p["SAVE_EVERY_N_STEPS"]:
+                save_step += p["SAVE_EVERY_N_STEPS"]
+                trainer.save(base + f"s_{trainer.step}.npz", epoch + 1, save_step)
+            epoch += 1
+            if trainer.step > total_steps:
+                break
+            if max_epochs is not None and (epoch - epoch0) >= max_epochs:
+                break
+    finally:
+        for loader in loaders.values():
+            loader.close()
+    return trainer

@@ -231,7 +231,8 @@ SMALL = dict(node_features=32, edge_features=32, hidden_dim=32,
 @pytest.fixture
 def route_counts(monkeypatch):
     """Calls of each route's plain function: the fused updates, the
-    message table (forward) and its backward."""
+    message table (forward) and its backward, the pre-gathered message MLP
+    and its backward."""
     counts = {}
 
     def count(mod, name):
@@ -245,7 +246,9 @@ def route_counts(monkeypatch):
     for mod, name in ((fl, "fused_node_update_plain"),
                       (fl, "fused_edge_update_plain"),
                       (mk, "message_table_plain"),
-                      (mk, "message_table_bwd_plain")):
+                      (mk, "message_table_bwd_plain"),
+                      (mk, "message_mlp_plain"),
+                      (mk, "message_mlp_bwd_plain")):
         count(mod, name)
     return counts
 
@@ -261,8 +264,10 @@ def _small_batch():
 def test_dispatch_by_dropout_and_gradient(route_counts):
     """Inference entry points and a no-grad forward take the fused route;
     a differentiated forward and a forward with dropout take the message
-    table (with its backward when differentiated). L = 30 is not a multiple
-    of 32 and plays no part in the choice."""
+    table in the encoder (with its backward when differentiated). L = 30 is
+    not a multiple of 32, so their decoder takes the gathered route (the
+    pre-gathered message MLP and its backward), as the JAX training decoder
+    does; the fused route does not depend on L."""
     from na_mpnn_tpu_torch.models import sample, score, unconditional_probs
     from na_mpnn_tpu_torch.train.trainer import tree_leaves
 
@@ -284,14 +289,16 @@ def test_dispatch_by_dropout_and_gradient(route_counts):
         "fused_node_update_plain": 2, "fused_edge_update_plain": 2}
     with torch.no_grad():
         assert took(lambda: forward(params, cfg, bt)) == fused
-        # dropout drawn from a generator: the message table, no backward
+        # dropout drawn from a generator: the message table in the encoder,
+        # the gathered route in the decoder, no backward
         assert took(lambda: forward(params, cfg, bt, torch.Generator().manual_seed(0))) \
-            == {"message_table_plain": 6}
+            == {"message_table_plain": 4, "message_mlp_plain": 2}
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
-    # a gradient wanted, no dropout: the message table and its backward
+    # a gradient wanted, no dropout: the same routes and their backwards
     assert took(lambda: forward(params, cfg, bt)[0].sum().backward()) == {
-        "message_table_plain": 6, "message_table_bwd_plain": 6}
+        "message_table_plain": 4, "message_table_bwd_plain": 4,
+        "message_mlp_plain": 2, "message_mlp_bwd_plain": 2}
 
 
 def test_eval_step_takes_fused_route_train_step_the_table(route_counts):
@@ -311,3 +318,29 @@ def test_eval_step_takes_fused_route_train_step_the_table(route_counts):
     route_counts.clear()
     tr.train_step(nb, torch.Generator().manual_seed(0))
     assert set(route_counts) == {"message_table_plain", "message_table_bwd_plain"}
+
+
+@pytest.mark.parametrize("use_buckets", [False, True])
+def test_train_step_route_by_length(route_counts, use_buckets):
+    """A train step at L = 50 (collated with ``use_buckets=False``) runs the
+    table route in the encoder and the gathered route in the decoder, each
+    with its backward; at a bucketed L (64) it calls no message MLP on
+    gathered operands at all."""
+    import dataclasses
+
+    from na_mpnn_tpu_torch.train.collate import collate_batch
+    from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+
+    b = make_synthetic_structure(L=50, seed=4, n_protein=24, n_dna=12)
+    keys = ("X", "X_m", "mask", "S", "R_idx", "chain_labels", "protein_mask",
+            "dna_mask", "rna_mask", "R_polymer_type")
+    nb = collate_batch([{k: b[k][0] for k in keys}] * 2, use_buckets=use_buckets)
+    assert nb["S"].shape == (2, 64 if use_buckets else 50)
+    cfg = dataclasses.replace(model_config_from_params({"MIXED_PRECISION": 0}), **SMALL)
+    Trainer(cfg, seed=0, device="cpu").train_step(nb, torch.Generator().manual_seed(0))
+    want = {"message_table_plain": 4, "message_table_bwd_plain": 4}
+    if use_buckets:
+        want = {"message_table_plain": 6, "message_table_bwd_plain": 6}
+    else:
+        want.update(message_mlp_plain=2, message_mlp_bwd_plain=2)
+    assert route_counts == want

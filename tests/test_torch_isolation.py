@@ -1,12 +1,18 @@
 """The port stands alone: ``na_mpnn_tpu_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor anything of the JAX package ``na_mpnn_tpu``, and the
-port runs its CLI (design, symmetry-tied design, score), batch design and
-trainer where neither JAX nor pandas can be imported."""
+port runs its CLI (design, symmetry-tied design, score), batch design,
+trainer, preprocessing CLI and training CLI where neither JAX nor pandas can
+be imported. ``run_training`` on a gloo world of 2 CPU processes logs the
+losses of a world of 1 (both on the mesh route, whose random streams are
+keyed by global row, so the two split the same draws)."""
 import ast
+import json
 import os
 import pkgutil
 import subprocess
 import sys
+
+import numpy as np
 
 import na_mpnn_tpu_torch
 
@@ -56,6 +62,15 @@ trainer = Trainer(cfg, seed=0, device="cpu")
 gen = torch.Generator().manual_seed(0)
 losses = [float(trainer.train_step(batch, gen)["loss_av"]) for _ in range(2)]
 assert trainer.step == 2 and all(l == l for l in losses), losses
+import json
+from na_mpnn_tpu_torch.cli.train import main as train_main
+csv_path = chip_smoke.write_training_set(out + "/ds", [
+    (("A", "protein", 16), ("B", "dna", 8), ("C", "dna", 8))] * 2)
+with open(out + "/train.json", "w") as f:
+    json.dump(chip_smoke.training_config(
+        csv_path, out + "/run", HIDDEN_DIM=32, NUM_NEIGHBORS=8, NUM_ENCODER_LAYERS=1,
+        NUM_DECODER_LAYERS=1, BATCH_TOKENS=100, LOSS_TOKENS=100, TOTAL_STEPS=0), f)
+train_main([out + "/train.json", "--device", "cpu"])
 from na_mpnn_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 initialize_distributed(1, 0, "cpu", init_file=out + "/store")
 mesh_trainer = Trainer(cfg, seed=0, mesh=make_mesh(1, 1, "cpu"))
@@ -81,6 +96,40 @@ def test_port_runs_its_cli_with_jax_unimportable(tmp_path):
     assert os.path.exists(tmp_path / "score" / "stats" / "s.npz")
     assert os.path.exists(tmp_path / "sym" / "seqs" / "s.fa")
     assert os.path.exists(tmp_path / "bd" / "seqs" / "s.fa")
+    assert os.path.exists(tmp_path / "ds" / "preprocessed" / "asmb_lengths" / "s0.npy")
+    with open(tmp_path / "run" / "log.jsonl") as f:
+        assert [json.loads(line)["epoch"] for line in f] == [1]
+    assert os.path.exists(tmp_path / "run" / "last.npz")
+
+
+def test_run_training_on_two_ranks_logs_what_one_rank_logs(tmp_path):
+    import chip_smoke
+    from test_torch_mesh_workers import run_training_rank, spawn
+
+    csv_path = chip_smoke.write_training_set(str(tmp_path / "ds"), [
+        (("A", "protein", 14 + 4 * i), ("B", "dna", 8), ("C", "dna", 8))
+        for i in range(3)], seed=9)
+    logs = {}
+    for world in (1, 2):
+        base = tmp_path / f"world{world}"
+        cfg = chip_smoke.training_config(
+            csv_path, str(base), HIDDEN_DIM=32, NUM_NEIGHBORS=8,
+            NUM_ENCODER_LAYERS=1, NUM_DECODER_LAYERS=1, BATCH_TOKENS=100,
+            LOSS_TOKENS=100)
+        steps = spawn(run_training_rank, world, tmp_path / f"store{world}", (cfg,))
+        assert len(set(steps)) == 1 and steps[0] >= 1
+        with open(base / "log.jsonl") as f:
+            logs[world] = json.loads(f.readline())
+    assert logs[1]["steps"] == logs[2]["steps"]
+    assert np.isfinite(logs[1]["train_loss"])
+    for k, v in logs[1].items():
+        if k == "loader_wait_s":
+            continue
+        w = logs[2][k]
+        if np.isnan(v):
+            assert np.isnan(w), k
+        else:
+            assert abs(w - v) <= 1e-6 * max(abs(v), 1.0), (k, v, w)
 
 
 def _imported_modules(path):

@@ -164,3 +164,13 @@ def trainer_step(rank, data, graph, batch_np, cfg_kw, trainer_kw, ckpt):
             "offsets": np.cumsum([0] + [p.numel() for p in tr.leaves]),
             "metrics": {k: v.numpy() for k, v in m.items()},
             "restored": same, "synced": synced}
+
+
+def run_training_rank(rank, cfg):
+    """This rank of ``run_training`` (one epoch on the CPU) on the
+    initialised gloo world: a (world, 1) mesh, every rank loading the whole
+    batch, rank 0 writing the logs. Returns the trainer's step."""
+    from na_mpnn_tpu_torch.train.trainer import run_training
+
+    torch.set_num_threads(1)
+    return run_training(cfg, max_epochs=1, device="cpu").step
