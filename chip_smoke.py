@@ -57,7 +57,21 @@ CUDA toolkit. Phases, each of which raises on failure:
    and resumed for 1; logs, checkpoint, resumed step, no ``message_mlp``
    launch on the bucketed batches; seconds per epoch, ms per step, the
    loader's wait, the profile's top device operations and idle share;
-8. one JSON line of the kernels (launches on the main paths, error, times,
+8. the bf16 trunk (``MIXED_PRECISION: 1``, the JAX training default): the
+   bf16 variants of rows 3, 4, 9-12 (``*_bf16`` entries of the same
+   sources) against their plain bf16 versions at the training shape
+   (relative error < 2^-8 on the RBF's fp32 sums, < 2^-6 on bf16 outputs;
+   the RBF weight gradient and row 10's weight gradients bitwise equal
+   across two launches, the table gradient's spread printed; bounds at the
+   bf16 tensor-core peak); 5 bf16 ``Trainer`` steps of
+   ``model_config_from_params({})`` at B=8 x L=768 (launches per step: kNN 1
+   and the bf16 variants only: RBF 1, RBF dW 1, message table 9, its
+   backward 9), ms per step and peak memory against the fp32 step, a bf16
+   eval step (fused route: 3 + 3 + 3 launches), one step against
+   ``kernels="torch"`` at bf16; and ``run_training`` for 1 epoch from a
+   config without ``MIXED_PRECISION``, with a profile beside the fp32
+   loop's;
+9. one JSON line of the kernels (launches on the main paths, error, times,
    bound), then the card's name and power limit as ``nvidia-smi`` gives
    them and, last, the device JSON.
 
@@ -77,6 +91,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 REL_TOL = 1e-5
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 
 PROTEIN_ATOMS = ["N", "CA", "C", "O"]
@@ -214,8 +229,8 @@ def _rel_err(a, b):
     return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
 
 
-def _bound_ms(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def _bound_ms(ops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -228,53 +243,56 @@ def _knn_bound(B, L, K, Lk=None):
     return _bound_ms(B * L * Lk * 14, B * (L + Lk) * 16 + B * L * K * 12)
 
 
-def _rbf_bound(X_aug, X_m_aug, E_idx, H, num_rbf=16):
+def _rbf_bound(X_aug, X_m_aug, E_idx, H, num_rbf=16, w_bytes=4,
+               peak=PEAK_FP32_FLOPS):
     """The classed RBF projection and its weight gradient: 16 * (2H + 8)
     operations per present atom pair of each edge (the data decides how
-    many); bytes: coordinates, masks, neighbours, one [E, H] and one
-    [5184, H] tensor."""
+    many); bytes: coordinates, masks, neighbours, one [E, H] fp32 tensor and
+    one [5184, H] of ``w_bytes`` per element (the bf16 forward's tables)."""
     import torch
     B, L, K = E_idx.shape
     nq = X_m_aug.sum(-1)                                         # [B,L]
     nn = torch.gather(nq, 1, E_idx.reshape(B, -1)).reshape(B, L, K)
     pairs = float((nq[:, :, None] * nn).sum())
-    nbytes = ((X_aug.numel() + X_m_aug.numel() + B * L * K * H
-               + 18 * 18 * num_rbf * H) * 4 + E_idx.numel() * 8)
-    return _bound_ms(pairs * num_rbf * (2 * H + 8), nbytes)
+    nbytes = ((X_aug.numel() + X_m_aug.numel() + B * L * K * H) * 4
+              + 18 * 18 * num_rbf * H * w_bytes + E_idx.numel() * 8)
+    return _bound_ms(pairs * num_rbf * (2 * H + 8), nbytes, peak)
 
 
-def _message_table_bound(mode, N, K, H, C, save_x=False):
+def _message_table_bound(mode, N, K, H, C, save_x=False, esize=4,
+                         peak=PEAK_FP32_FLOPS):
     """The message table's least work: h_V@Wa per node; e_in@Wb, W2 and
     about 30 elementwise operations per edge element; W3 per edge only in
     enc_edge, since in the summing modes sum_k w_k (W3 g_k + b3) =
-    W3 (sum_k w_k g_k) + b3 sum_k w_k. With ``save_x`` x is written too."""
+    W3 (sum_k w_k g_k) + b3 sum_k w_k. With ``save_x`` x is written too.
+    ``esize``: bytes per activation, mask and weight element (2 for bf16)."""
     if mode == "enc_edge":
         ops = N * K * (6 * H * H + 30 * H) + N * 2 * H * H
     else:
         ops = N * K * (4 * H * H + 30 * H) + N * 4 * H * H
     out = N * K * H if mode == "enc_edge" else N * H
-    nbytes = (4 * (N * H + N * K * H + N * C + 2 * N * K + 4 * H * H + 3 * H
-                   + out + (N * K * H if save_x else 0)) + 8 * N * K)
-    return _bound_ms(ops, nbytes)
+    nbytes = (esize * (N * H + N * K * H + N * C + 2 * N * K + 4 * H * H + 3 * H
+                       + out + (N * K * H if save_x else 0)) + 8 * N * K)
+    return _bound_ms(ops, nbytes, peak)
 
 
-def _fused_bound(kind, N, K, H, C):
+def _fused_bound(kind, N, K, H, C, esize=4, peak=PEAK_FP32_FLOPS):
     """Least work of the fused layer updates: the message table's count for
     its mode (``_message_table_bound``), plus in the node update the
     feed-forward block (16 H^2 per node) and two LayerNorms with their
     residuals (about 10 operations per element each), in the edge update
     LN3 and its residual (about 8 per edge element). Bytes: every input
     once (node and edge rows, table, masks, indices, weights) and the
-    output once."""
+    output once, ``esize`` bytes per float element."""
     w = 4 * H * H + 3 * H
     if kind == "edge":
         ops = N * K * (6 * H * H + 38 * H) + N * 2 * H * H
-        nbytes = 4 * (N * H + 2 * N * K * H + N * C + w + 2 * H) + 8 * N * K
+        nbytes = esize * (N * H + 2 * N * K * H + N * C + w + 2 * H) + 8 * N * K
     else:
         ops = N * K * (4 * H * H + 30 * H) + N * (20 * H * H + 20 * H)
-        nbytes = (4 * (2 * N * H + N * K * H + N * C + 2 * N * K + N + w
-                       + 8 * H * H + 9 * H) + 8 * N * K)
-    return _bound_ms(ops, nbytes)
+        nbytes = (esize * (2 * N * H + N * K * H + N * C + 2 * N * K + N + w
+                           + 8 * H * H + 9 * H) + 8 * N * K)
+    return _bound_ms(ops, nbytes, peak)
 
 
 def _random_layer(cfg, seed, dev):
@@ -914,20 +932,20 @@ def training_batch():
     return batch
 
 
-def _bwd_bound(mode, N, K, H, C, g_rows):
+def _bwd_bound(mode, N, K, H, C, g_rows, esize=4, peak=PEAK_FP32_FLOPS):
     """Least work of the message-table backward: per edge the recomputed W2
     product, dW2, g_x, g_ein and dWb (10 H^2), in enc_edge also dW3 and
     g_m@W3^T (14 H^2), and about 40 H elementwise (GELU and its derivative);
     per node g_hV and dWa, and in the summing modes (g/30)@W3^T and dW3 too,
     since g_m is a per-node vector times a mask (8 H^2). Bytes: h_V, e_in,
     x, g, masks and indices read once; g_hV, g_ein, the table gradient and
-    the weight gradients written once."""
+    the weight gradients written once, ``esize`` bytes per float element."""
     per_edge = 14 if mode == "enc_edge" else 10
     per_node = 4 if mode == "enc_edge" else 8
     ops = N * K * (per_edge * H * H + 40 * H) + N * per_node * H * H
-    nbytes = (4 * (N * H + 3 * N * K * H + g_rows * H + 2 * N * K + N * H
-                   + N * C + 4 * H * H + H + 4 * H * H + 3 * H) + 8 * N * K)
-    return _bound_ms(ops, nbytes)
+    nbytes = (esize * (N * H + 3 * N * K * H + g_rows * H + 2 * N * K + N * H
+                       + N * C + 4 * H * H + H + 4 * H * H + 3 * H) + 8 * N * K)
+    return _bound_ms(ops, nbytes, peak)
 
 
 def train_kernel_phase(nb):
@@ -1061,6 +1079,177 @@ def train_kernel_phase(nb):
             ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
         del got, again, want, out_p, x_p
     return rows, fwd_ms
+
+
+# bf16 outputs: four bf16 steps of the largest value (2^-6 of it): the two
+# sides sum in other orders, so a value near a rounding boundary may round to
+# its neighbour on one side and move what it feeds by one step of itself.
+BF16_TOL = 2.0 ** -6
+# The bf16 RBF's fp32 sums of bf16 products: a bin that rounds apart moves a
+# sum by 2^-8 of one term.
+RBF_BF16_TOL = 2.0 ** -8
+
+
+def bf16_kernel_phase(nb):
+    """The bf16 variants of rows 3, 4, 9, 10, 11 and 12 against their plain
+    bf16 versions on the card at the training shape (B=8, L=768, K=32,
+    H=128; 6144 nodes, 196,608 edges), TF32 off: the RBF projection and its
+    weight gradient (relative error < 2^-8; two weight-gradient launches
+    bitwise equal), the message table in three modes with its saved ``x``
+    and its backward (< 2^-6 on every output; two backward launches bitwise
+    equal except the table gradient, whose spread from atomics is printed)
+    and the fused node (encoder, decoder) and edge updates of ``eval_step``
+    (< 2^-6). Bounds at the bf16 tensor-core peak with bf16 bytes. Returns
+    the rows of the kernels JSON line."""
+    import torch
+    from na_mpnn_tpu_torch.models import init_params
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.models.features import build_augmented_atoms
+    from na_mpnn_tpu_torch.models.modules import cast_tree
+    from na_mpnn_tpu_torch.ops import fused_layers as fl
+    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_classed
+    from na_mpnn_tpu_torch.train.trainer import to_device
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    cfg = ModelConfig()
+    H, K = cfg.hidden_dim, cfg.k_neighbors
+    batch = to_device(nb, dev)
+    X_aug, X_m_aug, X_ref = build_augmented_atoms(
+        batch["X"], batch["X_m"], batch, cfg)
+    mask = batch["mask"].float()
+    B, L = mask.shape
+    N = B * L
+    _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+
+    def row(name, got, want, tol, call, plain_call, bound, iters, note=""):
+        err = _rel_err(got.float(), want.float())
+        if not err < tol:
+            raise AssertionError(f"{name}: relative error {err:.3g} (tol {tol:.3g})")
+        ms = _sync_time(call, iters)
+        plain_ms = _sync_time(plain_call, 2)
+        print(f"{name} B={B} L={L} K={K} H={H}: rel err {err:.3g} (< {tol:.3g}){note}, "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by "
+              f"{bound[1]} at the bf16 peak, {ms / bound[0]:.1f}x)", flush=True)
+        rows[name] = dict(max_abs_err=float((got.float() - want.float()).abs().max()),
+                          ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                          bound_by=bound[1])
+
+    # rows 3 and 4: the fold-scaled weight, as the model passes it
+    params = init_params(1, cfg, device=dev)
+    W = rbf_classed.fold_scaled(
+        params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:])
+    rbf_args = (X_aug, X_m_aug, E_idx, W)
+    row("rbf_classed_bf16", rbf_classed.rbf_classed_bf16_cuda(*rbf_args),
+        rbf_classed.rbf_classed_bf16_plain(*rbf_args), RBF_BF16_TOL,
+        lambda: rbf_classed.rbf_classed_bf16_cuda(*rbf_args),
+        lambda: rbf_classed.rbf_classed_bf16_plain(*rbf_args),
+        _rbf_bound(X_aug, X_m_aug, E_idx, H, w_bytes=2, peak=PEAK_BF16_FLOPS), 5)
+    g = torch.randn((B, L, K, H), generator=gen, device=dev)
+    dw_args = (X_aug, X_m_aug, E_idx, g)
+    dw_k = rbf_classed.rbf_classed_dw_bf16_cuda(*dw_args)
+    if not torch.equal(dw_k, rbf_classed.rbf_classed_dw_bf16_cuda(*dw_args)):
+        raise AssertionError("rbf_classed_dw_bf16: two launches differ")
+    row("rbf_classed_dw_bf16", dw_k, rbf_classed.rbf_classed_dw_bf16_plain(*dw_args),
+        RBF_BF16_TOL, lambda: rbf_classed.rbf_classed_dw_bf16_cuda(*dw_args),
+        lambda: rbf_classed.rbf_classed_dw_bf16_plain(*dw_args),
+        _rbf_bound(X_aug, X_m_aug, E_idx, H, peak=PEAK_BF16_FLOPS), 5,
+        ", two launches bitwise equal")
+    del dw_k, g, params
+
+    # rows 9 and 10: every operand bf16
+    eidx2 = E_idx.reshape(-1).contiguous()
+    h_V2 = torch.randn((N, H), generator=gen, device=dev).to(bf)
+    h_E2 = torch.randn((N * K, H), generator=gen, device=dev).to(bf)
+    m_att = (torch.rand((N * K,), generator=gen, device=dev) > 0.1).to(bf)
+    m1d = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).to(bf)
+    mbw = m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5).to(bf)
+    ones = torch.ones_like(m_att)
+    names = ("g_hV", "g_ein", "g_table", "dwa", "dwb", "db1", "dw2", "db2",
+             "dw3", "db3")
+    for mode, ma, mb in (("enc_node", m_att, ones), ("enc_edge", ones, ones),
+                         ("dec", m1d, mbw)):
+        C = 2 * H if mode == "dec" else H
+        table = torch.randn((N, C), generator=gen, device=dev).to(bf)
+        wa, wb, w2, w3 = (
+            (torch.randn((H, H), generator=gen, device=dev) / H ** 0.5).to(bf)
+            for _ in range(4))
+        b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev).to(bf)
+                      for _ in range(3))
+        args = (mode, h_V2, h_E2, table, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3)
+        out_k, x_k = mk.message_table_cuda(*args, K=K, L=L, save_x=True)
+        out_p, x_p = mk.message_table_plain(*args, K=K, L=L, save_x=True)
+        err_x = _rel_err(x_k.float(), x_p.float())
+        if not err_x < BF16_TOL:
+            raise AssertionError(f"message_table {mode} bf16 x: rel err {err_x:.3g}")
+        row(f"message_table_{mode}_bf16", out_k, out_p, BF16_TOL,
+            lambda: mk.message_table_cuda(*args, K=K, L=L, save_x=True),
+            lambda: mk.message_table_plain(*args, K=K, L=L, save_x=True),
+            _message_table_bound(mode, N, K, H, C, save_x=True, esize=2,
+                                 peak=PEAK_BF16_FLOPS), 10,
+            f" (x {err_x:.3g})")
+        g_rows = N * K if mode == "enc_edge" else N
+        g = torch.randn((g_rows, H), generator=gen, device=dev).to(bf)
+        bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
+        got = [t.clone() for t in mk.message_table_bwd_cuda(*bargs, K=K, L=L)]
+        again = mk.message_table_bwd_cuda(*bargs, K=K, L=L)
+        want = mk.message_table_bwd_plain(*bargs, K=K, L=L)
+        errs = {}
+        for name, a, b, c in zip(names, got, want, again):
+            errs[name] = _rel_err(a.float(), b.float())
+            if not errs[name] < BF16_TOL:
+                raise AssertionError(f"message_table_bwd {mode} bf16 {name}: "
+                                     f"rel err {errs[name]:.3g}")
+            if name != "g_table" and not torch.equal(a, c):
+                raise AssertionError(f"message_table_bwd {mode} bf16 {name}: two "
+                                     "launches differ")
+        spread = float((got[2].float() - again[2].float()).abs().max())
+        worst = max(errs, key=errs.get)
+        ms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L), 10)
+        plain_ms = _sync_time(lambda: mk.message_table_bwd_plain(*bargs, K=K, L=L), 3)
+        bound = _bwd_bound(mode, N, K, H, C, g_rows, esize=2, peak=PEAK_BF16_FLOPS)
+        print(f"message_table_bwd_{mode}_bf16 N={N} K={K} H={H}: worst rel err "
+              f"{errs[worst]:.3g} ({worst}; < {BF16_TOL:.3g}); two launches bitwise "
+              f"equal but for g_table (spread {spread:.3g} of max "
+              f"{float(got[2].float().abs().max()):.3g}); {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} at the "
+              f"bf16 peak, {ms / bound[0]:.1f}x)", flush=True)
+        rows[f"message_table_bwd_{mode}_bf16"] = dict(
+            max_abs_err=max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(got, want)),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+        del got, again, want, out_k, out_p, x_k, x_p
+
+    # rows 11 and 12 at eval_step's shape, bf16 parameters as the model casts them
+    pe, pd = (cast_tree(p, bf) for p in _random_layer(cfg, 6, dev))
+    mask2 = mask.reshape(-1).contiguous()
+    nb_mask = torch.gather(mask, 1, E_idx.reshape(B, -1)).reshape(-1)
+    m_att = (mask2.repeat_interleave(K) * nb_mask).to(bf).contiguous()
+    m1d = mask2.repeat_interleave(K).to(bf).contiguous()
+    mbw = (m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5).to(bf))
+    mask2 = mask2.to(bf)
+    tab = torch.randn((N, H), generator=gen, device=dev).to(bf)
+    tab2 = torch.randn((N, 2 * H), generator=gen, device=dev).to(bf)
+    cases = {
+        "fused_node_update_enc_bf16": (
+            lambda f: f("enc", pe, h_V2, h_E2, tab, eidx2, m_att, None, mask2,
+                        K=K, L=L),
+            fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", H),
+        "fused_node_update_dec_bf16": (
+            lambda f: f("dec", pd, h_V2, h_E2, tab2, eidx2, m1d, mbw, mask2,
+                        K=K, L=L),
+            fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", 2 * H),
+        "fused_edge_update_bf16": (
+            lambda f: f(pe, h_V2, h_E2, tab, eidx2, K=K, L=L),
+            fl.fused_edge_update_cuda, fl.fused_edge_update_plain, "edge", H),
+    }
+    for name, (call, cuda, plain, kind, C) in cases.items():
+        row(name, call(cuda), call(plain), BF16_TOL, lambda: call(cuda),
+            lambda: call(plain),
+            _fused_bound(kind, N, K, H, C, esize=2, peak=PEAK_BF16_FLOPS), 10)
+    return rows
 
 
 MLP_FLAGS = ((False, True), (True, True), (True, False), (False, False))
@@ -1202,10 +1391,12 @@ def _train_steps(trainer, nb, want, tag, steps=5, generator=None):
 
 
 def _grads_against_plain(tag, kernel_trainer, plain_trainer, batch, generator,
-                         want):
+                         want, loss_tol=1e-5, grad_tol=1e-4):
     """One step's loss and gradients with the kernels against
     ``kernels="torch"`` (both trainers hold the same parameters; the same
-    generator seed, or the mesh's row-keyed streams)."""
+    generator seed, or the mesh's row-keyed streams): the loss within
+    ``loss_tol`` relative, each gradient leaf within ``grad_tol`` of its
+    largest entry."""
     import torch
     from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
 
@@ -1229,17 +1420,18 @@ def _grads_against_plain(tag, kernel_trainer, plain_trainer, batch, generator,
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{tag}: a gradient is not finite")
         worst = max(worst, float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30))
-    if not (rel < 1e-5 and worst < 1e-4):
+    if not (rel < loss_tol and worst < grad_tol):
         raise AssertionError(f"{tag} kernels vs plain step: loss rel {rel:.3g}, "
                              f"worst gradient leaf {worst:.3g}")
     print(f"{tag} step kernels vs kernels=\"torch\" on the card: loss "
-          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, rel {rel:.3g} (< 1e-5); "
-          f"worst gradient leaf {worst:.3g} of its max (< 1e-4)", flush=True)
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, rel {rel:.3g} (< {loss_tol:g}); "
+          f"worst gradient leaf {worst:.3g} of its max (< {grad_tol:g})", flush=True)
 
 
 def training_phase(nb, fwd_ms, rows):
     """The full-width Trainer on the card: 5 train steps and 1 eval step;
-    returns the launches of the whole run and the median step ms."""
+    returns the launches of the whole run, the median step ms and the peak
+    bytes of the steps."""
     import dataclasses
 
     import torch
@@ -1290,7 +1482,76 @@ def training_phase(nb, fwd_ms, rows):
     plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
     plain.restore(path)
     _grads_against_plain("training", trainer, plain, to_device(nb, dev), 7, want)
-    return total, median
+    return total, median, peak
+
+
+def _expected_bf16_launches(cfg):
+    """A bf16 training step's launches: kNN (fp32 coordinates), then the bf16
+    variants only."""
+    return {k if k == "knn" else k + "_bf16": n
+            for k, n in _expected_train_launches(cfg).items()}
+
+
+def bf16_training_phase(nb, fp32_ms, fp32_peak):
+    """The bf16 trunk on the card: the Trainer of ``model_config_from_params({})``
+    (the JAX default, ``MIXED_PRECISION`` 1; dropout 0.1, noise 0.1 A) on the
+    B=8 x L=768 batch: 5 train steps with the launches of every step held to
+    kNN 1, RBF 1, RBF dW 1, message table 9, its backward 9, all bf16
+    variants (no fp32 variant of rows 3, 4, 9, 10), ms per step and peak
+    memory against the fp32 step of this run; one eval step (fused route:
+    3 + 3 + 3 bf16 launches); the checkpoint's arrays fp32; one step's loss
+    and gradients with the kernels against ``kernels="torch"`` (bf16 plain
+    versions) on the card: loss within 1e-3 relative, each gradient leaf
+    within 3e-2 of its largest entry (the plain path's backward is
+    autograd's, whose rounding points differ from the kernels'). Returns
+    the launches."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES
+    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
+                                                 to_device)
+
+    dev = torch.device("cuda")
+    cfg = model_config_from_params({})
+    if cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"the default config's compute_dtype is {cfg.compute_dtype}")
+    trainer = Trainer(cfg, seed=0, device=dev)
+    want = _expected_bf16_launches(cfg)
+    step_ms, peak, _ = _train_steps(trainer, nb, want, "bf16 train",
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+    before = dict(LAUNCHES)
+    e = trainer.eval_step(nb)
+    lpt = e["loss_per_token"]
+    if lpt.shape != (8, 768) or not bool(torch.isfinite(lpt).all()):
+        raise AssertionError(f"bf16 eval step: loss_per_token {tuple(lpt.shape)}")
+    eval_counts = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                   if v - before.get(k, 0)}
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_decoder_layers
+    eval_want = {"knn": 1, "rbf_classed_bf16": 1, "fused_node_update_enc_bf16": n_enc,
+                 "fused_edge_update_bf16": n_enc, "fused_node_update_dec_bf16": n_dec}
+    if eval_counts != eval_want:
+        raise AssertionError(f"bf16 eval step launches {eval_counts}, want {eval_want}")
+    total = dict(LAUNCHES)
+    median = float(np.median(step_ms[1:]))
+    print(f"bf16 training B=8 L=768 K=32 H=128: {median:.2f} ms per train step "
+          f"(median of steps 2-5, host clock, synchronised; all: "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)}) against fp32 {fp32_ms:.2f} ms "
+          f"({median / fp32_ms:.3f}x); peak memory {peak / 2**30:.3f} GiB against "
+          f"fp32 {fp32_peak / 2**30:.3f} GiB; launches per step {want}; eval step "
+          f"launches {eval_counts}", flush=True)
+    path = os.path.join(OUT, "train_bf16.npz")
+    trainer.save(path, epoch=1, save_step=0)
+    with np.load(path) as z:
+        wide = [k for k in z.files if np.issubdtype(z[k].dtype, np.floating)
+                and z[k].dtype != np.float32]
+    if wide:
+        raise AssertionError(f"bf16 checkpoint: arrays not fp32: {wide[:5]}")
+    plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
+    plain.restore(path)
+    _grads_against_plain("bf16 training", trainer, plain, to_device(nb, dev), 7, want,
+                         loss_tol=1e-3, grad_tol=3e-2)
+    return total
 
 
 UNBUCKETED_L = 750
@@ -1384,6 +1645,35 @@ def _trace_summary(path, steps):
     return (t1 - t0) / 1e3 / steps, busy / 1e3 / steps, top
 
 
+def _print_profile(profile, tag):
+    window, busy, top = _trace_summary(os.path.join(profile, "train_steps.json"), 3)
+    print(f"{tag} profile of 3 train steps (torch.profiler, CUDA activity): "
+          f"{window:.2f} ms per step, device busy {busy:.2f} ms "
+          f"({100 * busy / window:.1f}%), idle {100 * (1 - busy / window):.1f}%; "
+          f"top device operations per step:", flush=True)
+    for name, (n, us) in top:
+        print(f"  {us / 1e3 / 3:8.3f} ms  {n / 3:5.1f}x  {name[:90]}", flush=True)
+
+
+def _loop_epochs(run):
+    """The log lines of a ``run_training`` folder: (log.jsonl records, the
+    printed per-epoch summaries)."""
+    with open(os.path.join(run, "log.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    with open(os.path.join(run, "log.txt")) as f:
+        text = f.read().splitlines()[1:]
+    per_epoch = []
+    for r, line in zip(logs, text):
+        fields = dict(kv.split(": ") for kv in line.split(", ")[2:4])
+        train_s = float(fields["train_time"])
+        per_epoch.append(f"epoch {r['epoch']}: train {train_s:.2f} s, valid "
+                         f"{float(fields['valid_time']):.2f} s, {r['steps']} steps, "
+                         f"{1e3 * train_s / r['steps']:.1f} ms per step, loader "
+                         f"wait {r['loader_wait_s']:.3f} s, train loss "
+                         f"{r['train_loss']:.4f}")
+    return logs, text, per_epoch
+
+
 def training_loop_phase():
     """The training loop as a user runs it: 16 synthetic protein-DNA PDBs of
     300-700 residues under ``build/chip_smoke/train_data``, the port's
@@ -1394,7 +1684,7 @@ def training_loop_phase():
     the resumed epoch starts at the saved step, and that no bucketed batch
     launched ``message_mlp``. Prints seconds per epoch, ms per step inside
     the loop, the loader's wait and the profile's top device operations.
-    Returns the launches."""
+    Returns the launches and the training CSV."""
     import shutil
 
     import torch
@@ -1431,10 +1721,7 @@ def training_loop_phase():
     for name in ("log.txt", "log.jsonl", "last.npz"):
         if not os.path.exists(os.path.join(run, name)):
             raise AssertionError(f"training loop: {name} missing")
-    with open(os.path.join(run, "log.jsonl")) as f:
-        logs = [json.loads(line) for line in f]
-    with open(os.path.join(run, "log.txt")) as f:
-        text = f.read().splitlines()[1:]
+    logs, text, per_epoch = _loop_epochs(run)
     if [r["epoch"] for r in logs] != [1, 2, 3] or len(text) != 3:
         raise AssertionError(f"training loop: epochs logged {[r['epoch'] for r in logs]}")
     if logs[2]["step"] - logs[2]["steps"] != logs[1]["step"]:
@@ -1446,26 +1733,55 @@ def training_loop_phase():
         raise AssertionError("training loop: a logged loss is not finite")
     if any(k.startswith("message_mlp") for k in counts) or not counts.get("knn"):
         raise AssertionError(f"training loop on bucketed batches: launches {counts}")
-    per_epoch = []
-    for r, line in zip(logs, text):
-        fields = dict(kv.split(": ") for kv in line.split(", ")[2:4])
-        train_s = float(fields["train_time"])
-        per_epoch.append(f"epoch {r['epoch']}: train {train_s:.2f} s, valid "
-                         f"{float(fields['valid_time']):.2f} s, {r['steps']} steps, "
-                         f"{1e3 * train_s / r['steps']:.1f} ms per step, loader "
-                         f"wait {r['loader_wait_s']:.3f} s, train loss "
-                         f"{r['train_loss']:.4f}")
     print(f"training loop (16 structures of 300-700 residues, preprocessed in "
           f"{prep_s:.1f} s; run_training 2 epochs {first_s:.1f} s, resumed 1 epoch "
           f"{resume_s:.1f} s): " + "; ".join(per_epoch) + f"; launches {counts}",
           flush=True)
-    window, busy, top = _trace_summary(os.path.join(profile, "train_steps.json"), 3)
-    print(f"profile of 3 train steps (torch.profiler, CUDA activity): {window:.2f} ms "
-          f"per step, device busy {busy:.2f} ms ({100 * busy / window:.1f}%), idle "
-          f"{100 * (1 - busy / window):.1f}%; top device operations per step:",
+    _print_profile(profile, "fp32 loop")
+    return counts, csv_path
+
+
+def bf16_loop_phase(csv_path):
+    """``run_training`` on the card from the fp32 loop's training set with a
+    config that omits ``MIXED_PRECISION`` (the bf16 trunk): 1 epoch, 2
+    loader workers, a profiler capture of 3 steps. Checks the log, that only
+    bf16 variants of rows 3, 4, 9 and 10 launched (no fp32 variant, no
+    ``message_mlp``), and prints the epoch and the profile's top device
+    operations. Returns the launches."""
+    import shutil
+
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.train.trainer import run_training
+
+    run = os.path.join(OUT, "train_loop_bf16")
+    if os.path.exists(run):
+        shutil.rmtree(run)
+    profile = os.path.join(run, "profile")
+    cfg = training_config(csv_path, run, NUM_WORKERS=2, PROFILE_DIR=profile)
+    del cfg["MIXED_PRECISION"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    trainer = run_training(cfg, max_epochs=1, device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.time() - t0
+    counts = {k: v for k, v in LAUNCHES.items() if v}
+    if trainer.cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"bf16 loop: compute_dtype {trainer.cfg.compute_dtype}")
+    fp32_rows = ("rbf_classed", "rbf_classed_dw", "message_table_enc_node",
+                 "message_table_enc_edge", "message_table_dec",
+                 "message_table_bwd_enc_node", "message_table_bwd_enc_edge",
+                 "message_table_bwd_dec", "message_mlp", "message_mlp_bwd")
+    if any(counts.get(k) for k in fp32_rows) or not counts.get("rbf_classed_dw_bf16"):
+        raise AssertionError(f"bf16 loop: launches {counts}")
+    logs, text, per_epoch = _loop_epochs(run)
+    if [r["epoch"] for r in logs] != [1] or not np.isfinite(logs[0]["train_loss"]):
+        raise AssertionError(f"bf16 loop: log {logs}")
+    print(f"bf16 training loop (the fp32 loop's 16 structures; run_training 1 epoch "
+          f"{loop_s:.1f} s): " + "; ".join(per_epoch) + f"; launches {counts}",
           flush=True)
-    for name, (n, us) in top:
-        print(f"  {us / 1e3 / 3:8.3f} ms  {n / 3:5.1f}x  {name[:90]}", flush=True)
+    _print_profile(profile, "bf16 loop")
     return counts
 
 
@@ -1837,10 +2153,12 @@ def main():
     nb = training_batch()
     train_rows, fwd_ms = train_kernel_phase(nb)
     rows.update(train_rows)
+    rows.update(bf16_kernel_phase(nb))
     rows.update(message_mlp_phase())
     rows.update(mesh_kernel_phase(nb))
-    counts, classed_ms = training_phase(nb, fwd_ms, rows)
+    counts, classed_ms, classed_peak = training_phase(nb, fwd_ms, rows)
     add(counts)
+    add(bf16_training_phase(nb, classed_ms, classed_peak))
     counts, unbucketed_ms = unbucketed_training_phase(unbucketed_batch())
     add(counts)
     print(f"unbucketed (L=750, gathered decoder) against bucketed (L=768) training "
@@ -1850,7 +2168,9 @@ def main():
     print(f"dense against classed training step: {dense_ms:.2f} ms vs "
           f"{classed_ms:.2f} ms ({dense_ms / classed_ms:.3f}x)", flush=True)
     add(mesh_phase(nb))
-    add(training_loop_phase())
+    counts, csv_path = training_loop_phase()
+    add(counts)
+    add(bf16_loop_phase(csv_path))
     sources = {
         "knn": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:106"),
         "knn_qk": ("na_mpnn_tpu_torch/csrc/knn.cu", "na_mpnn_tpu/ops/knn.py:54"),
@@ -1878,6 +2198,11 @@ def main():
     for name, line in (("message_mlp", 187), ("message_mlp_bwd", 212)):
         sources[name] = (f"na_mpnn_tpu_torch/csrc/{name}.cu",
                          f"na_mpnn_tpu/ops/message_kernels.py:{line}")
+    # the bf16 variants: the same sources' *_bf16 entries, the same TPU
+    # kernels' compute_dtype=bfloat16 branch
+    for name in [n for n in sources if n.startswith(("rbf_classed", "message_table",
+                                                     "fused_"))]:
+        sources[name + "_bf16"] = sources[name]
     kernels = []
     for name, (source, replaces) in sources.items():
         if launches.get(name, 0) < 1:

@@ -2,10 +2,12 @@
 [--device cuda|cpu]``.
 
 The JSON schema is the JAX package's (the reference training configs plus
-``SEED``, ``MESH_GRAPH_AXIS``, ``NUM_WORKERS``, ``PROFILE_DIR``); the port
-trains in fp32 and needs ``MIXED_PRECISION: 0``. Runs on the card unless
-``--device cpu`` is given. Under ``torchrun`` every process trains one rank
-of a ``(WORLD_SIZE / MESH_GRAPH_AXIS, MESH_GRAPH_AXIS)`` mesh.
+``SEED``, ``MESH_GRAPH_AXIS``, ``NUM_WORKERS``, ``PROFILE_DIR``).
+``MIXED_PRECISION`` defaults to 1, as in the JAX package: the bf16 trunk on
+one device; ``MIXED_PRECISION: 0`` trains in fp32, and a mesh needs it.
+Runs on the card unless ``--device cpu`` is given. Under ``torchrun`` every
+process trains one rank of a ``(WORLD_SIZE / MESH_GRAPH_AXIS,
+MESH_GRAPH_AXIS)`` mesh.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-// Fused inference layer updates for Hopper (sm_90a), fp32: the whole node
-// update of an encoder or parallel-decoder layer, and the encoder's edge
-// update, each in one launch.
+// Fused inference layer updates for Hopper (sm_90a): the whole node update
+// of an encoder or parallel-decoder layer, and the encoder's edge update,
+// each in one launch; fp32, and bf16 for the bf16 trunk.
 //
 // Replaces the TPU kernels na_mpnn_tpu/ops/fused_layers.py::
 // fused_node_update (:152, _node_update_kernel) and fused_edge_update (:187,
@@ -22,6 +22,13 @@
 // edge update (enc): out[e] = LN3(e_in[e] + m)               -> [N*K, H]
 // LayerNorm: eps 1e-5, biased variance, statistics in fp32, two passes over
 // the row held in registers.
+//
+// bf16 (fused_node_update_bf16, fused_edge_update_bf16; the TPU kernels'
+// bf16 branch, fused_layers.py:47-59, :80-117): operands, parameters and
+// outputs bf16; every product on bf16-rounded operands (gelu(x), gelu(y),
+// LN1's output as the FFN input, the FFN hidden) summed in fp32; the message
+// sum, both LayerNorms with their statistics and residuals in fp32; the
+// output rounded once.
 //
 // What bounds it on the card: operations. The message MLP is three H x H
 // products per edge (98 kFLOP at H = 128) against about 1 KB per edge moved;
@@ -48,33 +55,35 @@ namespace {
 
 constexpr float kLnEps = 1e-5f;
 
+template <typename T>
 struct Msg {
-  const float* h_V;
-  const float* e_in;
-  const float* table;
+  const T* h_V;
+  const T* e_in;
+  const T* table;
   const long long* eidx;
-  const float* m_att;
-  const float* mbw;
-  const float* wa;
-  const float* wb;
-  const float* b1;
-  const float* w2;
-  const float* b2;
-  const float* w3;
-  const float* b3;
+  const T* m_att;
+  const T* mbw;
+  const T* wa;
+  const T* wb;
+  const T* b1;
+  const T* w2;
+  const T* b2;
+  const T* w3;
+  const T* b3;
   int N, K, L, Lk;
 };
 
+template <typename T>
 struct Tail {
-  const float* mask;
-  const float* n1s;
-  const float* n1b;
-  const float* w_in;
-  const float* b_in;
-  const float* w_out;
-  const float* b_out;
-  const float* n2s;
-  const float* n2b;
+  const T* mask;
+  const T* n1s;
+  const T* n1b;
+  const T* w_in;
+  const T* b_in;
+  const T* w_out;
+  const T* b_out;
+  const T* n2s;
+  const T* n2b;
 };
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -102,15 +111,15 @@ __device__ __forceinline__ void ln_stats(const float (&v)[CPT], float& mean,
   rstd = rsqrtf(warp_sum(q) * inv + kLnEps);
 }
 
-// h_V @ Wa for T nodes: AI[t][h] from HV[t][:] (shared memory).
-template <int H>
+// h_V @ Wa for n nodes: AI[t][h] from HV[t][:] (shared memory).
+template <int H, typename T>
 __device__ __forceinline__ void node_products(const float* HV,
-                                              const float* __restrict__ wa,
-                                              float* AI, int T) {
-  for (int idx = threadIdx.x; idx < T * H; idx += kThreads) {
+                                              const T* __restrict__ wa,
+                                              float* AI, int n) {
+  for (int idx = threadIdx.x; idx < n * H; idx += kThreads) {
     const int t = idx / H, h = idx % H;
     float s = 0.f;
-    for (int k = 0; k < H; ++k) s = fmaf(HV[t * H + k], __ldg(wa + k * H + h), s);
+    for (int k = 0; k < H; ++k) s = fmaf(HV[t * H + k], ldf(wa + k * H + h), s);
     AI[idx] = s;
   }
 }
@@ -120,8 +129,8 @@ __device__ __forceinline__ void node_products(const float* HV,
 // and AI the nodes' h_V @ Wa; both are published by the first barrier of
 // the first product. On return acc holds m - b3 of rows ty + 8i (columns
 // tx * CPT + c), and Xs has been reused for the activations.
-template <int H>
-__device__ __forceinline__ void message_chunk(const Msg& p, int mode, int n0,
+template <int H, typename T>
+__device__ __forceinline__ void message_chunk(const Msg<T>& p, int mode, int n0,
                                               int rows, const float* AI,
                                               float* Xs, float* Ws,
                                               float (&acc)[8][H / 32]) {
@@ -145,13 +154,14 @@ __device__ __forceinline__ void message_chunk(const Msg& p, int mode, int n0,
       const int h = tx * CPT + c;
       float x;
       if (mode == kDec) {
-        const float m1 = p.m_att[e], mb = p.mbw[e];
-        const float* tr = p.table + grow * 2 * H;
-        x = AI[t * H + h] + m1 * acc[i][c] + mb * tr[h] + m1 * tr[H + h] + p.b1[h];
+        const float m1 = to_f(p.m_att[e]), mb = to_f(p.mbw[e]);
+        const T* tr = p.table + grow * 2 * H;
+        x = AI[t * H + h] + m1 * acc[i][c] + mb * to_f(tr[h]) + m1 * to_f(tr[H + h]) +
+            to_f(p.b1[h]);
       } else {
-        x = AI[t * H + h] + acc[i][c] + p.table[grow * H + h] + p.b1[h];
+        x = AI[t * H + h] + acc[i][c] + to_f(p.table[grow * H + h]) + to_f(p.b1[h]);
       }
-      Xs[r * H + h] = gelu(x);
+      Xs[r * H + h] = rnd<T>(gelu(x));
     }
   }
   __syncthreads();
@@ -162,16 +172,16 @@ __device__ __forceinline__ void message_chunk(const Msg& p, int mode, int n0,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int h = tx * CPT + c;
-      Xs[r * H + h] = gelu(acc[i][c] + p.b2[h]);
+      Xs[r * H + h] = rnd<T>(gelu(acc[i][c] + to_f(p.b2[h])));
     }
   }
   __syncthreads();
   gemm<H>(Xs, p.w3, Ws, acc);
 }
 
-template <int H, int TN>
+template <int H, int TN, typename T>
 __global__ void __launch_bounds__(kThreads)
-node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
+node_update_kernel(Msg<T> p, Tail<T> q, T* __restrict__ out, int mode, int Tc) {
   extern __shared__ __align__(16) float smem[];
   constexpr int CPT = H / 32;
   constexpr int H4 = 4 * H;
@@ -186,7 +196,7 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
   const int nodes = min(TN, p.N - nb);
 
   for (int idx = tid; idx < TN * H; idx += kThreads) {
-    HV[idx] = idx < nodes * H ? p.h_V[(size_t)nb * H + idx] : 0.f;
+    HV[idx] = idx < nodes * H ? to_f(p.h_V[(size_t)nb * H + idx]) : 0.f;
     DH[idx] = 0.f;
   }
   __syncthreads();
@@ -197,16 +207,16 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
     const int cn = min(Tc, nodes - c0), rows = cn * p.K;
     const size_t e0 = (size_t)(nb + c0) * p.K;
     for (int idx = tid; idx < kRows * H; idx += kThreads)
-      Xs[idx] = idx < rows * H ? p.e_in[e0 * H + idx] : 0.f;
+      Xs[idx] = idx < rows * H ? to_f(p.e_in[e0 * H + idx]) : 0.f;
     message_chunk<H>(p, mode, nb + c0, rows, AI + c0 * H, Xs, Ws, acc);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + 8 * i;
-      const float w = r >= rows ? 0.f : (mode == kEncNode ? p.m_att[e0 + r] : 1.f);
+      const float w = r >= rows ? 0.f : (mode == kEncNode ? to_f(p.m_att[e0 + r]) : 1.f);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int h = tx * CPT + c;
-        Xs[r * H + h] = (acc[i][c] + p.b3[h]) * w;
+        Xs[r * H + h] = (acc[i][c] + to_f(p.b3[h])) * w;
       }
     }
     __syncthreads();
@@ -228,13 +238,14 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int h = tx + 32 * c;
-      DH[t * H + h] = (v[c] - mean) * rstd * q.n1s[h] + q.n1b[h];
+      DH[t * H + h] = (v[c] - mean) * rstd * to_f(q.n1s[h]) + to_f(q.n1b[h]);
     }
   }
   __syncthreads();
 
   // FFN hidden F = gelu(h @ W_in + b_in): thread owns columns tid + 256 j,
-  // every node of the block; W_in is read once per block.
+  // every node of the block; W_in is read once per block. h enters the
+  // product rounded to the operand type, F leaves it so.
   {
     constexpr int CF = (H4 + kThreads - 1) / kThreads;
     float f[TN][CF];
@@ -248,11 +259,11 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
 #pragma unroll
       for (int j = 0; j < CF; ++j) {
         const int col = tid + j * kThreads;
-        w[j] = col < H4 ? __ldg(q.w_in + (size_t)k * H4 + col) : 0.f;
+        w[j] = col < H4 ? ldf(q.w_in + (size_t)k * H4 + col) : 0.f;
       }
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
-        const float a = DH[t * H + k];
+        const float a = rnd<T>(DH[t * H + k]);
 #pragma unroll
         for (int j = 0; j < CF; ++j) f[t][j] = fmaf(a, w[j], f[t][j]);
       }
@@ -261,9 +272,9 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
     for (int j = 0; j < CF; ++j) {
       const int col = tid + j * kThreads;
       if (col >= H4) continue;
-      const float b = q.b_in[col];
+      const float b = to_f(q.b_in[col]);
 #pragma unroll
-      for (int t = 0; t < TN; ++t) F[t * H4 + col] = gelu(f[t][j] + b);
+      for (int t = 0; t < TN; ++t) F[t * H4 + col] = rnd<T>(gelu(f[t][j] + b));
     }
   }
   __syncthreads();
@@ -278,7 +289,7 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
     for (int i = 0; i < NPT; ++i) o[i] = 0.f;
 #pragma unroll 4
     for (int j = 0; j < H4; ++j) {
-      const float w = __ldg(q.w_out + (size_t)j * H + h);
+      const float w = ldf(q.w_out + (size_t)j * H + h);
 #pragma unroll
       for (int i = 0; i < NPT; ++i) {
         const int t = g + G * i;
@@ -288,7 +299,7 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
 #pragma unroll
     for (int i = 0; i < NPT; ++i) {
       const int t = g + G * i;
-      if (t < TN) AI[t * H + h] = o[i] + q.b_out[h];
+      if (t < TN) AI[t * H + h] = o[i] + to_f(q.b_out[h]);
     }
   }
   __syncthreads();
@@ -299,38 +310,39 @@ node_update_kernel(Msg p, Tail q, float* __restrict__ out, int mode, int Tc) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) v[c] = DH[t * H + tx + 32 * c] + AI[t * H + tx + 32 * c];
     ln_stats<CPT>(v, mean, rstd);
-    const float m = q.mask[nb + t];
+    const float m = to_f(q.mask[nb + t]);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int h = tx + 32 * c;
-      out[(size_t)(nb + t) * H + h] = m * ((v[c] - mean) * rstd * q.n2s[h] + q.n2b[h]);
+      out[(size_t)(nb + t) * H + h] = from_f<T>(
+          m * ((v[c] - mean) * rstd * to_f(q.n2s[h]) + to_f(q.n2b[h])));
     }
   }
 }
 
-template <int H>
+template <int H, typename T>
 __global__ void __launch_bounds__(kThreads)
-edge_update_kernel(Msg p, const float* __restrict__ n3s,
-                   const float* __restrict__ n3b, float* __restrict__ out) {
+edge_update_kernel(Msg<T> p, const T* __restrict__ n3s,
+                   const T* __restrict__ n3b, T* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   constexpr int CPT = H / 32;
-  const int T = kRows / p.K;
+  const int tn = kRows / p.K;
   float* Xs = smem;             // [kRows][H]
   float* Ws = Xs + kRows * H;   // [kKC][H]
-  float* AI = Ws + kKC * H;     // [T][H] h_V @ Wa
-  float* HV = AI + T * H;       // [T][H] h_V
+  float* AI = Ws + kKC * H;     // [tn][H] h_V @ Wa
+  float* HV = AI + tn * H;      // [tn][H] h_V
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int n0 = blockIdx.x * T;
-  const int nodes = min(T, p.N - n0);
+  const int n0 = blockIdx.x * tn;
+  const int nodes = min(tn, p.N - n0);
   const int rows = nodes * p.K;
   const size_t e0 = (size_t)n0 * p.K;
 
-  for (int idx = tid; idx < T * H; idx += kThreads)
-    HV[idx] = idx < nodes * H ? p.h_V[(size_t)n0 * H + idx] : 0.f;
+  for (int idx = tid; idx < tn * H; idx += kThreads)
+    HV[idx] = idx < nodes * H ? to_f(p.h_V[(size_t)n0 * H + idx]) : 0.f;
   for (int idx = tid; idx < kRows * H; idx += kThreads)
-    Xs[idx] = idx < rows * H ? p.e_in[e0 * H + idx] : 0.f;
+    Xs[idx] = idx < rows * H ? to_f(p.e_in[e0 * H + idx]) : 0.f;
   __syncthreads();
-  node_products<H>(HV, p.wa, AI, T);
+  node_products<H>(HV, p.wa, AI, tn);
 
   float acc[8][CPT];
   message_chunk<H>(p, kEncEdge, n0, rows, AI, Xs, Ws, acc);
@@ -346,33 +358,33 @@ edge_update_kernel(Msg p, const float* __restrict__ n3s,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int h = tx * CPT + c;
-      v[c] = p.e_in[e * H + h] + acc[i][c] + p.b3[h];
+      v[c] = to_f(p.e_in[e * H + h]) + acc[i][c] + to_f(p.b3[h]);
     }
     ln_stats<CPT>(v, mean, rstd);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int h = tx * CPT + c;
-      out[e * H + h] = (v[c] - mean) * rstd * n3s[h] + n3b[h];
+      out[e * H + h] = from_f<T>((v[c] - mean) * rstd * to_f(n3s[h]) + to_f(n3b[h]));
     }
   }
 }
 
-template <int H, int TN>
-int launch_node(const Msg& p, const Tail& q, float* out, int mode,
+template <int H, int TN, typename T>
+int launch_node(const Msg<T>& p, const Tail<T>& q, T* out, int mode,
                 cudaStream_t stream) {
   const int Tc = min(kRows / p.K, TN);
   const size_t smem = (size_t)(kRows + kKC + 7 * TN) * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      node_update_kernel<H, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      node_update_kernel<H, TN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.N + TN - 1) / TN;
-  node_update_kernel<H, TN><<<blocks, kThreads, smem, stream>>>(p, q, out, mode, Tc);
+  node_update_kernel<H, TN, T><<<blocks, kThreads, smem, stream>>>(p, q, out, mode, Tc);
   return (int)cudaGetLastError();
 }
 
-template <int H>
-int launch_node_tile(const Msg& p, const Tail& q, float* out, int mode,
+template <int H, typename T>
+int launch_node_tile(const Msg<T>& p, const Tail<T>& q, T* out, int mode,
                      int tile, cudaStream_t stream) {
   switch (tile) {
     case 2: return launch_node<H, 2>(p, q, out, mode, stream);
@@ -381,18 +393,59 @@ int launch_node_tile(const Msg& p, const Tail& q, float* out, int mode,
   }
 }
 
-template <int H>
-int launch_edge(const Msg& p, const float* n3s, const float* n3b, float* out,
+template <int H, typename T>
+int launch_edge(const Msg<T>& p, const T* n3s, const T* n3b, T* out,
                 cudaStream_t stream) {
-  const int T = kRows / p.K;
-  const size_t smem = (size_t)(kRows + kKC + 2 * T) * H * sizeof(float);
+  const int tn = kRows / p.K;
+  const size_t smem = (size_t)(kRows + kKC + 2 * tn) * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_update_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_update_kernel<H, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.N + T - 1) / T;
-  edge_update_kernel<H><<<blocks, kThreads, smem, stream>>>(p, n3s, n3b, out);
+  const int blocks = (p.N + tn - 1) / tn;
+  edge_update_kernel<H, T><<<blocks, kThreads, smem, stream>>>(p, n3s, n3b, out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int node_update(int mode, const T* h_V, const T* e_in, const T* table,
+                const long long* eidx, const T* m_att, const T* mbw,
+                const T* mask, const T* wa, const T* wb, const T* b1,
+                const T* w2, const T* b2, const T* w3, const T* b3,
+                const T* n1s, const T* n1b, const T* w_in, const T* b_in,
+                const T* w_out, const T* b_out, const T* n2s, const T* n2b,
+                T* out, int N, int K, int L, int Lk, int H, int tile,
+                cudaStream_t stream) {
+  if (K < 1 || K > kRows || (mode != kEncNode && mode != kDec) || L < 1 ||
+      Lk < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  const Msg<T> p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1, w2, b2, w3,
+                 b3, N, K, L, Lk};
+  const Tail<T> q{mask, n1s, n1b, w_in, b_in, w_out, b_out, n2s, n2b};
+  switch (H) {
+    case 32: return launch_node_tile<32>(p, q, out, mode, tile, stream);
+    case 64: return launch_node_tile<64>(p, q, out, mode, tile, stream);
+    case 128: return launch_node_tile<128>(p, q, out, mode, tile, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int edge_update(const T* h_V, const T* e_in, const T* table,
+                const long long* eidx, const T* wa, const T* wb, const T* b1,
+                const T* w2, const T* b2, const T* w3, const T* b3,
+                const T* n3s, const T* n3b, T* out, int N, int K, int L,
+                int Lk, int H, cudaStream_t stream) {
+  if (K < 1 || K > kRows || L < 1 || Lk < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  const Msg<T> p{h_V, e_in, table, eidx, nullptr, nullptr, wa, wb, b1, w2, b2,
+                 w3, b3, N, K, L, Lk};
+  switch (H) {
+    case 32: return launch_edge<32>(p, n3s, n3b, out, stream);
+    case 64: return launch_edge<64>(p, n3s, n3b, out, stream);
+    case 128: return launch_edge<128>(p, n3s, n3b, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -408,18 +461,24 @@ extern "C" int fused_node_update(
     const float* w_out, const float* b_out, const float* n2s, const float* n2b,
     float* out, int N, int K, int L, int Lk, int H, int tile,
     cudaStream_t stream) {
-  if (K < 1 || K > kRows || (mode != kEncNode && mode != kDec) || L < 1 ||
-      Lk < 1 || N < 1)
-    return (int)cudaErrorInvalidValue;
-  const Msg p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1, w2, b2, w3, b3,
-              N, K, L, Lk};
-  const Tail q{mask, n1s, n1b, w_in, b_in, w_out, b_out, n2s, n2b};
-  switch (H) {
-    case 32: return launch_node_tile<32>(p, q, out, mode, tile, stream);
-    case 64: return launch_node_tile<64>(p, q, out, mode, tile, stream);
-    case 128: return launch_node_tile<128>(p, q, out, mode, tile, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return node_update<float>(mode, h_V, e_in, table, eidx, m_att, mbw, mask, wa,
+                            wb, b1, w2, b2, w3, b3, n1s, n1b, w_in, b_in, w_out,
+                            b_out, n2s, n2b, out, N, K, L, Lk, H, tile, stream);
+}
+
+// The same with every operand, parameter and the output bf16.
+extern "C" int fused_node_update_bf16(
+    int mode, const bf16* h_V, const bf16* e_in, const bf16* table,
+    const long long* eidx, const bf16* m_att, const bf16* mbw,
+    const bf16* mask, const bf16* wa, const bf16* wb, const bf16* b1,
+    const bf16* w2, const bf16* b2, const bf16* w3, const bf16* b3,
+    const bf16* n1s, const bf16* n1b, const bf16* w_in, const bf16* b_in,
+    const bf16* w_out, const bf16* b_out, const bf16* n2s, const bf16* n2b,
+    bf16* out, int N, int K, int L, int Lk, int H, int tile,
+    cudaStream_t stream) {
+  return node_update<bf16>(mode, h_V, e_in, table, eidx, m_att, mbw, mask, wa,
+                           wb, b1, w2, b2, w3, b3, n1s, n1b, w_in, b_in, w_out,
+                           b_out, n2s, n2b, out, N, K, L, Lk, H, tile, stream);
 }
 
 extern "C" int fused_edge_update(
@@ -428,14 +487,16 @@ extern "C" int fused_edge_update(
     const float* w2, const float* b2, const float* w3, const float* b3,
     const float* n3s, const float* n3b, float* out, int N, int K, int L,
     int Lk, int H, cudaStream_t stream) {
-  if (K < 1 || K > kRows || L < 1 || Lk < 1 || N < 1)
-    return (int)cudaErrorInvalidValue;
-  const Msg p{h_V, e_in, table, eidx, nullptr, nullptr, wa, wb, b1, w2, b2,
-              w3, b3, N, K, L, Lk};
-  switch (H) {
-    case 32: return launch_edge<32>(p, n3s, n3b, out, stream);
-    case 64: return launch_edge<64>(p, n3s, n3b, out, stream);
-    case 128: return launch_edge<128>(p, n3s, n3b, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return edge_update<float>(h_V, e_in, table, eidx, wa, wb, b1, w2, b2, w3, b3,
+                            n3s, n3b, out, N, K, L, Lk, H, stream);
+}
+
+extern "C" int fused_edge_update_bf16(
+    const bf16* h_V, const bf16* e_in, const bf16* table,
+    const long long* eidx, const bf16* wa, const bf16* wb, const bf16* b1,
+    const bf16* w2, const bf16* b2, const bf16* w3, const bf16* b3,
+    const bf16* n3s, const bf16* n3b, bf16* out, int N, int K, int L,
+    int Lk, int H, cudaStream_t stream) {
+  return edge_update<bf16>(h_V, e_in, table, eidx, wa, wb, b1, w2, b2, w3, b3,
+                           n3s, n3b, out, N, K, L, Lk, H, stream);
 }

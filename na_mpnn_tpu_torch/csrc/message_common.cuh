@@ -2,8 +2,13 @@
 // (message_table_bwd.cu) share: the tiling, the exact erf GELU and its
 // derivative, and the tile-by-weight product. The backward resumes from the
 // forward's pre-GELU x, so both must compute GELU and the products alike.
+// The weights of a product are fp32 or bf16 (precision.cuh); the tile's
+// activations are fp32 in shared memory, already rounded to bf16 where the
+// bf16 trunk feeds them to a product.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -22,11 +27,12 @@ __device__ __forceinline__ float gelu_grad(float x) {
   return cdf + x * 0.39894228040143268f * expf(-0.5f * x * x);
 }
 
-// acc[i][c] = sum_k As[ty + 8i][k] * W[k][tx*CPT + c]; W is [H, H] ([in, out]).
-// The weight streams through Ws in chunks of kKC rows; ends on a barrier.
-template <int H>
+// acc[i][c] = sum_k As[ty + 8i][k] * W[k][tx*CPT + c]; W is [H, H] ([in, out]),
+// fp32 or bf16. The weight streams through Ws (fp32) in chunks of kKC rows;
+// ends on a barrier.
+template <int H, typename TW>
 __device__ __forceinline__ void gemm(const float* As,
-                                     const float* __restrict__ W, float* Ws,
+                                     const TW* __restrict__ W, float* Ws,
                                      float (&acc)[8][H / 32]) {
   constexpr int CPT = H / 32;
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -36,7 +42,7 @@ __device__ __forceinline__ void gemm(const float* As,
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   for (int k0 = 0; k0 < H; k0 += kKC) {
     for (int idx = tid; idx < kKC * H; idx += kThreads)
-      Ws[idx] = __ldg(W + (size_t)k0 * H + idx);
+      Ws[idx] = ldf(W + (size_t)k0 * H + idx);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < kKC; ++kk) {

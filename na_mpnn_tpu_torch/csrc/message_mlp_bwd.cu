@@ -56,10 +56,6 @@ struct Params {
   int N, K, T, tiles, contract_e, aggregate;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }

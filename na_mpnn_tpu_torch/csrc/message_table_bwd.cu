@@ -1,5 +1,6 @@
 // Backward of the message MLP with the neighbour-table gather, for Hopper
-// (sm_90a), fp32, in the three modes of message_table.cu.
+// (sm_90a), in the three modes of message_table.cu; fp32, and bf16 for the
+// bf16 trunk.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/message_kernels.py::
 // _message_table_bwd_call (_bwd_kernel_table, message_kernels.py:359). It
@@ -18,6 +19,16 @@
 //   s[n] = sum_k g_x, g_hV = s@Wa^T, dWa += h_V^T s
 // with the exact GELU derivative Phi(x) + x*phi(x) (the TPU kernel uses the
 // Abramowitz-Stegun erf).
+//
+// bf16 (message_table_backward_bf16; the TPU kernel's bf16 branch,
+// message_kernels.py:384-435): the inputs (x included), weights and
+// cotangent are bf16 and g_hV, g_ein are written bf16. Every product takes
+// bf16-rounded operands (gelu(x), gelu(y), g_m, g_y, the table-side and
+// edge-side g_x terms, sum_k g_x) summed in fp32, while the bias sums, the
+// K-sum and the table contributions start from the unrounded fp32 values;
+// each table contribution is rounded to bf16 and added into the fp32
+// table gradient; the weight and table gradients stay fp32 here and the
+// caller rounds them once (ops/message_kernels.py).
 //
 // Reductions across blocks, which run in no order:
 // * the weight and bias gradients: a persistent grid of P blocks (P = the
@@ -44,30 +55,27 @@
 
 namespace {
 
+template <typename T>
 struct Params {
-  const float* h_V;
-  const float* e_in;
-  const float* x;
+  const T* h_V;
+  const T* e_in;
+  const T* x;
   const long long* eidx;
-  const float* m_att;
-  const float* mbw;
-  const float* wa;
-  const float* wb;
-  const float* w2;
-  const float* b2;
-  const float* w3;
-  const float* g;
-  float* g_hV;
-  float* g_ein;
+  const T* m_att;
+  const T* mbw;
+  const T* wa;
+  const T* wb;
+  const T* w2;
+  const T* b2;
+  const T* w3;
+  const T* g;
+  T* g_hV;
+  T* g_ein;
   float* g_tab;
   float* part;
   float* wT;  // [4][H][H]: Wa^T, Wb^T, W2^T, W3^T (written per launch)
-  int N, K, L, Lk, T, tiles;
+  int N, K, L, Lk, tn, tiles;  // tn: nodes per tile
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -135,9 +143,22 @@ __device__ __forceinline__ void col_sum(const float* A, float* slot,
   }
 }
 
-template <int H>
+// The bf16 trunk: a tile buffer A [kRows][H] rounded to bf16 in place,
+// between barriers (after the fp32 column sum that reads it unrounded,
+// before the products that take it as an operand). Nothing for fp32.
+template <int H, typename T>
+__device__ __forceinline__ void round_operand(float* A) {
+  if constexpr (sizeof(T) == 2) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kRows * H; idx += kThreads)
+      A[idx] = rnd<T>(A[idx]);
+    __syncthreads();
+  }
+}
+
+template <int H, typename T>
 __global__ void __launch_bounds__(kThreads)
-message_table_bwd_kernel(Params p, int mode) {
+message_table_bwd_kernel(Params<T> p, int mode) {
   extern __shared__ __align__(16) float smem[];
   float* XS = smem;             // x, then g_x, then g_e
   float* U1 = XS + kRows * H;   // gelu(x), then e_in
@@ -145,11 +166,12 @@ message_table_bwd_kernel(Params p, int mode) {
   float* GM = U2 + kRows * H;   // g_m
   float* DY = GM + kRows * H;   // gelu'(y)
   float* Ws = DY + kRows * H;   // [kKC][H] weight chunk
-  float* HV = Ws + kKC * H;     // [T][H] h_V of the tile's nodes
-  float* SX = HV + p.T * H;     // [T][H] sum_k g_x
+  float* HV = Ws + kKC * H;     // [tn][H] h_V of the tile's nodes
+  float* SX = HV + p.tn * H;    // [tn][H] sum_k g_x
   constexpr int CPT = H / 32;
   constexpr int kV = kRows * H / (4 * kThreads);  // float4s per thread per tile
   constexpr size_t kSlot = 4 * H * H + 3 * H;
+  constexpr bool kLow = sizeof(T) == 2;
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   const int C = mode == kDec ? 2 * H : H;
   float* slot = p.part + blockIdx.x * kSlot;
@@ -168,8 +190,8 @@ message_table_bwd_kernel(Params p, int mode) {
   float acc[8][CPT];
 
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-    const int n0 = tile * p.T;
-    const int nodes = min(p.T, p.N - n0);
+    const int n0 = tile * p.tn;
+    const int nodes = min(p.tn, p.N - n0);
     const int rows = nodes * p.K;
     const size_t e0 = (size_t)n0 * p.K;
 
@@ -190,7 +212,7 @@ message_table_bwd_kernel(Params p, int mode) {
             gv[v] = ld4(p.g + e0 * H + idx);
           } else {
             gv[v] = ld4(p.g + (size_t)(n0 + r / p.K) * H + h);
-            if (mode == kEncNode) wv[v] = p.m_att[e0 + r];
+            if (mode == kEncNode) wv[v] = to_f(p.m_att[e0 + r]);
           }
         }
       }
@@ -199,7 +221,8 @@ message_table_bwd_kernel(Params p, int mode) {
         const int idx = 4 * (tid + v * kThreads);
         float4 u = xv[v], gm = gv[v];
         st4(XS + idx, u);
-        u.x = gelu(u.x); u.y = gelu(u.y); u.z = gelu(u.z); u.w = gelu(u.w);
+        u.x = rnd<T>(gelu(u.x)); u.y = rnd<T>(gelu(u.y));
+        u.z = rnd<T>(gelu(u.z)); u.w = rnd<T>(gelu(u.w));
         st4(U1 + idx, u);
         if (mode != kEncEdge) {
           const float w = wv[v];
@@ -209,8 +232,8 @@ message_table_bwd_kernel(Params p, int mode) {
         st4(GM + idx, gm);
       }
     }
-    for (int idx = tid; idx < p.T * H; idx += kThreads)
-      HV[idx] = idx < nodes * H ? p.h_V[(size_t)n0 * H + idx] : 0.f;
+    for (int idx = tid; idx < p.tn * H; idx += kThreads)
+      HV[idx] = idx < nodes * H ? to_f(p.h_V[(size_t)n0 * H + idx]) : 0.f;
 
     // y = u1@W2 + b2 (its first barrier publishes the loads above)
     gemm<H>(U1, p.w2, Ws, acc);
@@ -220,14 +243,15 @@ message_table_bwd_kernel(Params p, int mode) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int h = tx * CPT + c;
-        const float y = acc[i][c] + p.b2[h];
-        U2[r * H + h] = gelu(y);
+        const float y = acc[i][c] + to_f(p.b2[h]);
+        U2[r * H + h] = rnd<T>(gelu(y));
         DY[r * H + h] = gelu_grad(y);
       }
     }
     __syncthreads();
-    outer_acc<H>(U2, GM, kRows, s_dw3, first);
     col_sum<H>(GM, s_db3, first);
+    round_operand<H, T>(GM);
+    outer_acc<H>(U2, GM, kRows, s_dw3, first);
 
     // g_y = (g_m@W3^T) * gelu'(y) over u2 (read above, before the first
     // barrier inside gemm)
@@ -242,8 +266,9 @@ message_table_bwd_kernel(Params p, int mode) {
       }
     }
     __syncthreads();
-    outer_acc<H>(U1, U2, kRows, s_dw2, first);
     col_sum<H>(U2, s_db2, first);
+    round_operand<H, T>(U2);
+    outer_acc<H>(U1, U2, kRows, s_dw2, first);
 
     // g_x = (g_y@W2^T) * gelu'(x), over x in place
     gemm<H>(U2, w2T, Ws, acc);
@@ -267,33 +292,34 @@ message_table_bwd_kernel(Params p, int mode) {
       const float4 gx = *reinterpret_cast<const float4*>(XS + idx);
       float* dst = p.g_tab + grow * C + h;
       if (mode == kDec) {
-        const float mb = p.mbw[e], m1 = p.m_att[e];
-        atomicAdd(dst, mb * gx.x);
-        atomicAdd(dst + 1, mb * gx.y);
-        atomicAdd(dst + 2, mb * gx.z);
-        atomicAdd(dst + 3, mb * gx.w);
+        const float mb = to_f(p.mbw[e]), m1 = to_f(p.m_att[e]);
+        atomicAdd(dst, rnd<T>(mb * gx.x));
+        atomicAdd(dst + 1, rnd<T>(mb * gx.y));
+        atomicAdd(dst + 2, rnd<T>(mb * gx.z));
+        atomicAdd(dst + 3, rnd<T>(mb * gx.w));
         dst += H;
-        atomicAdd(dst, m1 * gx.x);
-        atomicAdd(dst + 1, m1 * gx.y);
-        atomicAdd(dst + 2, m1 * gx.z);
-        atomicAdd(dst + 3, m1 * gx.w);
+        atomicAdd(dst, rnd<T>(m1 * gx.x));
+        atomicAdd(dst + 1, rnd<T>(m1 * gx.y));
+        atomicAdd(dst + 2, rnd<T>(m1 * gx.z));
+        atomicAdd(dst + 3, rnd<T>(m1 * gx.w));
       } else {
-        atomicAdd(dst, gx.x);
-        atomicAdd(dst + 1, gx.y);
-        atomicAdd(dst + 2, gx.z);
-        atomicAdd(dst + 3, gx.w);
+        atomicAdd(dst, rnd<T>(gx.x));
+        atomicAdd(dst + 1, rnd<T>(gx.y));
+        atomicAdd(dst + 2, rnd<T>(gx.z));
+        atomicAdd(dst + 3, rnd<T>(gx.w));
       }
     }
-    for (int idx = tid; idx < p.T * H; idx += kThreads) {
+    for (int idx = tid; idx < p.tn * H; idx += kThreads) {
       const int t = idx / H, h = idx % H;
       float s = 0.f;
       if (t < nodes)
         for (int k = 0; k < p.K; ++k) s += XS[(t * p.K + k) * H + h];
-      SX[idx] = s;
+      SX[idx] = rnd<T>(s);
     }
     __syncthreads();
 
-    // g_e (dec: m1d * g_x) over g_x, and e_in over gelu(x)
+    // g_e (dec: m1d * g_x; rounded for the bf16 trunk) over g_x, and e_in
+    // over gelu(x)
     {
       float4 ev[kV];
       float mv[kV];
@@ -301,15 +327,19 @@ message_table_bwd_kernel(Params p, int mode) {
       for (int v = 0; v < kV; ++v) {
         const int idx = 4 * (tid + v * kThreads), r = idx / H;
         ev[v] = r < rows ? ld4(p.e_in + e0 * H + idx) : make_float4(0.f, 0.f, 0.f, 0.f);
-        mv[v] = mode == kDec && r < rows ? p.m_att[e0 + r] : 1.f;
+        mv[v] = mode == kDec && r < rows ? to_f(p.m_att[e0 + r]) : 1.f;
       }
 #pragma unroll
       for (int v = 0; v < kV; ++v) {
         const int idx = 4 * (tid + v * kThreads);
         st4(U1 + idx, ev[v]);
-        if (mode == kDec) {
+        if (mode == kDec || kLow) {
           float4 gx = *reinterpret_cast<const float4*>(XS + idx);
-          gx.x *= mv[v]; gx.y *= mv[v]; gx.z *= mv[v]; gx.w *= mv[v];
+          if (mode == kDec) {
+            gx.x *= mv[v]; gx.y *= mv[v]; gx.z *= mv[v]; gx.w *= mv[v];
+          }
+          gx.x = rnd<T>(gx.x); gx.y = rnd<T>(gx.y);
+          gx.z = rnd<T>(gx.z); gx.w = rnd<T>(gx.w);
           st4(XS + idx, gx);
         }
       }
@@ -321,7 +351,7 @@ message_table_bwd_kernel(Params p, int mode) {
       const int t = idx / H, h = idx % H;
       float s = 0.f;
       for (int k = 0; k < H; ++k) s = fmaf(SX[t * H + k], __ldg(waT + k * H + h), s);
-      p.g_hV[(size_t)(n0 + t) * H + h] = s;
+      p.g_hV[(size_t)(n0 + t) * H + h] = from_f<T>(s);
     }
     gemm<H>(XS, wbT, Ws, acc);  // g_ein = g_e@Wb^T
 #pragma unroll
@@ -330,25 +360,26 @@ message_table_bwd_kernel(Params p, int mode) {
       if (r >= rows) continue;
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
-        p.g_ein[(e0 + r) * H + tx * CPT + c] = acc[i][c];
+        p.g_ein[(e0 + r) * H + tx * CPT + c] = from_f<T>(acc[i][c]);
     }
     first = false;
     // gemm ended on a barrier: the next tile may overwrite shared memory.
   }
 }
 
-// wT[m] = W_m^T for W_0..3 = Wa, Wb, W2, W3 ([H, H] each), so that every
-// product with a transposed weight streams it row by row.
-__global__ void transpose_weights(const float* __restrict__ wa,
-                                  const float* __restrict__ wb,
-                                  const float* __restrict__ w2,
-                                  const float* __restrict__ w3, int H,
+// wT[m] = W_m^T (fp32) for W_0..3 = Wa, Wb, W2, W3 ([H, H] each), so that
+// every product with a transposed weight streams it row by row.
+template <typename T>
+__global__ void transpose_weights(const T* __restrict__ wa,
+                                  const T* __restrict__ wb,
+                                  const T* __restrict__ w2,
+                                  const T* __restrict__ w3, int H,
                                   float* __restrict__ wT) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 4 * H * H) return;
   const int m = idx / (H * H), c = (idx / H) % H, k = idx % H;
-  const float* W = m == 0 ? wa : m == 1 ? wb : m == 2 ? w2 : w3;
-  wT[idx] = W[k * H + c];
+  const T* W = m == 0 ? wa : m == 1 ? wb : m == 2 ? w2 : w3;
+  wT[idx] = to_f(W[k * H + c]);
 }
 
 // out[j] = sum_b part[b][j], b in order (deterministic).
@@ -361,22 +392,45 @@ __global__ void reduce_slots(const float* __restrict__ part, int nparts,
   out[j] = s;
 }
 
-template <int H>
-int launch(const Params& p, int mode, int nparts, float* wgrad,
+template <int H, typename T>
+int launch(const Params<T>& p, int mode, int nparts, float* wgrad,
            cudaStream_t stream) {
-  transpose_weights<<<(4 * H * H + 255) / 256, 256, 0, stream>>>(
+  transpose_weights<T><<<(4 * H * H + 255) / 256, 256, 0, stream>>>(
       p.wa, p.wb, p.w2, p.w3, H, p.wT);
-  const size_t smem = (size_t)(5 * kRows + kKC + 2 * p.T) * H * sizeof(float);
+  const size_t smem = (size_t)(5 * kRows + kKC + 2 * p.tn) * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      message_table_bwd_kernel<H>,
+      message_table_bwd_kernel<H, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  message_table_bwd_kernel<H><<<nparts, kThreads, smem, stream>>>(p, mode);
+  message_table_bwd_kernel<H, T><<<nparts, kThreads, smem, stream>>>(p, mode);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = 4 * H * H + 3 * H;
   reduce_slots<<<(n + 255) / 256, 256, 0, stream>>>(p.part, nparts, n, wgrad);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward(int mode, const T* h_V, const T* e_in, const T* x,
+             const long long* eidx, const T* m_att, const T* mbw, const T* wa,
+             const T* wb, const T* w2, const T* b2, const T* w3, const T* g,
+             T* g_hV, T* g_ein, float* g_tab, float* part, float* wT,
+             float* wgrad, int N, int K, int L, int Lk, int H, int nparts,
+             cudaStream_t stream) {
+  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec || nparts < 1 ||
+      L < 1 || Lk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int tn = kRows / K;
+  const int tiles = (N + tn - 1) / tn;
+  if (nparts > tiles) nparts = tiles;
+  Params<T> p{h_V,  e_in,  x,     eidx, m_att, mbw, wa, wb, w2, b2, w3, g,
+              g_hV, g_ein, g_tab, part, wT,    N,   K,  L,  Lk, tn, tiles};
+  switch (H) {
+    case 32: return launch<32>(p, mode, nparts, wgrad, stream);
+    case 64: return launch<64>(p, mode, nparts, wgrad, stream);
+    case 128: return launch<128>(p, mode, nparts, wgrad, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -391,18 +445,21 @@ extern "C" int message_table_backward(
     const float* w3, const float* g, float* g_hV, float* g_ein, float* g_tab,
     float* part, float* wT, float* wgrad, int N, int K, int L, int Lk, int H,
     int nparts, cudaStream_t stream) {
-  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec || nparts < 1 ||
-      L < 1 || Lk < 1)
-    return (int)cudaErrorInvalidValue;
-  const int T = kRows / K;
-  const int tiles = (N + T - 1) / T;
-  if (nparts > tiles) nparts = tiles;
-  Params p{h_V,  e_in,  x,     eidx, m_att, mbw, wa, wb, w2, b2, w3, g,
-           g_hV, g_ein, g_tab, part, wT,    N,   K,  L,  Lk, T,  tiles};
-  switch (H) {
-    case 32: return launch<32>(p, mode, nparts, wgrad, stream);
-    case 64: return launch<64>(p, mode, nparts, wgrad, stream);
-    case 128: return launch<128>(p, mode, nparts, wgrad, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return backward<float>(mode, h_V, e_in, x, eidx, m_att, mbw, wa, wb, w2, b2,
+                         w3, g, g_hV, g_ein, g_tab, part, wT, wgrad, N, K, L,
+                         Lk, H, nparts, stream);
+}
+
+// The same with bf16 inputs, weights, cotangent, g_hV and g_ein; g_tab,
+// wgrad and the scratch stay fp32.
+extern "C" int message_table_backward_bf16(
+    int mode, const bf16* h_V, const bf16* e_in, const bf16* x,
+    const long long* eidx, const bf16* m_att, const bf16* mbw, const bf16* wa,
+    const bf16* wb, const bf16* w2, const bf16* b2, const bf16* w3,
+    const bf16* g, bf16* g_hV, bf16* g_ein, float* g_tab, float* part,
+    float* wT, float* wgrad, int N, int K, int L, int Lk, int H, int nparts,
+    cudaStream_t stream) {
+  return backward<bf16>(mode, h_V, e_in, x, eidx, m_att, mbw, wa, wb, w2, b2,
+                        w3, g, g_hV, g_ein, g_tab, part, wT, wgrad, N, K, L,
+                        Lk, H, nparts, stream);
 }

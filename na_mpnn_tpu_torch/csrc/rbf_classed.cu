@@ -1,5 +1,5 @@
 // Polymer-class-specialised RBF edge features fused with their projection,
-// for Hopper (sm_90a), fp32.
+// for Hopper (sm_90a); fp32, and bf16 for the bf16 trunk.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/rbf_classed.py::_classed_fwd
 // (_fwd_kernel, rbf_classed.py:361). Per edge (i -> j): the distances between
@@ -18,6 +18,13 @@
 // query/key entry rbf_edge_features_classed_qk (rbf_classed.py:600), with a
 // shard's query rows against the all-gathered structure, is the same launch.
 //
+// bf16 (rbf_classed_forward_bf16; the TPU kernel's bf16 branch,
+// rbf_classed.py:315-321, :376): each bin is the damped recursive bin
+// (rbf_common.cuh::rbf_bin_damped) rounded to bf16, the four tables arrive
+// as bf16(W * fold scale), and the products of the two sum in fp32 into the
+// fp32 output. The exact fp32 pair distances replace the TPU's bf16x2
+// coordinate selection.
+//
 // What bounds it on the card: operations. Per edge the populated block costs
 // 2*H*16*Aq*An multiply-adds (about 0.7 MFLOP for an NN edge at H = 128)
 // against about 1.3 KB of coordinates, masks, index and output.
@@ -35,8 +42,9 @@ constexpr int kNP = 5;        // protein block P = PERM slots [0, 5)
 constexpr int kThreads = 128;
 constexpr int kMaxAA = 13 * 13;
 
+template <typename TW>
 struct Tables {
-  const float* w[4];
+  const TW* w[4];
 };
 
 __device__ __forceinline__ int side_code(const float* m) {
@@ -46,12 +54,13 @@ __device__ __forceinline__ int side_code(const float* m) {
   return (int)has_n + (int)(has_n && has_p);  // 0 P/empty, 1 N, 2 mixed
 }
 
-template <int HC>
+template <int HC, typename TW>
 __global__ void __launch_bounds__(kThreads)
 rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
                    const float* __restrict__ Xk, const float* __restrict__ Mk,
                    const long long* __restrict__ nbr, int E, int K, int H,
-                   Tables tabs, float* __restrict__ out) {
+                   Tables<TW> tabs, float* __restrict__ out) {
+  constexpr bool kLow = sizeof(TW) == 2;
   __shared__ float qx[kTE][3 * kA], nx[kTE][3 * kA];
   __shared__ float qm[kTE][kA], nm[kTE][kA];
   __shared__ __align__(16) float bins[kMaxAA][kTE];
@@ -89,7 +98,7 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
     const int q0 = (g >> 1) ? kNP : 0, Aq = (g >> 1) ? kA - kNP : kNP;
     const int n0 = (g & 1) ? kNP : 0, An = (g & 1) ? kA - kNP : kNP;
     const int AA = Aq * An;
-    const float* W = tabs.w[g];
+    const TW* W = tabs.w[g];
     for (int r = 0; r < kR; ++r) {
       const float mu = bin_mu(r);
       // Each bin recomputes its pair distances (a few operations against
@@ -97,17 +106,22 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
       // in the 48 KB of static shared memory.
       for (int idx = tid; idx < AA * kTE; idx += kThreads) {
         const int a = idx / kTE, e = idx % kTE;
-        bins[a][e] = rbf_bin(&qx[0][0], &nx[0][0], &qm[0][0], &nm[0][0], e,
-                             q0 + a / An, n0 + a % An, mu);
+        if constexpr (kLow)
+          bins[a][e] = rnd<bf16>(rbf_bin_damped(&qx[0][0], &nx[0][0], &qm[0][0],
+                                                &nm[0][0], e, q0 + a / An,
+                                                n0 + a % An, r));
+        else
+          bins[a][e] = rbf_bin(&qx[0][0], &nx[0][0], &qm[0][0], &nm[0][0], e,
+                               q0 + a / An, n0 + a % An, mu);
       }
       __syncthreads();
-      const float* Wr = W + (size_t)r * AA * H;
+      const TW* Wr = W + (size_t)r * AA * H;
       for (int a = 0; a < AA; ++a) {
         float w[HC];
 #pragma unroll
         for (int c = 0; c < HC; ++c) {
           int h = tid + c * kThreads;
-          w[c] = h < H ? __ldg(Wr + (size_t)a * H + h) : 0.f;
+          w[c] = h < H ? ldf(Wr + (size_t)a * H + h) : 0.f;
         }
         const float4* brow = reinterpret_cast<const float4*>(bins[a]);
 #pragma unroll
@@ -137,6 +151,25 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
   }
 }
 
+template <typename TW>
+int forward(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
+            const long long* nbr, int E, int K, int H, const TW* w0,
+            const TW* w1, const TW* w2, const TW* w3, float* out,
+            cudaStream_t stream) {
+  Tables<TW> t{{w0, w1, w2, w3}};
+  int blocks = (E + kTE - 1) / kTE;
+  if (H <= kThreads) {
+    rbf_classed_kernel<1, TW><<<blocks, kThreads, 0, stream>>>(Xq, Mq, Xk, Mk, nbr,
+                                                               E, K, H, t, out);
+  } else if (H <= 2 * kThreads) {
+    rbf_classed_kernel<2, TW><<<blocks, kThreads, 0, stream>>>(Xq, Mq, Xk, Mk, nbr,
+                                                               E, K, H, t, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Xq [Nq, 3*18], Mq [Nq, 18] (query rows, PERM order), Xk [Nk, 3*18],
@@ -148,16 +181,18 @@ extern "C" int rbf_classed_forward(const float* Xq, const float* Mq,
                                    const float* w0, const float* w1,
                                    const float* w2, const float* w3,
                                    float* out, cudaStream_t stream) {
-  Tables t{{w0, w1, w2, w3}};
-  int blocks = (E + kTE - 1) / kTE;
-  if (H <= kThreads) {
-    rbf_classed_kernel<1><<<blocks, kThreads, 0, stream>>>(Xq, Mq, Xk, Mk, nbr,
-                                                           E, K, H, t, out);
-  } else if (H <= 2 * kThreads) {
-    rbf_classed_kernel<2><<<blocks, kThreads, 0, stream>>>(Xq, Mq, Xk, Mk, nbr,
-                                                           E, K, H, t, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return forward<float>(Xq, Mq, Xk, Mk, nbr, E, K, H, w0, w1, w2, w3, out,
+                        stream);
+}
+
+// The bf16 trunk's function: damped bf16 bins against the four tables of
+// bf16(W * fold scale); coordinates, masks and out fp32.
+extern "C" int rbf_classed_forward_bf16(const float* Xq, const float* Mq,
+                                        const float* Xk, const float* Mk,
+                                        const long long* nbr, int E, int K,
+                                        int H, const bf16* w0, const bf16* w1,
+                                        const bf16* w2, const bf16* w3,
+                                        float* out, cudaStream_t stream) {
+  return forward<bf16>(Xq, Mq, Xk, Mk, nbr, E, K, H, w0, w1, w2, w3, out,
+                       stream);
 }

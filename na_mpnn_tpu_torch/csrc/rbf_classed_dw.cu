@@ -1,5 +1,5 @@
 // Weight gradient of the class-specialised RBF projection, for Hopper
-// (sm_90a), fp32.
+// (sm_90a); fp32, and bf16 for the bf16 trunk.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/rbf_classed.py::_classed_dw
 // (_bwd_kernel, rbf_classed.py:394). For the cotangent g [E, H] of the
@@ -25,6 +25,11 @@
 //    [kSplit][5184][H]. No cross-block atomics.
 // 3. reduce: dW[rowmap[row]] = sum over the kSplit partials, in order.
 // The result is deterministic.
+// bf16 (rbf_classed_dw_bf16; the TPU kernel's bf16 branch,
+// rbf_classed.py:407-415): the bins are the damped recursive bins of the
+// bf16 forward and g enters rounded to bf16; both are products of bf16
+// values, summed in fp32 in the same fixed order, and dW (the gradient of
+// the fold-scaled weight) is fp32.
 //
 // What bounds it on the card: operations, 2*H multiply-adds per present atom
 // pair and bin of every edge (as the forward), against the edge operands and
@@ -83,7 +88,7 @@ constexpr int acc_smem_floats() {
   return 2 * kTE * 3 * kA + 2 * kTE * kA + kSliceRows * kTE + kTE * H;
 }
 
-template <int H>
+template <int H, bool kLow>
 __global__ void __launch_bounds__(kThreads)
 rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
                   const float* __restrict__ Xk, const float* __restrict__ Mk,
@@ -130,7 +135,8 @@ rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
     load_edge_tile(Xq, Mq, Xk, Mk, nbr, E, K, e0, qx, nx, qm, nm);
     for (int idx = tid; idx < kTE * H; idx += kThreads) {
       const int e = idx / H;
-      gs[idx] = e0 + e < E ? g[(size_t)e0 * H + idx] : 0.f;
+      const float v = e0 + e < E ? g[(size_t)e0 * H + idx] : 0.f;
+      gs[idx] = kLow ? rnd<bf16>(v) : v;
     }
     __syncthreads();
     for (int idx = tid; idx < kSliceRows * kTE; idx += kThreads) {
@@ -138,7 +144,10 @@ rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
       float v = 0.f;
       if (i < nrows) {
         const int rho = row0 + i, r = rho / AA, a = rho % AA;
-        v = rbf_bin(qx, nx, qm, nm, e, q0 + a / An, n0 + a % An, bin_mu(r));
+        if constexpr (kLow)
+          v = rnd<bf16>(rbf_bin_damped(qx, nx, qm, nm, e, q0 + a / An, n0 + a % An, r));
+        else
+          v = rbf_bin(qx, nx, qm, nm, e, q0 + a / An, n0 + a % An, bin_mu(r));
       }
       bins[idx] = v;
     }
@@ -157,7 +166,7 @@ rbf_dw_accumulate(const float* __restrict__ Xq, const float* __restrict__ Mq,
   }
 }
 
-template <int H>
+template <int H, bool kLow>
 int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
            const long long* nbr, const float* g, const long long* rowmap,
            int E, int K, int* code, float* part, float* dW,
@@ -168,7 +177,7 @@ int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = acc_smem_floats<H>() * sizeof(float);
-  err = cudaFuncSetAttribute(rbf_dw_accumulate<H>,
+  err = cudaFuncSetAttribute(rbf_dw_accumulate<H, kLow>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -177,7 +186,7 @@ int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
     const int aq = (grp >> 1) ? kA - kNP : kNP, an = (grp & 1) ? kA - kNP : kNP;
     slices += (kR * aq * an + kSliceRows - 1) / kSliceRows;
   }
-  rbf_dw_accumulate<H><<<dim3(slices, kSplit), kThreads, smem, stream>>>(
+  rbf_dw_accumulate<H, kLow><<<dim3(slices, kSplit), kThreads, smem, stream>>>(
       Xq, Mq, Xk, Mk, nbr, g, code, E, K, ntiles, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -185,6 +194,18 @@ int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
   dw_reduce<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       part, kSplit, rowmap, kTotalRows, H, dW);
   return (int)cudaGetLastError();
+}
+
+template <bool kLow>
+int dw(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
+       const long long* nbr, const float* g, const long long* rowmap, int E,
+       int K, int H, int* code, float* part, float* dW, cudaStream_t stream) {
+  switch (H) {
+    case 32: return launch<32, kLow>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 64: return launch<64, kLow>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
+    case 128: return launch<128, kLow>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -201,10 +222,17 @@ extern "C" int rbf_classed_dw(const float* Xq, const float* Mq,
                               const long long* rowmap, int E, int K, int H,
                               int* code, float* part, float* dW,
                               cudaStream_t stream) {
-  switch (H) {
-    case 32: return launch<32>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
-    case 64: return launch<64>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
-    case 128: return launch<128>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, code, part, dW, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dw<false>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, H, code, part, dW,
+                   stream);
+}
+
+// The bf16 trunk's weight gradient (same operands, fp32 g and dW).
+extern "C" int rbf_classed_dw_bf16(const float* Xq, const float* Mq,
+                                   const float* Xk, const float* Mk,
+                                   const long long* nbr, const float* g,
+                                   const long long* rowmap, int E, int K,
+                                   int H, int* code, float* part, float* dW,
+                                   cudaStream_t stream) {
+  return dw<true>(Xq, Mq, Xk, Mk, nbr, g, rowmap, E, K, H, code, part, dW,
+                  stream);
 }

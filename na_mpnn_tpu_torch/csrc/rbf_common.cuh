@@ -14,8 +14,15 @@
 // atom qa and key atom na, exactly 0 where either atom is absent. The sum of
 // a dense and a class-split projection then agree, and every kernel computes
 // a bin alike, so a backward recomputes what its forward used.
+//
+// The bf16 trunk's classed projection takes the TPU kernels' bf16 bins
+// instead (rbf_bin_damped, JAX rbf_classed.py:259-303): bin r of a pair is
+// max(u_r, d_{R-1-r}), the damped two-sided geometric walk, whose missing
+// factor e^{c r (R-1-r)} the weight rows carry (the fold scales).
 #pragma once
 #include <cuda_runtime.h>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -71,6 +78,52 @@ __device__ __forceinline__ float rbf_bin(const float* qx, const float* nx,
   const float dz = xq[2 * kA + qa] - xn[2 * kA + na];
   const float z = (sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f) - mu) / 1.25f;
   return expf(-z * z);
+}
+
+// fp32 constants of the recursion, as the JAX package rounds them
+// (sigma = 1.25, step = 20/15, c = step^2 / sigma^2, R = 16).
+constexpr float kInvS2 = 0x1.47ae14p-1f;     // 1 / sigma^2
+constexpr float kGen = 0x1.b4e81cp+0f;       // 2 step / sigma^2
+constexpr float kDamp = 0x1.4caedep-25f;     // e^{-(R-1)c}
+constexpr float kUndamp = 0x1.89fc0ep+24f;   // e^{(R-1)c}
+constexpr float kTiny = 0x1.05563cp-126f;    // seeds below are flushed to 0
+constexpr float kDistCap = 50.0f;
+
+// Damped bin r of the pair (query atom qa, key atom na) of tile edge e, 0
+// where either atom is absent. The fp32 operations of the JAX package's
+// _bins_recursive in its order, with the distance rounded step by step
+// (no contraction into FMAs), as the plain version computes them:
+//   D = min(sqrt(dx^2 + dy^2 + dz^2 + 1e-6), 50), t0 = D - 2, t1 = D - 22,
+//   f_lo = exp(-(t0 t0) / s^2), f_hi = exp(-(t1 t1) / s^2) (< kTiny: 0),
+//   g = exp(kGen t0), u_r = f_lo (g kDamp)^r, d_m = f_hi (kUndamp / g)^m.
+// 3 exps and a division per call, then R - 1 multiplications.
+__device__ __forceinline__ float rbf_bin_damped(const float* qx,
+                                                const float* nx,
+                                                const float* qm,
+                                                const float* nm, int e,
+                                                int qa, int na, int r) {
+  if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
+  const float* xq = qx + e * 3 * kA;
+  const float* xn = nx + e * 3 * kA;
+  const float dx = __fsub_rn(xq[qa], xn[na]);
+  const float dy = __fsub_rn(xq[kA + qa], xn[kA + na]);
+  const float dz = __fsub_rn(xq[2 * kA + qa], xn[2 * kA + na]);
+  const float d2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                       __fmul_rn(dz, dz)),
+                             1e-6f);
+  const float D = fminf(sqrtf(d2), kDistCap);
+  const float t0 = __fsub_rn(D, 2.0f), t1 = __fsub_rn(D, 22.0f);
+  float f_lo = expf(__fmul_rn(-__fmul_rn(t0, t0), kInvS2));
+  float f_hi = expf(__fmul_rn(-__fmul_rn(t1, t1), kInvS2));
+  if (f_lo < kTiny) f_lo = 0.f;
+  if (f_hi < kTiny) f_hi = 0.f;
+  const float g = expf(__fmul_rn(kGen, t0));
+  const float up_step = __fmul_rn(g, kDamp);
+  const float down_step = __fdiv_rn(kUndamp, g);
+  float up = f_lo, down = f_hi;
+  for (int i = 0; i < r; ++i) up = __fmul_rn(up, up_step);
+  for (int i = 0; i < kR - 1 - r; ++i) down = __fmul_rn(down, down_step);
+  return fmaxf(up, down);
 }
 
 // The weight-gradient tile product: acc[i][c] += sum_e bins[ty + 8i][e] *

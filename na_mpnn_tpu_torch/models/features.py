@@ -119,6 +119,7 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     from ..ops.rbf_edge import (rbf_edge_features, rbf_edge_features_plain,
                                 rbf_edge_features_qk)
 
+    low = cfg.compute_dtype == "bfloat16"
     mask = batch["mask"].to(X.dtype)
     X_aug, X_m_aug, X_ref = build_augmented_atoms(X, batch["X_m"], batch, cfg)
     # Relative position, same-chain indicator and neighbour mask through one
@@ -135,10 +136,10 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
         _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
         if dense:
             rbf = rbf_edge_features_plain if plain else rbf_edge_features
+            E_rbf = rbf(X_aug, X_m_aug, E_idx, W[n_pos:])
         else:
-            rbf = (rbf_edge_features_classed_plain if plain
-                   else rbf_edge_features_classed)
-        E_rbf = rbf(X_aug, X_m_aug, E_idx, W[n_pos:])
+            E_rbf = rbf_edge_features_classed(X_aug, X_m_aug, E_idx, W[n_pos:],
+                                              low=low, plain=plain)
     else:
         knn = knn_graph_qk_plain if plain else knn_graph_qk
         _, E_idx = knn(X_ref, gather(X_ref), mask, gather(mask),
@@ -157,14 +158,19 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     mask_attend = mask[:, :, None] * g[..., 2]
 
     # Positional block folded through the projection:
-    # (table[d] + b) @ W_pos == (table @ W_pos)[d] + b @ W_pos.
+    # (table[d] + b) @ W_pos == (table @ W_pos)[d] + b @ W_pos, the row
+    # picked by a one-hot product in the compute type (the JAX package's
+    # form, features.py:210-219: exact in any type, and its table gradient
+    # is a product, not an index scatter). At bf16 the block is bf16 and
+    # E = E_pos + E_rbf promotes to fp32.
     mrf = cfg.max_relative_feature
     d = torch.clamp(offset + mrf, 0, 2 * mrf)
     d = d * E_chains + (1 - E_chains) * (2 * mrf + 1)
     pos_table = p["positional"]["w"] @ W[:n_pos]               # [66,H]
-    E_pos = pos_table[d]
+    cdt = torch.bfloat16 if low else pos_table.dtype
+    E_pos = F.one_hot(d, pos_table.shape[0]).to(cdt) @ pos_table.to(cdt)
     if "b" in p["positional"]:
-        E_pos = E_pos + p["positional"]["b"] @ W[:n_pos]
+        E_pos = E_pos + (p["positional"]["b"] @ W[:n_pos]).to(cdt)
     E = layer_norm(p["norm_edges"], E_pos + E_rbf)
 
     V = F.one_hot(batch["R_polymer_type"].long(), cfg.num_polytypes).to(X.dtype)

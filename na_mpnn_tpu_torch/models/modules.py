@@ -30,20 +30,46 @@ def gelu(x):
     return F.gelu(x)
 
 
+def widen(x):
+    """A bf16 tensor as fp32 (exact); any other tensor as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def dotp(a, b, low: bool):
+    """``a @ b``; with ``low`` (the bf16 trunk) the JAX package's ``_dotp``:
+    both operands rounded to bf16, the exact products summed in fp32, an
+    fp32 result."""
+    if low:
+        return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+    return a @ b
+
+
 def dropout(x, rate: float, generator):
     """Inverted dropout: keep each entry with probability ``1 - rate`` (a
-    mask drawn from ``generator``) and scale kept entries by ``1 / keep``.
-    Identity when ``rate <= 0`` or ``generator`` is None (evaluation)."""
+    mask drawn from ``generator``, uniform draws in fp32 for a bf16 ``x``)
+    and scale kept entries by ``1 / keep``. Identity when ``rate <= 0`` or
+    ``generator`` is None (evaluation)."""
     if rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    u = torch.rand(x.shape, generator=generator, dtype=widen(x).dtype,
+                   device=x.device)
     return torch.where(u < keep, x / keep, 0.0)
 
 
 def linear(p, x):
     out = x @ p["w"]
     return out + p["b"] if "b" in p else out
+
+
+def cast_tree(tree, dtype):
+    """The parameter tree with every floating leaf cast to ``dtype`` (a
+    differentiable cast: gradients flow back in the leaves' own type)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def layer_norm(p, x):
@@ -93,6 +119,13 @@ def cat_neighbors_nodes(h_nodes, h_neighbors, E_idx):
 def pff_apply(p, h_V):
     """Position-wise feed-forward H -> 4H -> H with GELU."""
     return linear(p["W_out"], gelu(linear(p["W_in"], h_V)))
+
+
+def pff_acc(p, h, low: bool):
+    """``pff_apply`` with ``dotp`` products and widened biases (the fused
+    kernels' form: at bf16, fp32 activations and bf16 product operands)."""
+    hid = gelu(dotp(h, p["W_in"]["w"], low) + widen(p["W_in"]["b"]))
+    return dotp(hid, p["W_out"]["w"], low) + widen(p["W_out"]["b"])
 
 
 def _split_w1(p, H, name="W1"):

@@ -26,7 +26,16 @@ Off the fused route the layer norms, the feed-forward block and dropout are
 plain PyTorch around the message kernel.
 
 The node-level products (``h_V @ wc``, ``h_S @ ws``, ``h_V @ wv``) that make
-the tables the kernels gather from are plain PyTorch on every route. A
+the tables the kernels gather from are plain PyTorch on every route.
+
+``compute_dtype="bfloat16"`` (the JAX training default) runs the trunk in
+bf16 as the JAX package does (``mpnn.py:131-142``, ``:280-290``,
+``:456-457``): parameters stay fp32 and are cast on the way in (the
+encoder's and decoder's layers; ``W_v``, ``W_e``, ``W_s`` and ``W_out`` stay
+fp32), ``h_V``, ``h_E``, ``h_S`` and the masks enter the layers as bf16,
+LayerNorm statistics are fp32, and ``h_V`` returns to fp32 before
+``W_out``; the kernels take their bf16 variants. The one-device table and
+fused routes run at bf16; the gathered route refuses it (the next slice). A
 ``torch.Generator`` turns on training randomness (dropout, coordinate
 noise), ``None`` makes them deterministic; the inference entry points run
 under ``torch.no_grad``. The autoregressive samplers are plain PyTorch, as
@@ -53,10 +62,10 @@ from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
 from .features import features_apply
 from .modules import (MESSAGE_SCALE, _message_tail, _split_w1,
-                      cat_neighbors_nodes, dec_layer_apply, dropout,
+                      cast_tree, cat_neighbors_nodes, dec_layer_apply, dropout,
                       gather_nodes, init_dec_layer, init_enc_layer,
                       init_layer_norm, init_linear, layer_norm, linear,
-                      pff_apply, take_rows)
+                      pff_apply, take_rows, widen)
 
 # Token ints zeroed out during sampling (UNK, DX, RX, MAS, PAD).
 _OMIT_ALWAYS = [
@@ -243,6 +252,12 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
     (_, wb, ws, wv), _ = _split_w1(p, H)
     fused = fused_route(drop, p, h_V, h_V_enc, h_S, h_E2)
     if not fused and gather is _identity and not mk.table_gather_ok(L):
+        if h_V.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"a bf16 training step at L={L} (not a multiple of 32) takes the "
+                "gathered decoder route, whose bf16 kernels (rows 7, 8) are the "
+                "next slice (ROADMAP Queue 1, 'bf16 trunk'); collate with length "
+                "buckets")
         # The gathered route (JAX ``edge_context`` + ``message_agg_batched``,
         # mpnn.py:303-316, 383-387): the three neighbour terms through one
         # gather, ``mask_fw = mask_1d - mask_bw`` exactly (0/1 masks).
@@ -287,16 +302,35 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
                                               plain, generator)
     h_V = linear(params["W_v"], V)
     h_E = linear(params["W_e"], E)
+    layers = params["encoder"]
+    cdt = _trunk_dtype(cfg)
+    if cdt is not None:
+        layers = cast_tree(layers, cdt)
+        h_V, h_E, mask, mask_attend = (t.to(cdt) for t in (h_V, h_E, mask,
+                                                           mask_attend))
     B, L, K = E_idx.shape
     H = h_V.shape[-1]
     h_E2 = h_E.reshape(B * L * K, H)
     eidx2 = E_idx.reshape(-1)
     mask_att2 = mask_attend.reshape(-1)
     drop = generator_dropout(cfg.dropout, generator)
-    for p in params["encoder"]:
+    for p in layers:
         h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
                               plain=plain)
     return h_V, h_E2.view(B, L, K, H), E_idx
+
+
+def _trunk_dtype(cfg: ModelConfig):
+    """bf16 for the bf16 trunk, else None (the layers run in the input
+    type)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def _logits(params, h_V):
+    """``W_out`` on the decoder's output, in fp32 for a bf16 trunk."""
+    if h_V.dtype == torch.bfloat16:
+        h_V = h_V.float()
+    return linear(params["W_out"], h_V)
 
 
 def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
@@ -305,13 +339,19 @@ def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
     dropout on the node message and the FFN output (``run_layer_kernel``)."""
     plain = _plain(cfg, h_V)
     B, L, K = E_idx.shape
+    layers = params["decoder"]
+    cdt = _trunk_dtype(cfg)
+    if cdt is not None:
+        layers = cast_tree(layers, cdt)
+        h_V, h_E, h_S, mask, mask_bw = (t.to(cdt) for t in (h_V, h_E, h_S, mask,
+                                                           mask_bw))
     h_E2 = h_E.reshape(B * L * K, -1)
     eidx2 = E_idx.reshape(-1)
     m1d2 = mask[:, :, None].expand(B, L, K).reshape(-1)
     mbw2 = mask_bw.reshape(-1)
     drop = generator_dropout(cfg.dropout, generator)
     h_V_enc = h_V
-    for p in params["decoder"]:
+    for p in layers:
         h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,
                         drop, plain=plain)
     return h_V
@@ -339,7 +379,7 @@ def forward(params, cfg: ModelConfig, batch, generator=None):
     mask_bw, _ = autoregressive_edge_masks(decoding_order, E_idx, mask)
     h_V = _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
                             generator)
-    logits = linear(params["W_out"], h_V)
+    logits = _logits(params, h_V)
     return torch.log_softmax(logits, dim=-1), torch.softmax(logits, dim=-1)
 
 
@@ -356,7 +396,7 @@ def score(params, cfg: ModelConfig, batch, decoding_order=None,
     mask_bw, _ = autoregressive_edge_masks(decoding_order, E_idx, mask)
     h_S = embed_tokens(params, batch["S"])
     h_V = _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw)
-    logits = linear(params["W_out"], h_V)
+    logits = _logits(params, h_V)
     return {"S": batch["S"], "log_probs": torch.log_softmax(logits, dim=-1),
             "decoding_order": decoding_order}
 
@@ -371,7 +411,7 @@ def unconditional_probs(params, cfg: ModelConfig, batch):
     zeros_bw = torch.zeros(E_idx.shape + (1,), dtype=h_V.dtype, device=h_V.device)
     h_V = _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask,
                             torch.zeros_like(h_V), zeros_bw)
-    logits = linear(params["W_out"], h_V)
+    logits = _logits(params, h_V)
     return {"log_probs": torch.log_softmax(logits, dim=-1)}
 
 
@@ -411,6 +451,7 @@ def sample(params, cfg: ModelConfig, batch, generator: Optional[torch.Generator]
     L = batch["S"].shape[-1]
     B = num_samples
     h_V0, h_E, E_idx = encode(params, cfg, batch)
+    h_V0, h_E = widen(h_V0), widen(h_E)    # the fp32 sampler of a bf16 trunk
     h_V0 = h_V0[0].expand(B, *h_V0.shape[1:])
     h_E = h_E[0].expand(B, *h_E.shape[1:])
     E_idx = E_idx[0].expand(B, *E_idx.shape[1:])
@@ -453,7 +494,7 @@ def sample_multi(params, cfg: ModelConfig, batch, generator: Optional[torch.Gene
         return x.repeat_interleave(samples_per_structure, dim=0)
 
     h_V0, h_E, E_idx = encode(params, cfg, batch)
-    h_V0, h_E, E_idx = rep(h_V0), rep(h_E), rep(E_idx)
+    h_V0, h_E, E_idx = rep(widen(h_V0)), rep(widen(h_E)), rep(E_idx)
     mask = rep(batch["mask"].to(h_V0.dtype))
     chain_mask = mask * rep(batch["chain_mask"].to(h_V0.dtype))
     S_true = rep(batch["S"].long())
@@ -613,6 +654,7 @@ def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Gener
     n_dec = cfg.num_decoder_layers
     groups = np.asarray(groups)
     h_V0, h_E, E_idx = encode(params, cfg, batch)
+    h_V0, h_E = widen(h_V0), widen(h_E)
     dtype, device = h_V0.dtype, h_V0.device
     h_V0 = h_V0[0].expand(B, *h_V0.shape[1:])
     h_E = h_E[0].expand(B, *h_E.shape[1:])

@@ -29,6 +29,17 @@ in a ``torch.autograd.Function`` when a gradient is wanted: ``eidx2``,
 ``mask_att2`` and ``mbw2`` are structural and get none; the weights enter as
 row blocks of ``W1`` (views), so autograd carries ``dwa``/``dwb`` into ``W1``.
 
+The bf16 trunk: every operand bf16 (weights, masks and tables included)
+selects the TPU kernels' ``compute_dtype=bfloat16`` branch, with the JAX
+package's rounding points and no others. Each product takes bf16 operands
+and sums in fp32 (``dotp``); the activations between products are fp32
+rounded to bf16 where they feed a product; the outputs and the saved ``x``
+are bf16, and the backward resumes from that rounded ``x``; the table
+gradient sums bf16-rounded edge contributions in fp32 and is rounded once;
+bias sums run in fp32 on unrounded values; every gradient comes back bf16
+(the weights' type). The kernels export ``*_bf16`` entries of the same
+sources; their launches count under ``<name>_bf16``.
+
 The same message MLP on a pre-gathered neighbour operand ``G [N*K,H]``
 (replaces ``message_mlp``: ``_message_fwd_call`` and ``_message_bwd_call``)
 is ``csrc/message_mlp.cu`` and ``csrc/message_mlp_bwd.cu`` with their plain
@@ -45,34 +56,47 @@ import ctypes
 import torch
 
 from . import LAUNCHES, check_operand, raise_on_error
-from ..models.modules import MESSAGE_SCALE, gelu
+from ..models.modules import MESSAGE_SCALE, dotp, gelu, widen
 
 MODES = {"enc_node": 0, "enc_edge": 1, "dec": 2}
 MAX_K = 64
+
+
+def message_table_acc(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
+                      wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None):
+    """The message table's function up to its stores: (``out``, ``x``) in
+    the accumulation type (fp32 for bf16 operands, else the operands'
+    type), before the outputs are rounded to the operands' type."""
+    N, H = h_V2.shape
+    Lk = L if Lk is None else Lk
+    low = h_V2.dtype == torch.bfloat16
+    node = torch.arange(N, device=h_V2.device).repeat_interleave(K)
+    g = widen(table2[(node // L) * Lk + eidx2])
+    x = dotp(h_V2, wa, low).repeat_interleave(K, dim=0) + widen(b1)
+    e = dotp(h_E2, wb, low)
+    if mode == "dec":
+        m1d, mbw = widen(mask_att2)[:, None], widen(mbw2)[:, None]
+        x = x + m1d * e + mbw * g[:, :H] + m1d * g[:, H:]
+    else:
+        x = x + e + g
+    m = dotp(gelu(dotp(gelu(x), w2, low) + widen(b2)), w3, low) + widen(b3)
+    if mode == "enc_node":
+        m = m * widen(mask_att2)[:, None]
+    if mode != "enc_edge":
+        m = m.view(N, K, H).sum(dim=1) / MESSAGE_SCALE
+    return m, x
 
 
 def message_table_plain(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
                         wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None,
                         save_x=False):
     """Plain version of the kernel (same arguments, same outputs). With
-    ``save_x`` it returns ``(out, x)``, ``x`` the pre-GELU ``[N*K,H]``."""
-    N, H = h_V2.shape
-    Lk = L if Lk is None else Lk
-    node = torch.arange(N, device=h_V2.device).repeat_interleave(K)
-    g = table2[(node // L) * Lk + eidx2]
-    x = (h_V2 @ wa).repeat_interleave(K, dim=0) + b1
-    e = h_E2 @ wb
-    if mode == "dec":
-        m1d, mbw = mask_att2[:, None], mbw2[:, None]
-        x = x + m1d * e + mbw * g[:, :H] + m1d * g[:, H:]
-    else:
-        x = x + e + g
-    m = gelu(gelu(x) @ w2 + b2) @ w3 + b3
-    if mode == "enc_node":
-        m = m * mask_att2[:, None]
-    if mode != "enc_edge":
-        m = m.view(N, K, H).sum(dim=1) / MESSAGE_SCALE
-    return (m, x) if save_x else m
+    ``save_x`` it returns ``(out, x)``, ``x`` the pre-GELU ``[N*K,H]``.
+    Outputs in the operands' type (bf16 operands: the bf16 variant)."""
+    m, x = message_table_acc(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
+                             wa, wb, b1, w2, b2, w3, b3, K=K, L=L, Lk=Lk)
+    dt = h_V2.dtype
+    return (m.to(dt), x.to(dt)) if save_x else m.to(dt)
 
 
 def _check_mode(mode, N, K, L, H):
@@ -86,32 +110,43 @@ def _check_mode(mode, N, K, L, H):
                          f"structures of L={L}")
 
 
+def _dtype_of(t):
+    """The kernels' operand type of a launch: fp32, or bf16 for the bf16
+    variant (suffix of the symbol and of the launch count)."""
+    if t.dtype == torch.float32:
+        return t.dtype, ""
+    if t.dtype == torch.bfloat16:
+        return t.dtype, "_bf16"
+    raise ValueError(f"message kernel: expected float32 or bfloat16, got {t.dtype}")
+
+
 def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
                        wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None,
                        save_x=False):
-    """Launch ``csrc/message_table.cu`` on fp32 CUDA tensors."""
+    """Launch ``csrc/message_table.cu`` on CUDA tensors, all fp32 or all
+    bf16 (then the bf16 variant, bf16 outputs)."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V2.shape
     Lk = L if Lk is None else Lk
     _check_mode(mode, N, K, L, H)
-    f32 = torch.float32
+    dt, sfx = _dtype_of(h_V2)
     C = 2 * H if mode == "dec" else H
-    check_operand(h_V2, "h_V2", f32, (N, H))
-    check_operand(h_E2, "h_E2", f32, (N * K, H))
-    check_operand(table2, "table2", f32, (N // L * Lk, C))
+    check_operand(h_V2, "h_V2", dt, (N, H))
+    check_operand(h_E2, "h_E2", dt, (N * K, H))
+    check_operand(table2, "table2", dt, (N // L * Lk, C))
     check_operand(eidx2, "eidx2", torch.int64, (N * K,))
-    check_operand(mask_att2, "mask_att2", f32, (N * K,))
-    check_operand(mbw2, "mbw2", f32, (N * K,))
+    check_operand(mask_att2, "mask_att2", dt, (N * K,))
+    check_operand(mbw2, "mbw2", dt, (N * K,))
     for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
-        check_operand(w, name, f32, (H, H))
+        check_operand(w, name, dt, (H, H))
     for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
-        check_operand(b, name, f32, (H,))
-    out = torch.empty((N * K if mode == "enc_edge" else N, H), dtype=f32,
+        check_operand(b, name, dt, (H,))
+    out = torch.empty((N * K if mode == "enc_edge" else N, H), dtype=dt,
                       device=h_V2.device)
-    x = (torch.empty((N * K, H), dtype=f32, device=h_V2.device)
+    x = (torch.empty((N * K, H), dtype=dt, device=h_V2.device)
          if save_x else None)
-    fn = library("message_table").message_table_forward
+    fn = getattr(library("message_table"), "message_table_forward" + sfx)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -120,8 +155,8 @@ def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
     err = fn(MODES[mode], *[ptr(t) for t in tensors],
              ptr(x) if save_x else None, N, K, L, Lk, H,
              stream_ptr(h_V2.device))
-    raise_on_error(err, "message_table")
-    LAUNCHES[f"message_table_{mode}"] += 1
+    raise_on_error(err, "message_table" + sfx)
+    LAUNCHES[f"message_table_{mode}{sfx}"] += 1
     return (out, x) if save_x else out
 
 
@@ -137,67 +172,77 @@ def message_table_bwd_plain(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     and the cotangent ``g`` of the output (``[N,H]``, or ``[N*K,H]`` in
     enc_edge) -> ``(g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3,
     db3)``, the outputs of ``_message_table_bwd_call`` (biases ``[H]``;
-    ``g_table`` ``[B*Lk, C]``, as the table)."""
+    ``g_table`` ``[B*Lk, C]``, as the table), in the operands' type."""
     N, H = h_V2.shape
     Lk = L if Lk is None else Lk
+    low = h_V2.dtype == torch.bfloat16
+    x = widen(x)
     u1 = gelu(x)
-    y = u1 @ w2 + b2
+    y = dotp(u1, w2, low) + widen(b2)
+    g = widen(g)
     if mode == "enc_edge":
         g_m = g
     else:
         g_m = g.repeat_interleave(K, dim=0)
         if mode == "enc_node":
-            g_m = g_m * mask_att2[:, None]
+            g_m = g_m * widen(mask_att2)[:, None]
         g_m = g_m / MESSAGE_SCALE
-    dw3 = gelu(y).T @ g_m
-    g_y = (g_m @ w3.T) * gelu_grad(y)
-    dw2 = u1.T @ g_y
-    g_x = (g_y @ w2.T) * gelu_grad(x)
+    dw3 = dotp(gelu(y).T, g_m, low)
+    g_y = dotp(g_m, w3.T, low) * gelu_grad(y)
+    dw2 = dotp(u1.T, g_y, low)
+    g_x = dotp(g_y, w2.T, low) * gelu_grad(x)
     if mode == "dec":
-        g_e = mask_att2[:, None] * g_x
-        tab = torch.cat([mbw2[:, None] * g_x, g_e], dim=1)
+        g_e = widen(mask_att2)[:, None] * g_x
+        tab = torch.cat([widen(mbw2)[:, None] * g_x, g_e], dim=1)
     else:
         g_e = tab = g_x
+    if low:    # each edge's contribution rounded, then summed in fp32
+        tab = tab.to(torch.bfloat16).float()
     node = torch.arange(N, device=x.device).repeat_interleave(K)
     g_table = torch.zeros((N // L * Lk, tab.shape[1]), dtype=x.dtype,
                           device=x.device)
     g_table.index_add_(0, (node // L) * Lk + eidx2, tab)
     s = g_x.view(N, K, H).sum(dim=1)
-    return (s @ wa.T, g_e @ wb.T, g_table, h_V2.T @ s, h_E2.T @ g_e,
-            g_x.sum(0), dw2, g_y.sum(0), dw3, g_m.sum(0))
+    grads = (dotp(s, wa.T, low), dotp(g_e, wb.T, low), g_table,
+             dotp(h_V2.T, s, low), dotp(h_E2.T, g_e, low), g_x.sum(0), dw2,
+             g_y.sum(0), dw3, g_m.sum(0))
+    return tuple(t.to(h_V2.dtype) for t in grads)
 
 
 def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
                            wa, wb, b1, w2, b2, w3, b3, g, *, K, L, Lk=None):
-    """Launch ``csrc/message_table_bwd.cu`` on fp32 CUDA tensors (same
-    contract as ``message_table_bwd_plain``)."""
+    """Launch ``csrc/message_table_bwd.cu`` on CUDA tensors, all fp32 or all
+    bf16 (same contract as ``message_table_bwd_plain``). The bf16 variant
+    sums the table and weight gradients in fp32 and rounds them here, once,
+    as the JAX VJP does (``message_kernels.py:581-585``)."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V2.shape
     Lk = L if Lk is None else Lk
     _check_mode(mode, N, K, L, H)
+    dt, sfx = _dtype_of(h_V2)
     f32 = torch.float32
     C = 2 * H if mode == "dec" else H
-    check_operand(h_V2, "h_V2", f32, (N, H))
-    check_operand(h_E2, "h_E2", f32, (N * K, H))
-    check_operand(x, "x", f32, (N * K, H))
+    check_operand(h_V2, "h_V2", dt, (N, H))
+    check_operand(h_E2, "h_E2", dt, (N * K, H))
+    check_operand(x, "x", dt, (N * K, H))
     check_operand(eidx2, "eidx2", torch.int64, (N * K,))
-    check_operand(mask_att2, "mask_att2", f32, (N * K,))
-    check_operand(mbw2, "mbw2", f32, (N * K,))
+    check_operand(mask_att2, "mask_att2", dt, (N * K,))
+    check_operand(mbw2, "mbw2", dt, (N * K,))
     for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
-        check_operand(w, name, f32, (H, H))
-    check_operand(b2, "b2", f32, (H,))
-    check_operand(g, "g", f32, (N * K if mode == "enc_edge" else N, H))
+        check_operand(w, name, dt, (H, H))
+    check_operand(b2, "b2", dt, (H,))
+    check_operand(g, "g", dt, (N * K if mode == "enc_edge" else N, H))
     dev = h_V2.device
-    g_hV = torch.empty((N, H), dtype=f32, device=dev)
-    g_ein = torch.empty((N * K, H), dtype=f32, device=dev)
+    g_hV = torch.empty((N, H), dtype=dt, device=dev)
+    g_ein = torch.empty((N * K, H), dtype=dt, device=dev)
     g_table = torch.zeros((N // L * Lk, C), dtype=f32, device=dev)
     nslot = 4 * H * H + 3 * H
     nparts = torch.cuda.get_device_properties(dev).multi_processor_count
     part = torch.empty((nparts, nslot), dtype=f32, device=dev)
     wT = torch.empty((4, H, H), dtype=f32, device=dev)
     wgrad = torch.empty((nslot,), dtype=f32, device=dev)
-    fn = library("message_table_bwd").message_table_backward
+    fn = getattr(library("message_table_bwd"), "message_table_backward" + sfx)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -205,8 +250,9 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
                g_hV, g_ein, g_table, part, wT, wgrad)
     err = fn(MODES[mode], *[ptr(t) for t in tensors], N, K, L, Lk, H, nparts,
              stream_ptr(dev))
-    raise_on_error(err, "message_table_bwd")
-    LAUNCHES[f"message_table_bwd_{mode}"] += 1
+    raise_on_error(err, "message_table_bwd" + sfx)
+    LAUNCHES[f"message_table_bwd_{mode}{sfx}"] += 1
+    g_table, wgrad = g_table.to(dt), wgrad.to(dt)
     HH = H * H
     dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
     db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))

@@ -132,26 +132,27 @@ def rbf_edge_dw_cuda(X_aug, X_m_aug, E_idx, g, X_aug_k=None, X_m_k=None):
 
 class RbfProjection(torch.autograd.Function):
     """An RBF projection with its weight-gradient kernel, ``kernels = (the
-    forward's CUDA entry, the weight gradient's)``, the dense plain versions
-    on the CPU; no gradient to coordinates, masks or neighbours. The classed
-    projection (``ops/rbf_classed.py``) runs through it too."""
+    forward's CUDA entry, the weight gradient's, their two plain
+    versions)``, the plain versions on the CPU; no gradient to coordinates,
+    masks or neighbours. The classed projection (``ops/rbf_classed.py``, fp32
+    and bf16) runs through it too."""
 
     @staticmethod
     def forward(ctx, kernels, X_aug, X_m_aug, X_aug_k, X_m_k, E_idx, W):
-        ctx.dw = kernels[1]
+        ctx.dw = kernels[1] if X_aug.is_cuda else kernels[3]
         ctx.save_for_backward(X_aug, X_m_aug, X_aug_k, X_m_k, E_idx)
-        fn = kernels[0] if X_aug.is_cuda else rbf_edge_features_plain
+        fn = kernels[0] if X_aug.is_cuda else kernels[2]
         return fn(X_aug, X_m_aug, E_idx, W, X_aug_k, X_m_k)
 
     @staticmethod
     def backward(ctx, g):
         X_aug, X_m_aug, X_aug_k, X_m_k, E_idx = ctx.saved_tensors
-        fn = ctx.dw if g.is_cuda else rbf_edge_dw_plain
-        return (None,) * 6 + (fn(X_aug, X_m_aug, E_idx, g.contiguous(),
-                                 X_aug_k, X_m_k),)
+        return (None,) * 6 + (ctx.dw(X_aug, X_m_aug, E_idx, g.contiguous(),
+                                     X_aug_k, X_m_k),)
 
 
-_KERNELS = (rbf_edge_cuda, rbf_edge_dw_cuda)
+_KERNELS = (rbf_edge_cuda, rbf_edge_dw_cuda, rbf_edge_features_plain,
+            rbf_edge_dw_plain)
 
 
 def rbf_edge_features(X_aug, X_m_aug, E_idx, W):

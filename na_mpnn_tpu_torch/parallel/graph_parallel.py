@@ -160,7 +160,7 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     step)`` turns on training randomness (coordinate noise, dropout);
     ``None`` is deterministic, and then the rows equal the one-device
     ``forward`` with the same decode order."""
-    check_supported(cfg)
+    check_supported(cfg, mesh=True)
     X = batch["X"]
     plain = _plain(cfg, X)
     B, Ls = batch["S"].shape

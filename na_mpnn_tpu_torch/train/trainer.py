@@ -1,6 +1,6 @@
 """The training step: forward + loss + gradients + Noam-Adam update, the
 evaluation step and ``.npz`` checkpoints (port of the JAX package's
-``train/trainer.py::Trainer``, fp32), on one device or on a
+``train/trainer.py::Trainer``), on one device or on a
 ``torch.distributed`` mesh; and ``run_training``, the training loop over
 the data stack (``data/dataset.py``, ``data/loader.py``) with metrics, logs,
 checkpoints and resume.
@@ -24,6 +24,12 @@ save straight into the JAX checkpoint layout: ``opt/leaf0000..0003`` =
 
 Batches are host numpy dicts (``collate_batch``); they reach the card as one
 pinned-memory, non-blocking copy per array.
+
+``MIXED_PRECISION`` (default 1, as in the JAX package) selects the bf16
+trunk (``compute_dtype="bfloat16"``, one device): the parameters, the flat
+gradient and the Noam-Adam state stay fp32 (the model casts the layers'
+parameters in its forward, so autograd returns their gradients in fp32),
+and the ``.npz`` checkpoints are those of an fp32 run.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..models import ModelConfig, forward, init_params
+from ..models.config import check_supported
 from ..params import load_checkpoint_npz, save_checkpoint_npz
 from ..parallel.graph_parallel import all_gather_rows, forward_graph_parallel
 from ..parallel.mesh import Mesh, all_gather_batch, replicated, shard_batch
@@ -135,6 +142,7 @@ class Trainer:
                  loss_tokens=6000.0, grad_clip_norm=1.0,
                  na_shared_tokens=True, seed=0, device="cuda",
                  mesh: Mesh = None, dtype=torch.float32):
+        check_supported(cfg, mesh=mesh is not None)
         self.cfg = cfg
         self.mesh = mesh
         self.seed = seed
@@ -400,8 +408,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
     waiting for the next training batch) and ``steps`` (training steps taken
     in the epoch, a ``PROFILE_DIR`` capture's included).
 
-    ``MIXED_PRECISION: 1`` (the bf16 trunk) and ``CHECKPOINT_FORMAT:
-    "orbax"`` are not ported and raise."""
+    ``MIXED_PRECISION`` (default 1) trains the bf16 trunk on one device;
+    with a mesh it raises, as ``CHECKPOINT_FORMAT: "orbax"`` does."""
     from .. import constants
     from ..data.dataset import (DatasetConfig, NADataset, make_batch_iter,
                                 parse_date, read_examples_csv)
@@ -415,10 +423,6 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
             p = json.load(f)
     else:
         p = dict(config_path_or_dict)
-    if p.get("MIXED_PRECISION", 1):
-        raise NotImplementedError(
-            "MIXED_PRECISION: 1 (the bf16 trunk) is not ported; set "
-            "MIXED_PRECISION: 0 to train in fp32")
     if p.get("CHECKPOINT_FORMAT", "npz") != "npz":
         raise NotImplementedError(
             f"CHECKPOINT_FORMAT {p['CHECKPOINT_FORMAT']!r}: only npz is ported")

@@ -1,7 +1,7 @@
 """The port stands alone: ``na_mpnn_tpu_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor anything of the JAX package ``na_mpnn_tpu``, and the
 port runs its CLI (design, symmetry-tied design, score), batch design,
-trainer, preprocessing CLI and training CLI where neither JAX nor pandas can
+trainer (fp32 and the bf16 trunk), preprocessing CLI and training CLI where neither JAX nor pandas can
 be imported. ``run_training`` on a gloo world of 2 CPU processes logs the
 losses of a world of 1 (both on the mesh route, whose random streams are
 keyed by global row, so the two split the same draws)."""
@@ -62,6 +62,12 @@ trainer = Trainer(cfg, seed=0, device="cpu")
 gen = torch.Generator().manual_seed(0)
 losses = [float(trainer.train_step(batch, gen)["loss_av"]) for _ in range(2)]
 assert trainer.step == 2 and all(l == l for l in losses), losses
+cfg16 = dataclasses.replace(model_config_from_params({}), hidden_dim=32,
+                            node_features=32, edge_features=32, k_neighbors=8)
+assert cfg16.compute_dtype == "bfloat16" and batch["S"].shape[1] % 32 == 0
+trainer16 = Trainer(cfg16, seed=0, device="cpu")
+loss16 = float(trainer16.train_step(batch, gen)["loss_av"])
+assert loss16 == loss16 and trainer16.flat.dtype == torch.float32
 import json
 from na_mpnn_tpu_torch.cli.train import main as train_main
 csv_path = chip_smoke.write_training_set(out + "/ds", [

@@ -73,5 +73,5 @@ def test_plain_option_matches_auto_on_cpu():
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="CUDA"):
         encode(pt, ModelConfig(kernels="cuda", **SMALL), bt)
-    with pytest.raises(NotImplementedError):
-        encode(pt, ModelConfig(compute_dtype="bfloat16", **SMALL), bt)
+    with pytest.raises(NotImplementedError, match="remat"):
+        encode(pt, ModelConfig(remat="full", **SMALL), bt)

@@ -251,7 +251,7 @@ def test_resume_replays_the_epoch_bitwise(data, two_epochs, tmp_path):
     assert torch.equal(straight.opt_state.nu, resumed.opt_state.nu)
 
 
-@pytest.mark.parametrize("override", [{"MIXED_PRECISION": 1},
+@pytest.mark.parametrize("override", [{"ATOMS_TO_LOAD": "all"},
                                       {"CHECKPOINT_FORMAT": "orbax"}])
 def test_unported_options_raise(data, tmp_path, override):
     with pytest.raises(NotImplementedError):
