@@ -71,7 +71,20 @@ CUDA toolkit. Phases, each of which raises on failure:
    ``kernels="torch"`` at bf16; and ``run_training`` for 1 epoch from a
    config without ``MIXED_PRECISION``, with a profile beside the fp32
    loop's;
-9. one JSON line of the kernels (launches on the main paths, error, times,
+9. the rest of the bf16 trunk: the bf16 variants of rows 5-8 against their
+   plain bf16 versions (the dense RBF and its weight gradient at the
+   training shape, < 2^-8; rows 3-6 at bf16 also for a 192-row shard
+   against the structure's 768 key rows, the graph-parallel route's
+   operands; the message MLP and its backward at N = 6000 in all four
+   variants, < 2^-6; the weight gradients of rows 4, 6, 8 bitwise equal
+   across two launches); 5 bf16 Trainer steps with ``rbf_mode="dense"``
+   (rows 5, 6 bf16: 1 + 1 per step) and 5 on the unbucketed batch (rows 7,
+   8 bf16: 3 + 3 per step), each with ms per step and peak memory beside
+   its fp32 counterpart of this run and one step against ``kernels="torch"``
+   at bf16; 3 bf16 steps of ``Trainer(mesh=(1,1))`` on the one-rank NCCL
+   mesh (the G = 1 policy: the one-device trunk) and one deterministic step
+   against the one-device bf16 step;
+10. one JSON line of the kernels (launches on the main paths, error, times,
    bound), then the card's name and power limit as ``nvidia-smi`` gives
    them and, last, the device JSON.
 
@@ -245,10 +258,11 @@ def _knn_bound(B, L, K, Lk=None):
 
 def _rbf_bound(X_aug, X_m_aug, E_idx, H, num_rbf=16, w_bytes=4,
                peak=PEAK_FP32_FLOPS):
-    """The classed RBF projection and its weight gradient: 16 * (2H + 8)
-    operations per present atom pair of each edge (the data decides how
-    many); bytes: coordinates, masks, neighbours, one [E, H] fp32 tensor and
-    one [5184, H] of ``w_bytes`` per element (the bf16 forward's tables)."""
+    """The RBF projection (classed or dense) and its weight gradient: 16 *
+    (2H + 8) operations per present atom pair of each edge (the data decides
+    how many); bytes: coordinates, masks, neighbours, one [E, H] fp32 tensor
+    and one [5184, H] of ``w_bytes`` per element (the bf16 forward's
+    weight)."""
     import torch
     B, L, K = E_idx.shape
     nq = X_m_aug.sum(-1)                                         # [B,L]
@@ -1088,14 +1102,44 @@ BF16_TOL = 2.0 ** -6
 # The bf16 RBF's fp32 sums of bf16 products: a bin that rounds apart moves a
 # sum by 2^-8 of one term.
 RBF_BF16_TOL = 2.0 ** -8
+# The dense bf16 RBF (rows 5, 6) against its plain version: the readings on
+# an H100 were 1.98e-4 / 4.57e-5 at the training shape (2.35e-4 / 7.08e-5
+# with key rows), from bins that lie within an fp32 ulp of a bf16 boundary
+# and round apart (``__expf`` against PyTorch's exp); 1e-3 keeps a margin of
+# four and stays below what the bf16 rounding moves the sums.
+RBF_EDGE_BF16_TOL = 1e-3
+
+
+def _rms_rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).pow(2).mean().sqrt()) / (float(b.pow(2).mean().sqrt()) + 1e-30)
+
+
+def _check_rounding(name, got, want, fp32):
+    """Holds a bf16 variant to its rounding points: its root-mean-square
+    distance from the fp32 kernel on the same (widened) inputs must be more
+    than twice its distance from its plain bf16 version, so a variant that
+    skipped a bf16 rounding, and so sat nearer the fp32 result, fails. The
+    root mean square, not the max, since one flipped rounding moves the max
+    as far as the rounding itself does. Returns the two distances."""
+    err, sep = _rms_rel(got.float(), want.float()), _rms_rel(got.float(), fp32.float())
+    if not sep > 2 * err:
+        raise AssertionError(f"{name}: rms distance {sep:.3g} from the fp32 kernel is "
+                             f"not twice its {err:.3g} from the plain bf16 version")
+    return err, sep
 
 
 def bf16_kernel_phase(nb):
-    """The bf16 variants of rows 3, 4, 9, 10, 11 and 12 against their plain
-    bf16 versions on the card at the training shape (B=8, L=768, K=32,
-    H=128; 6144 nodes, 196,608 edges), TF32 off: the RBF projection and its
-    weight gradient (relative error < 2^-8; two weight-gradient launches
-    bitwise equal), the message table in three modes with its saved ``x``
+    """The bf16 variants of rows 3-6 and 9-12 against their plain bf16
+    versions on the card at the training shape (B=8, L=768, K=32, H=128;
+    6144 nodes, 196,608 edges), TF32 off: the classed and the dense RBF
+    projection and their weight gradients (relative error < 2^-8 classed,
+    < 1e-3 dense, the dense ones also nearer their plain versions than the
+    fp32 kernels, ``_check_rounding``; two weight-gradient launches bitwise
+    equal), each also for a 192-row shard
+    against the structure's 768 key rows (the graph-parallel route's
+    operands; equal to the structure's own rows within 1e-6), the message
+    table in three modes with its saved ``x``
     and its backward (< 2^-6 on every output; two backward launches bitwise
     equal except the table gradient, whose spread from atomics is printed)
     and the fused node (encoder, decoder) and edge updates of ``eval_step``
@@ -1107,7 +1151,7 @@ def bf16_kernel_phase(nb):
     from na_mpnn_tpu_torch.models.features import build_augmented_atoms
     from na_mpnn_tpu_torch.models.modules import cast_tree
     from na_mpnn_tpu_torch.ops import fused_layers as fl
-    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_classed
+    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_classed, rbf_edge
     from na_mpnn_tpu_torch.train.trainer import to_device
 
     dev = torch.device("cuda")
@@ -1124,10 +1168,14 @@ def bf16_kernel_phase(nb):
     gen = torch.Generator(device=dev).manual_seed(11)
     rows = {}
 
-    def row(name, got, want, tol, call, plain_call, bound, iters, note=""):
+    def row(name, got, want, tol, call, plain_call, bound, iters, note="",
+            fp32=None):
         err = _rel_err(got.float(), want.float())
         if not err < tol:
             raise AssertionError(f"{name}: relative error {err:.3g} (tol {tol:.3g})")
+        if fp32 is not None:
+            note += ("; rms {:.3g} from plain vs {:.3g} from the fp32 kernel"
+                     .format(*_check_rounding(name, got, want, fp32)))
         ms = _sync_time(call, iters)
         plain_ms = _sync_time(plain_call, 2)
         print(f"{name} B={B} L={L} K={K} H={H}: rel err {err:.3g} (< {tol:.3g}){note}, "
@@ -1157,7 +1205,59 @@ def bf16_kernel_phase(nb):
         lambda: rbf_classed.rbf_classed_dw_bf16_plain(*dw_args),
         _rbf_bound(X_aug, X_m_aug, E_idx, H, peak=PEAK_BF16_FLOPS), 5,
         ", two launches bitwise equal")
-    del dw_k, g, params
+
+    # rows 5 and 6: the dense RBF on the reference-order weight
+    W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
+    rbf_args = (X_aug, X_m_aug, E_idx, W)
+    row("rbf_edge_bf16", rbf_edge.rbf_edge_bf16_cuda(*rbf_args),
+        rbf_edge.rbf_edge_bf16_plain(*rbf_args), RBF_EDGE_BF16_TOL,
+        lambda: rbf_edge.rbf_edge_bf16_cuda(*rbf_args),
+        lambda: rbf_edge.rbf_edge_bf16_plain(*rbf_args),
+        _rbf_bound(X_aug, X_m_aug, E_idx, H, w_bytes=2, peak=PEAK_BF16_FLOPS), 5,
+        fp32=rbf_edge.rbf_edge_cuda(*rbf_args))
+    dw_k = rbf_edge.rbf_edge_dw_bf16_cuda(*dw_args)
+    if not torch.equal(dw_k, rbf_edge.rbf_edge_dw_bf16_cuda(*dw_args)):
+        raise AssertionError("rbf_edge_dw_bf16: two launches differ")
+    row("rbf_edge_dw_bf16", dw_k, rbf_edge.rbf_edge_dw_bf16_plain(*dw_args),
+        RBF_EDGE_BF16_TOL, lambda: rbf_edge.rbf_edge_dw_bf16_cuda(*dw_args),
+        lambda: rbf_edge.rbf_edge_dw_bf16_plain(*dw_args),
+        _rbf_bound(X_aug, X_m_aug, E_idx, H, peak=PEAK_BF16_FLOPS), 5,
+        ", two launches bitwise equal", fp32=rbf_edge.rbf_edge_dw_cuda(*dw_args))
+    del dw_k
+
+    # rows 3-6 with key rows of their own: the second of four 192-row shards
+    # of the graph-parallel route against the whole structure's 768 rows
+    s0, Lq = 192, 192
+    Xq, Mq = X_aug[:, s0:s0 + Lq].contiguous(), X_m_aug[:, s0:s0 + Lq].contiguous()
+    Eq = E_idx[:, s0:s0 + Lq].contiguous()
+    gq = g[:, s0:s0 + Lq].contiguous()
+    W_fold = rbf_classed.fold_scaled(W)
+    for name, fwd, fwd_plain, dw, dw_plain, w, tol in (
+            ("rbf_classed", rbf_classed.rbf_classed_bf16_cuda,
+             rbf_classed.rbf_classed_bf16_plain, rbf_classed.rbf_classed_dw_bf16_cuda,
+             rbf_classed.rbf_classed_dw_bf16_plain, W_fold, RBF_BF16_TOL),
+            ("rbf_edge", rbf_edge.rbf_edge_bf16_cuda, rbf_edge.rbf_edge_bf16_plain,
+             rbf_edge.rbf_edge_dw_bf16_cuda, rbf_edge.rbf_edge_dw_bf16_plain, W,
+             RBF_EDGE_BF16_TOL)):
+        out_k = fwd(Xq, Mq, Eq, w, X_aug, X_m_aug)
+        err = _rel_err(out_k, fwd_plain(Xq, Mq, Eq, w, X_aug, X_m_aug))
+        # the same bins and products as the structure's own rows
+        same = _rel_err(out_k, fwd(*rbf_args[:3], w)[:, s0:s0 + Lq])
+        dw_k = dw(Xq, Mq, Eq, gq, X_aug, X_m_aug)
+        if not torch.equal(dw_k, dw(Xq, Mq, Eq, gq, X_aug, X_m_aug)):
+            raise AssertionError(f"{name}_dw_bf16 key rows: two launches differ")
+        dw_err = _rel_err(dw_k, dw_plain(Xq, Mq, Eq, gq, X_aug, X_m_aug))
+        if not (err < tol and dw_err < tol and same < 1e-6):
+            raise AssertionError(f"{name}_bf16 key rows: rel err {err:.3g}, dW "
+                                 f"{dw_err:.3g}, against the structure's rows {same:.3g}")
+        ms = _sync_time(lambda: fwd(Xq, Mq, Eq, w, X_aug, X_m_aug), 5)
+        dms = _sync_time(lambda: dw(Xq, Mq, Eq, gq, X_aug, X_m_aug), 5)
+        print(f"{name}_bf16 / {name}_dw_bf16 with key rows (B={B} Lq={Lq} of Lk={L}): "
+              f"rel err {err:.3g} / {dw_err:.3g} (< {tol:.3g}), against "
+              f"the structure's own rows {same:.3g}, dW two launches bitwise "
+              f"equal; {ms:.4f} / {dms:.4f} ms", flush=True)
+        del out_k, dw_k
+    del g, gq, params
 
     # rows 9 and 10: every operand bf16
     eidx2 = E_idx.reshape(-1).contiguous()
@@ -1255,7 +1355,8 @@ def bf16_kernel_phase(nb):
 MLP_FLAGS = ((False, True), (True, True), (True, False), (False, False))
 
 
-def _message_mlp_bound(N, K, H, contract_e, aggregate, backward=False):
+def _message_mlp_bound(N, K, H, contract_e, aggregate, backward=False, esize=4,
+                       peak=PEAK_FP32_FLOPS):
     """Least work of the pre-gathered message MLP (rows 7, 8), in the
     convention of ``_message_table_bound``: forward, per edge the W2 product
     (2 H^2), e_in@Wb with ``contract_e`` and W3 without ``aggregate`` (in the
@@ -1265,7 +1366,7 @@ def _message_mlp_bound(N, K, H, contract_e, aggregate, backward=False):
     dWb (6 H^2), without ``aggregate`` dW3 and g_m@W3^T (4 H^2), about 40 H
     elementwise; per node h_V@Wa, g_hV and dWa (6 H^2) and, summing, dW3 and
     g_m@W3^T (4 H^2). Bytes: every input read once, every output written
-    once."""
+    once, ``esize`` bytes per element (2 for bf16)."""
     ce, agg = int(contract_e), int(aggregate)
     w = 4 * H * H + 3 * H
     out = N * H if agg else N * K * H
@@ -1273,77 +1374,103 @@ def _message_mlp_bound(N, K, H, contract_e, aggregate, backward=False):
     if backward:
         ops = (N * K * ((6 + 6 * ce + 4 * (1 - agg)) * H * H + 40 * H)
                + N * (6 + 4 * agg) * H * H)
-        nbytes = 4 * (inputs + out + N * H + 2 * N * K * H + w)
+        nbytes = esize * (inputs + out + N * H + 2 * N * K * H + w)
     else:
         ops = (N * K * ((2 + 2 * ce + 2 * (1 - agg)) * H * H + 30 * H)
                + N * (2 + 2 * agg) * H * H)
-        nbytes = 4 * (inputs + out)
-    return _bound_ms(ops, nbytes)
+        nbytes = esize * (inputs + out)
+    return _bound_ms(ops, nbytes, peak)
 
 
-def message_mlp_phase():
+def message_mlp_phase(low=False):
     """Rows 7 and 8 (``csrc/message_mlp.cu``, ``csrc/message_mlp_bwd.cu``)
     against their plain versions on the card at N = 6000 nodes, K = 32, H =
-    128, in all four (contract_e, aggregate) variants: relative error < 1e-5
-    on outputs and per-node / per-edge gradients, < 1e-4 on the weight and
-    bias gradients (sums over all edges); the backward bitwise equal across
-    two launches. Returns the JSON rows of the decoder's variant (False,
-    True), the one on the training path."""
+    128, in all four (contract_e, aggregate) variants: at fp32 relative error
+    < 1e-5 on outputs and per-node / per-edge gradients, < 1e-4 on the weight
+    and bias gradients (sums over all edges); with ``low`` the bf16 variants
+    (every operand bf16) against their plain bf16 versions, < 2^-6 on every
+    bf16 output, and every output nearer its plain version than the fp32
+    kernel's on the widened inputs (``_check_rounding``), bounds at the bf16
+    peak with bf16 bytes. The backward
+    bitwise equal across two launches. Returns the JSON rows of the
+    decoder's variant (False, True), the one on the training path."""
     import torch
     from na_mpnn_tpu_torch.ops import message_kernels as mk
 
     dev = torch.device("cuda")
     N, K, H = 6000, 32, 128
+    dt = torch.bfloat16 if low else torch.float32
+    sfx = "_bf16" if low else ""
+    peak, esize = (PEAK_BF16_FLOPS, 2) if low else (PEAK_FP32_FLOPS, 4)
     gen = torch.Generator(device=dev).manual_seed(8)
-    h_V = torch.randn((N, H), generator=gen, device=dev)
-    e_in = torch.randn((N * K, H), generator=gen, device=dev)
-    G = torch.randn((N * K, H), generator=gen, device=dev)
-    mask = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).float()
-    wa, wb, w2, w3 = (torch.randn((H, H), generator=gen, device=dev) / H ** 0.5
+    h_V = torch.randn((N, H), generator=gen, device=dev).to(dt)
+    e_in = torch.randn((N * K, H), generator=gen, device=dev).to(dt)
+    G = torch.randn((N * K, H), generator=gen, device=dev).to(dt)
+    mask = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).to(dt)
+    wa, wb, w2, w3 = ((torch.randn((H, H), generator=gen, device=dev) / H ** 0.5).to(dt)
                       for _ in range(4))
-    b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev) for _ in range(3))
+    b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev).to(dt) for _ in range(3))
     args = (h_V, e_in, G, mask, wa, wb, b1, w2, b2, w3, b3)
     names = ("g_hV", "g_ein", "g_G", "dwa", "dwb", "db1", "dw2", "db2", "dw3", "db3")
+    out_tol = BF16_TOL if low else REL_TOL
+    args32 = tuple(t.float() for t in args)
     rows = {}
     for ce, agg in MLP_FLAGS:
         flags = dict(K=K, contract_e=ce, aggregate=agg)
         out_k = mk.message_mlp_cuda(*args, **flags)
         out_p = mk.message_mlp_plain(*args, **flags)
-        rel = _rel_err(out_k, out_p)
-        if not rel < REL_TOL:
-            raise AssertionError(f"message_mlp {ce, agg}: rel err {rel:.3g}")
-        g = torch.randn((N if agg else N * K, H), generator=gen, device=dev)
+        rel = _rel_err(out_k.float(), out_p.float())
+        if out_k.dtype != dt or not rel < out_tol:
+            raise AssertionError(f"message_mlp{sfx} {ce, agg}: {out_k.dtype}, "
+                                 f"rel err {rel:.3g}")
+        g = torch.randn((N if agg else N * K, H), generator=gen, device=dev).to(dt)
         got = [t.clone() for t in mk.message_mlp_bwd_cuda(*args, g, **flags)]
         again = mk.message_mlp_bwd_cuda(*args, g, **flags)
         want = mk.message_mlp_bwd_plain(*args, g, **flags)
-        errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, want)}
+        errs = {n: _rel_err(a.float(), b.float()) for n, a, b in zip(names, got, want)}
         for n, e in errs.items():
-            tol = REL_TOL if n in ("g_hV", "g_ein", "g_G") else 1e-4
+            tol = (BF16_TOL if low else
+                   REL_TOL if n in ("g_hV", "g_ein", "g_G") else 1e-4)
             if not e < tol:
-                raise AssertionError(f"message_mlp_bwd {ce, agg} {n}: rel err "
+                raise AssertionError(f"message_mlp_bwd{sfx} {ce, agg} {n}: rel err "
                                      f"{e:.3g} (tol {tol})")
-        if not all(torch.equal(a, c) for a, c in zip(got, again)):
-            raise AssertionError(f"message_mlp_bwd {ce, agg}: two launches differ")
+        rounding = ""
+        if low:     # every output against the fp32 kernel's (dwb is zero
+            # without contract_e)
+            seps = {"out": _check_rounding(f"message_mlp_bf16 {ce, agg}", out_k, out_p,
+                                           mk.message_mlp_cuda(*args32, **flags))}
+            g32 = mk.message_mlp_bwd_cuda(*args32, g.float(), **flags)
+            seps.update((n, _check_rounding(f"message_mlp_bwd_bf16 {ce, agg} {n}", a, b, c))
+                        for n, a, b, c in zip(names, got, want, g32) if n != "dwb" or ce)
+            n = min(seps, key=lambda n: seps[n][1] / (seps[n][0] + 1e-30))
+            rounding = (f"; nearest the fp32 kernel: {n}, rms {seps[n][0]:.3g} from "
+                        f"plain vs {seps[n][1]:.3g} from fp32")
+            del g32
+        if not all(a.dtype == dt and torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"message_mlp_bwd{sfx} {ce, agg}: two launches "
+                                 f"differ (or an output is not {dt})")
         ms = _sync_time(lambda: mk.message_mlp_cuda(*args, **flags), 10)
         plain_ms = _sync_time(lambda: mk.message_mlp_plain(*args, **flags), 3)
         bms = _sync_time(lambda: mk.message_mlp_bwd_cuda(*args, g, **flags), 10)
         bplain_ms = _sync_time(lambda: mk.message_mlp_bwd_plain(*args, g, **flags), 3)
-        fb = _message_mlp_bound(N, K, H, ce, agg)
-        bb = _message_mlp_bound(N, K, H, ce, agg, backward=True)
+        fb = _message_mlp_bound(N, K, H, ce, agg, esize=esize, peak=peak)
+        bb = _message_mlp_bound(N, K, H, ce, agg, backward=True, esize=esize,
+                                peak=peak)
         worst = max(errs, key=errs.get)
-        print(f"message_mlp contract_e={ce} aggregate={agg} N={N} K={K} H={H}: "
-              f"rel err {rel:.3g} (< {REL_TOL}), {ms:.4f} ms (plain {plain_ms:.4f} "
+        print(f"message_mlp{sfx} contract_e={ce} aggregate={agg} N={N} K={K} H={H}: "
+              f"rel err {rel:.3g} (< {out_tol:.3g}), {ms:.4f} ms (plain {plain_ms:.4f} "
               f"ms, bound {fb[0]:.5f} ms by {fb[1]}, {ms / fb[0]:.1f}x); backward "
               f"worst rel err {errs[worst]:.3g} ({worst}), g_hV {errs['g_hV']:.3g}, "
-              f"g_G {errs['g_G']:.3g}, two launches bitwise equal, {bms:.4f} ms "
+              f"g_G {errs['g_G']:.3g}, two launches bitwise equal{rounding}, {bms:.4f} ms "
               f"(plain {bplain_ms:.4f} ms, bound {bb[0]:.5f} ms by {bb[1]}, "
               f"{bms / bb[0]:.1f}x)", flush=True)
         if (ce, agg) == (False, True):
-            rows["message_mlp"] = dict(
-                max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
+            rows["message_mlp" + sfx] = dict(
+                max_abs_err=float((out_k.float() - out_p.float()).abs().max()), ms=ms,
                 plain_ms=plain_ms, bound_ms=fb[0], bound_by=fb[1])
-            rows["message_mlp_bwd"] = dict(
-                max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            rows["message_mlp_bwd" + sfx] = dict(
+                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(got, want)),
                 ms=bms, plain_ms=bplain_ms, bound_ms=bb[0], bound_by=bb[1])
         del out_k, out_p, got, again, want, g
     return rows
@@ -1578,13 +1705,17 @@ def unbucketed_batch():
     return batch
 
 
-def unbucketed_training_phase(nb):
-    """5 full-width Trainer steps (dropout 0.1, noise 0.1 A, fp32) on the
+def unbucketed_training_phase(nb, low=False):
+    """5 full-width Trainer steps (dropout 0.1, noise 0.1 A; fp32, or with
+    ``low`` the bf16 trunk of ``model_config_from_params({})``) on the
     unbucketed batch, where the decoder takes the gathered route: launches
     per step kNN 1, RBF 1, RBF dW 1, message table 6 and its backward 6
     (the encoder), ``message_mlp`` 3 and ``message_mlp_bwd`` 3 (the
-    decoder); then one step with the kernels against ``kernels="torch"``.
-    Returns the launches and the median step ms."""
+    decoder), all bf16 variants but the kNN with ``low``; then one step
+    with the kernels against ``kernels="torch"`` (fp32: loss < 1e-5, leaves
+    < 1e-4; bf16: loss < 1e-3, leaves < 3e-2, the plain path's backward
+    being autograd's). Returns the launches, the median step ms and the
+    peak bytes."""
     import dataclasses
 
     import torch
@@ -1592,27 +1723,31 @@ def unbucketed_training_phase(nb):
                                                  to_device)
 
     dev = torch.device("cuda")
-    cfg = model_config_from_params({"MIXED_PRECISION": 0})
+    cfg = model_config_from_params({} if low else {"MIXED_PRECISION": 0})
+    tag = "bf16 unbucketed" if low else "unbucketed"
     trainer = Trainer(cfg, seed=0, device=dev)
     want = {k: v for k, v in _expected_train_launches(cfg).items()
             if not k.endswith("dec")}
     want.update(message_mlp=cfg.num_decoder_layers,
                 message_mlp_bwd=cfg.num_decoder_layers)
+    if low:
+        want = {k if k == "knn" else k + "_bf16": n for k, n in want.items()}
     step_ms, peak, counts = _train_steps(
-        trainer, nb, want, "unbucketed train",
+        trainer, nb, want, f"{tag} train",
         generator=torch.Generator(device=dev).manual_seed(0))
     median = float(np.median(step_ms[1:]))
     B, L = nb["S"].shape
-    print(f"unbucketed training B={B} L={L} K=32 H=128: {median:.2f} ms per train "
+    print(f"{tag} training B={B} L={L} K=32 H=128: {median:.2f} ms per train "
           f"step (median of steps 2-5; all: {', '.join(f'{t:.2f}' for t in step_ms)}); "
           f"peak memory {peak / 2**30:.3f} GiB; launches per step {want}", flush=True)
-    path = os.path.join(OUT, "unbucketed.npz")
+    path = os.path.join(OUT, "unbucketed_bf16.npz" if low else "unbucketed.npz")
     trainer.save(path, epoch=1, save_step=0)
     plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
     plain.restore(path)
-    _grads_against_plain("unbucketed training", trainer, plain, to_device(nb, dev), 7,
-                         want)
-    return counts, median
+    tols = dict(loss_tol=1e-3, grad_tol=3e-2) if low else {}
+    _grads_against_plain(f"{tag} training", trainer, plain, to_device(nb, dev), 7,
+                         want, **tols)
+    return counts, median, peak
 
 
 def _trace_summary(path, steps):
@@ -1991,28 +2126,45 @@ def _expected_dense_launches(cfg):
     return {**want, "rbf_edge": 1, "rbf_edge_dw": 1}
 
 
-def dense_training_phase(nb):
+def dense_training_phase(nb, low=False):
     """5 full-width Trainer steps with ``rbf_mode="dense"`` (launches per
     step: kNN 1, dense RBF 1, its weight gradient 1, message table 9, its
-    backward 9); returns the launches and the median step ms."""
+    backward 9; with ``low`` the bf16 trunk, every one but the kNN a bf16
+    variant, and then one step with the kernels against ``kernels="torch"``
+    at bf16: loss < 1e-3, leaves < 3e-2); returns the launches, the median
+    step ms and the peak bytes."""
     import dataclasses
 
     import torch
-    from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+    from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
+                                                 to_device)
 
-    cfg = dataclasses.replace(model_config_from_params({"MIXED_PRECISION": 0}),
-                              rbf_mode="dense")
+    cfg = dataclasses.replace(
+        model_config_from_params({} if low else {"MIXED_PRECISION": 0}),
+        rbf_mode="dense")
+    tag = "bf16 dense" if low else "dense"
     trainer = Trainer(cfg, seed=0, device="cuda")
     want = _expected_dense_launches(cfg)
+    if low:
+        want = {k if k == "knn" else k + "_bf16": n for k, n in want.items()}
     step_ms, peak, counts = _train_steps(
-        trainer, nb, want, "dense train",
+        trainer, nb, want, f"{tag} train",
         generator=torch.Generator(device="cuda").manual_seed(0))
     median = float(np.median(step_ms[1:]))
-    print(f"dense training B=8 L=768 K=32 H=128: {median:.2f} ms per train step "
+    print(f"{tag} training B=8 L=768 K=32 H=128: {median:.2f} ms per train step "
           f"(median of steps 2-5; all: {', '.join(f'{t:.2f}' for t in step_ms)}); "
           f"peak memory {peak / 2**30:.3f} GiB; launches per step {want}",
           flush=True)
-    return counts, median
+    if low:
+        path = os.path.join(OUT, "dense_bf16.npz")
+        trainer.save(path, epoch=1, save_step=0)
+        plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0,
+                        device="cuda")
+        plain.restore(path)
+        _grads_against_plain(f"{tag} training", trainer, plain,
+                             to_device(nb, "cuda"), 7, want, loss_tol=1e-3,
+                             grad_tol=3e-2)
+    return counts, median, peak
 
 
 def _stream_cost(cfg, nb):
@@ -2125,8 +2277,60 @@ def mesh_phase(nb):
         plain.restore(path)
         _grads_against_plain("mesh (1,1) training", trainer, plain,
                              trainer.device_batch(nb), None, want)
+        for k, v in _bf16_mesh_steps(nb, mesh, order, median).items():
+            counts[k] = counts.get(k, 0) + v
     finally:
         dist.destroy_process_group()
+    return counts
+
+
+def _bf16_mesh_steps(nb, mesh, order, fp32_ms):
+    """The bf16 trunk on the one-rank mesh (G = 1: the one-device trunk's
+    casts, with the mesh's row-keyed streams): 3 steps of
+    ``Trainer(model_config_from_params({}), mesh=(1,1))`` with the launches
+    of each held to knn_qk 1 and the bf16 variants of rows 3, 4, 9, 10; then
+    one step without dropout and noise under a given decode order against
+    the one-device bf16 step (loss within 1e-4 relative, each gradient leaf
+    within 2^-7 of its max: row 10's table gradient adds in an order the
+    atomics choose, and a bf16 rounding of it may fall apart). Returns the
+    launches."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+
+    cfg = model_config_from_params({})
+    trainer = Trainer(cfg, seed=0, mesh=mesh)
+    want = {**_expected_bf16_launches(cfg), "knn_qk": 1}
+    del want["knn"]
+    step_ms, peak, counts = _train_steps(trainer, nb, want, "bf16 mesh train",
+                                         steps=3)
+    median = float(np.median(step_ms[1:]))
+    det = dataclasses.replace(cfg, dropout=0.0, protein_augment_eps=0.0,
+                              dna_augment_eps=0.0, rna_augment_eps=0.0)
+    ordered = {**nb, "decoding_order": order.cpu().numpy()}
+    on_mesh = Trainer(det, seed=0, mesh=mesh)
+    loss_m, grad_m = on_mesh.loss_and_grads(on_mesh.device_batch(ordered))[:2]
+    one = Trainer(det, seed=0, device=mesh.device)
+    batch = one.device_batch(ordered)
+    batch["decoding_order"] = order
+    loss_1, grad_1 = one.loss_and_grads(batch)[:2]
+    rel = abs(float(loss_m) - float(loss_1)) / abs(float(loss_1))
+    worst, off = 0.0, 0
+    for p in one.leaves:
+        a, b = grad_m[off:off + p.numel()], grad_1[off:off + p.numel()]
+        off += p.numel()
+        worst = max(worst, float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30))
+    if not (rel < 1e-4 and worst < 2.0 ** -7):
+        raise AssertionError(f"bf16 mesh (1,1) vs one device: loss rel {rel:.3g}, "
+                             f"worst gradient leaf {worst:.3g}")
+    print(f"bf16 mesh (1,1) Trainer B=8 L=768 K=32 H=128: {median:.2f} ms per "
+          f"train step (median of steps 2-3; all: "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)}) against the fp32 mesh step "
+          f"{fp32_ms:.2f} ms; peak memory {peak / 2**30:.3f} GiB; launches per step "
+          f"{want}; without dropout and noise against the one-device bf16 step: loss "
+          f"{float(loss_m):.6f} vs {float(loss_1):.6f}, rel {rel:.3g} (< 1e-4), worst "
+          f"gradient leaf {worst:.3g} of its max (< 2^-7)", flush=True)
     return counts
 
 
@@ -2155,18 +2359,30 @@ def main():
     rows.update(train_rows)
     rows.update(bf16_kernel_phase(nb))
     rows.update(message_mlp_phase())
+    rows.update(message_mlp_phase(low=True))
     rows.update(mesh_kernel_phase(nb))
     counts, classed_ms, classed_peak = training_phase(nb, fwd_ms, rows)
     add(counts)
     add(bf16_training_phase(nb, classed_ms, classed_peak))
-    counts, unbucketed_ms = unbucketed_training_phase(unbucketed_batch())
+    ub = unbucketed_batch()
+    counts, unbucketed_ms, unbucketed_peak = unbucketed_training_phase(ub)
+    add(counts)
+    counts, ub16_ms, ub16_peak = unbucketed_training_phase(ub, low=True)
     add(counts)
     print(f"unbucketed (L=750, gathered decoder) against bucketed (L=768) training "
           f"step: {unbucketed_ms:.2f} ms vs {classed_ms:.2f} ms", flush=True)
-    counts, dense_ms = dense_training_phase(nb)
+    counts, dense_ms, dense_peak = dense_training_phase(nb)
+    add(counts)
+    counts, dense16_ms, dense16_peak = dense_training_phase(nb, low=True)
     add(counts)
     print(f"dense against classed training step: {dense_ms:.2f} ms vs "
           f"{classed_ms:.2f} ms ({dense_ms / classed_ms:.3f}x)", flush=True)
+    for what, ms16, ms32, pk16, pk32 in (
+            ("dense", dense16_ms, dense_ms, dense16_peak, dense_peak),
+            ("unbucketed", ub16_ms, unbucketed_ms, ub16_peak, unbucketed_peak)):
+        print(f"bf16 against fp32 {what} training step: {ms16:.2f} ms vs "
+              f"{ms32:.2f} ms ({ms16 / ms32:.3f}x); peak memory {pk16 / 2**30:.3f} "
+              f"GiB vs {pk32 / 2**30:.3f} GiB ({pk16 / pk32:.3f}x)", flush=True)
     add(mesh_phase(nb))
     counts, csv_path = training_loop_phase()
     add(counts)
@@ -2200,8 +2416,7 @@ def main():
                          f"na_mpnn_tpu/ops/message_kernels.py:{line}")
     # the bf16 variants: the same sources' *_bf16 entries, the same TPU
     # kernels' compute_dtype=bfloat16 branch
-    for name in [n for n in sources if n.startswith(("rbf_classed", "message_table",
-                                                     "fused_"))]:
+    for name in [n for n in sources if n.startswith(("rbf_", "message_", "fused_"))]:
         sources[name + "_bf16"] = sources[name]
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -3,8 +3,8 @@
 
 The JSON schema is the JAX package's (the reference training configs plus
 ``SEED``, ``MESH_GRAPH_AXIS``, ``NUM_WORKERS``, ``PROFILE_DIR``).
-``MIXED_PRECISION`` defaults to 1, as in the JAX package: the bf16 trunk on
-one device; ``MIXED_PRECISION: 0`` trains in fp32, and a mesh needs it.
+``MIXED_PRECISION`` defaults to 1, as in the JAX package: the bf16 trunk,
+on one device and on a mesh; ``MIXED_PRECISION: 0`` trains in fp32.
 Runs on the card unless ``--device cpu`` is given. Under ``torchrun`` every
 process trains one rank of a ``(WORLD_SIZE / MESH_GRAPH_AXIS,
 MESH_GRAPH_AXIS)`` mesh.

@@ -1,5 +1,5 @@
 // Backward of the message MLP on a pre-gathered neighbour operand
-// (message_mlp.cu), for Hopper (sm_90a), fp32.
+// (message_mlp.cu), for Hopper (sm_90a); fp32, and bf16 for the bf16 trunk.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/message_kernels.py::
 // _message_bwd_call (_bwd_kernel, message_kernels.py:103). Like the TPU
@@ -15,6 +15,18 @@
 //   s[n] = sum_k g_x, g_hV = s@Wa^T, dWa += h_V^T s
 // with the exact GELU derivative Phi(x) + x*phi(x) (the TPU kernel uses the
 // Abramowitz-Stegun erf).
+//
+// bf16 (message_mlp_backward_bf16; the TPU kernel's bf16 branch,
+// message_kernels.py:104-160): the inputs, weights and cotangent are bf16 and
+// g_hV, g_ein, g_G are written bf16. x, u1, y are recomputed as the bf16
+// forward does; g_m is fp32 (with aggregate, g times bf16(mask_att / 30), as
+// JAX divides the bf16 mask); every product operand is rounded to bf16
+// (u2, g_m, g_y, u1, g_x, s; e_in, h_V and the weights are bf16 already)
+// and summed in fp32, while gelu' works on the unrounded fp32 x and y and
+// the bias sums and sum_k g_x start from unrounded fp32 values. The weight
+// gradients stay fp32 here, in the same fixed order, and the caller rounds
+// them once (ops/message_kernels.py), as the JAX VJP casts them to the
+// weights' type.
 //
 // Reductions across blocks, which run in no order: every per-edge and
 // per-node output is written once by the block that owns its tile, and the
@@ -36,28 +48,41 @@
 
 namespace {
 
+template <typename T>
 struct Params {
-  const float* h_V;
-  const float* e_in;
-  const float* G;
-  const float* m_att;
-  const float* wa;
-  const float* wb;
-  const float* b1;
-  const float* w2;
-  const float* b2;
-  const float* w3;
-  const float* g;
-  float* g_hV;
-  float* g_ein;
-  float* g_G;
+  const T* h_V;
+  const T* e_in;
+  const T* G;
+  const T* m_att;
+  const T* wa;
+  const T* wb;
+  const T* b1;
+  const T* w2;
+  const T* b2;
+  const T* w3;
+  const T* g;
+  T* g_hV;
+  T* g_ein;
+  T* g_G;
   float* part;
   float* wT;  // [4][H][H]: Wa^T, Wb^T, W2^T, W3^T (written per launch)
-  int N, K, T, tiles, contract_e, aggregate;
+  int N, K, tn, tiles, contract_e, aggregate;  // tn: nodes per tile
 };
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+// Four consecutive fp32 values stored as T (16-byte aligned for fp32, 8-byte
+// for bf16).
+__device__ __forceinline__ void st4(float* p, float4 v, float) { st4(p, v); }
+__device__ __forceinline__ void st4(bf16* p, float4 v, bf16) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // slot[i][j] (+)= sum_{r < rows} A[r][i] * B[r][j]; A, B are [rows, H] in
@@ -122,9 +147,22 @@ __device__ __forceinline__ void col_sum(const float* A, float* slot,
   }
 }
 
-template <int H>
+// The bf16 trunk: a tile buffer A [kRows][H] rounded to bf16 in place,
+// between barriers (after the fp32 sums that read it unrounded, before the
+// products that take it as an operand). Nothing for fp32.
+template <int H, typename T>
+__device__ __forceinline__ void round_operand(float* A) {
+  if constexpr (sizeof(T) == 2) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kRows * H; idx += kThreads)
+      A[idx] = rnd<T>(A[idx]);
+    __syncthreads();
+  }
+}
+
+template <int H, typename T>
 __global__ void __launch_bounds__(kThreads)
-message_mlp_bwd_kernel(Params p) {
+message_mlp_bwd_kernel(Params<T> p) {
   extern __shared__ __align__(16) float smem[];
   float* XS = smem;             // x, then g_x
   float* U1 = XS + kRows * H;   // e_in, then gelu(x), then e_in
@@ -132,8 +170,8 @@ message_mlp_bwd_kernel(Params p) {
   float* GM = U2 + kRows * H;   // g_m
   float* DY = GM + kRows * H;   // gelu'(y)
   float* Ws = DY + kRows * H;   // [kKC][H] weight chunk
-  float* HV = Ws + kKC * H;     // [T][H] h_V of the tile's nodes
-  float* AI = HV + p.T * H;     // [T][H] h_V @ Wa, then sum_k g_x
+  float* HV = Ws + kKC * H;     // [tn][H] h_V of the tile's nodes
+  float* AI = HV + p.tn * H;    // [tn][H] h_V @ Wa, then sum_k g_x
   constexpr int CPT = H / 32;
   constexpr int kV = kRows * H / (4 * kThreads);  // float4s per thread per tile
   constexpr size_t kSlot = 4 * H * H + 3 * H;
@@ -157,15 +195,15 @@ message_mlp_bwd_kernel(Params p) {
     for (int idx = tid; idx < H * H; idx += kThreads) s_dwb[idx] = 0.f;
 
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-    const int n0 = tile * p.T;
-    const int nodes = min(p.T, p.N - n0);
+    const int n0 = tile * p.tn;
+    const int nodes = min(p.tn, p.N - n0);
     const int rows = nodes * p.K;
     const size_t e0 = (size_t)n0 * p.K;
 
     // h_V, e_in (contract_e) and the message cotangent g_m of the tile's
     // rows (zero on rows past the last node, so they add nothing below).
-    for (int idx = tid; idx < p.T * H; idx += kThreads)
-      HV[idx] = idx < nodes * H ? p.h_V[(size_t)n0 * H + idx] : 0.f;
+    for (int idx = tid; idx < p.tn * H; idx += kThreads)
+      HV[idx] = idx < nodes * H ? to_f(p.h_V[(size_t)n0 * H + idx]) : 0.f;
     {
       float4 ev[kV], gv[kV];
       float wv[kV];
@@ -178,7 +216,7 @@ message_mlp_bwd_kernel(Params p) {
           if (p.contract_e) ev[v] = ld4(p.e_in + e0 * H + idx);
           if (p.aggregate) {
             gv[v] = ld4(p.g + (size_t)(n0 + r / p.K) * H + h);
-            wv[v] = p.m_att[e0 + r] / 30.0f;
+            wv[v] = rnd<T>(to_f(p.m_att[e0 + r]) / 30.0f);
           } else {
             gv[v] = ld4(p.g + e0 * H + idx);
           }
@@ -197,10 +235,10 @@ message_mlp_bwd_kernel(Params p) {
       }
     }
     __syncthreads();
-    for (int idx = tid; idx < p.T * H; idx += kThreads) {
+    for (int idx = tid; idx < p.tn * H; idx += kThreads) {
       const int t = idx / H, h = idx % H;
       float s = 0.f;
-      for (int k = 0; k < H; ++k) s = fmaf(HV[t * H + k], __ldg(p.wa + k * H + h), s);
+      for (int k = 0; k < H; ++k) s = fmaf(HV[t * H + k], ldf(p.wa + k * H + h), s);
       AI[idx] = s;
     }
 
@@ -219,11 +257,11 @@ message_mlp_bwd_kernel(Params p) {
         float x = 0.f;
         if (r < rows) {
           const size_t e = e0 + r;
-          const float edge = p.contract_e ? acc[i][c] : p.e_in[e * H + h];
-          x = AI[(r / p.K) * H + h] + p.G[e * H + h] + p.b1[h] + edge;
+          const float edge = p.contract_e ? acc[i][c] : to_f(p.e_in[e * H + h]);
+          x = AI[(r / p.K) * H + h] + to_f(p.G[e * H + h]) + to_f(p.b1[h]) + edge;
         }
         XS[r * H + h] = x;
-        U1[r * H + h] = gelu(x);
+        U1[r * H + h] = rnd<T>(gelu(x));
       }
     }
 
@@ -235,14 +273,15 @@ message_mlp_bwd_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int h = tx * CPT + c;
-        const float y = acc[i][c] + p.b2[h];
-        U2[r * H + h] = gelu(y);
+        const float y = acc[i][c] + to_f(p.b2[h]);
+        U2[r * H + h] = rnd<T>(gelu(y));
         DY[r * H + h] = gelu_grad(y);
       }
     }
     __syncthreads();
-    outer_acc<H>(U2, GM, kRows, s_dw3, first);
     col_sum<H>(GM, s_db3, first);
+    round_operand<H, T>(GM);
+    outer_acc<H>(U2, GM, kRows, s_dw3, first);
 
     // g_y = (g_m@W3^T) * gelu'(y) over u2 (read above, before the first
     // barrier inside gemm)
@@ -257,8 +296,9 @@ message_mlp_bwd_kernel(Params p) {
       }
     }
     __syncthreads();
-    outer_acc<H>(U1, U2, kRows, s_dw2, first);
     col_sum<H>(U2, s_db2, first);
+    round_operand<H, T>(U2);
+    outer_acc<H>(U1, U2, kRows, s_dw2, first);
 
     // g_x = (g_y@W2^T) * gelu'(x), over x in place
     gemm<H>(U2, w2T, Ws, acc);
@@ -279,16 +319,16 @@ message_mlp_bwd_kernel(Params p) {
       const int idx = 4 * (tid + v * kThreads), r = idx / H;
       if (r >= rows) continue;
       const float4 gx = *reinterpret_cast<const float4*>(XS + idx);
-      st4(p.g_G + e0 * H + idx, gx);
-      if (!p.contract_e) st4(p.g_ein + e0 * H + idx, gx);
+      st4(p.g_G + e0 * H + idx, gx, T());
+      if (!p.contract_e) st4(p.g_ein + e0 * H + idx, gx, T());
     }
-    // AI <- s = sum_k g_x per node
-    for (int idx = tid; idx < p.T * H; idx += kThreads) {
+    // AI <- s = sum_k g_x per node (a product operand only)
+    for (int idx = tid; idx < p.tn * H; idx += kThreads) {
       const int t = idx / H, h = idx % H;
       float s = 0.f;
       if (t < nodes)
         for (int k = 0; k < p.K; ++k) s += XS[(t * p.K + k) * H + h];
-      AI[idx] = s;
+      AI[idx] = rnd<T>(s);
     }
     if (p.contract_e) {
 #pragma unroll
@@ -299,13 +339,14 @@ message_mlp_bwd_kernel(Params p) {
       }
     }
     __syncthreads();
+    if (p.contract_e) round_operand<H, T>(XS);  // g_x as dWb's and g_ein's operand
     if (p.contract_e) outer_acc<H>(U1, XS, kRows, s_dwb, first);
     outer_acc<H>(HV, AI, nodes, s_dwa, first);
     for (int idx = tid; idx < nodes * H; idx += kThreads) {
       const int t = idx / H, h = idx % H;
       float s = 0.f;
       for (int k = 0; k < H; ++k) s = fmaf(AI[t * H + k], __ldg(waT + k * H + h), s);
-      p.g_hV[(size_t)(n0 + t) * H + h] = s;
+      p.g_hV[(size_t)(n0 + t) * H + h] = from_f<T>(s);
     }
     if (p.contract_e) {
       gemm<H>(XS, wbT, Ws, acc);  // g_ein = g_x@Wb^T
@@ -315,7 +356,7 @@ message_mlp_bwd_kernel(Params p) {
         if (r >= rows) continue;
 #pragma unroll
         for (int c = 0; c < CPT; ++c)
-          p.g_ein[(e0 + r) * H + tx * CPT + c] = acc[i][c];
+          p.g_ein[(e0 + r) * H + tx * CPT + c] = from_f<T>(acc[i][c]);
       }
     }
     first = false;
@@ -323,18 +364,19 @@ message_mlp_bwd_kernel(Params p) {
   }
 }
 
-// wT[m] = W_m^T for W_0..3 = Wa, Wb, W2, W3 ([H, H] each), so that every
-// product with a transposed weight streams it row by row.
-__global__ void transpose_weights(const float* __restrict__ wa,
-                                  const float* __restrict__ wb,
-                                  const float* __restrict__ w2,
-                                  const float* __restrict__ w3, int H,
+// wT[m] = W_m^T (fp32) for W_0..3 = Wa, Wb, W2, W3 ([H, H] each), so that
+// every product with a transposed weight streams it row by row.
+template <typename T>
+__global__ void transpose_weights(const T* __restrict__ wa,
+                                  const T* __restrict__ wb,
+                                  const T* __restrict__ w2,
+                                  const T* __restrict__ w3, int H,
                                   float* __restrict__ wT) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 4 * H * H) return;
   const int m = idx / (H * H), c = (idx / H) % H, k = idx % H;
-  const float* W = m == 0 ? wa : m == 1 ? wb : m == 2 ? w2 : w3;
-  wT[idx] = W[k * H + c];
+  const T* W = m == 0 ? wa : m == 1 ? wb : m == 2 ? w2 : w3;
+  wT[idx] = to_f(W[k * H + c]);
 }
 
 // out[j] = sum_b part[b][j], b in order (deterministic).
@@ -347,21 +389,43 @@ __global__ void reduce_slots(const float* __restrict__ part, int nparts,
   out[j] = s;
 }
 
-template <int H>
-int launch(const Params& p, int nparts, float* wgrad, cudaStream_t stream) {
-  transpose_weights<<<(4 * H * H + 255) / 256, 256, 0, stream>>>(
+template <int H, typename T>
+int launch(const Params<T>& p, int nparts, float* wgrad, cudaStream_t stream) {
+  transpose_weights<T><<<(4 * H * H + 255) / 256, 256, 0, stream>>>(
       p.wa, p.wb, p.w2, p.w3, H, p.wT);
-  const size_t smem = (size_t)(5 * kRows + kKC + 2 * p.T) * H * sizeof(float);
+  const size_t smem = (size_t)(5 * kRows + kKC + 2 * p.tn) * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      message_mlp_bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      message_mlp_bwd_kernel<H, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  message_mlp_bwd_kernel<H><<<nparts, kThreads, smem, stream>>>(p);
+  message_mlp_bwd_kernel<H, T><<<nparts, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = 4 * H * H + 3 * H;
   reduce_slots<<<(n + 255) / 256, 256, 0, stream>>>(p.part, nparts, n, wgrad);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward(const T* h_V, const T* e_in, const T* G, const T* m_att,
+             const T* wa, const T* wb, const T* b1, const T* w2, const T* b2,
+             const T* w3, const T* g, T* g_hV, T* g_ein, T* g_G, float* part,
+             float* wT, float* wgrad, int N, int K, int H, int contract_e,
+             int aggregate, int nparts, cudaStream_t stream) {
+  if (K < 1 || K > kRows || N < 1 || nparts < 1)
+    return (int)cudaErrorInvalidValue;
+  const int tn = kRows / K;
+  const int tiles = (N + tn - 1) / tn;
+  if (nparts > tiles) nparts = tiles;
+  Params<T> p{h_V,  e_in,  G,    m_att, wa,  wb,   b1, w2, b2,
+              w3,   g,     g_hV, g_ein, g_G, part, wT, N,  K,
+              tn,   tiles, contract_e, aggregate};
+  switch (H) {
+    case 32: return launch<32>(p, nparts, wgrad, stream);
+    case 64: return launch<64>(p, nparts, wgrad, stream);
+    case 128: return launch<128>(p, nparts, wgrad, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -376,18 +440,20 @@ extern "C" int message_mlp_backward(
     float* g_ein, float* g_G, float* part, float* wT, float* wgrad, int N,
     int K, int H, int contract_e, int aggregate, int nparts,
     cudaStream_t stream) {
-  if (K < 1 || K > kRows || N < 1 || nparts < 1)
-    return (int)cudaErrorInvalidValue;
-  const int T = kRows / K;
-  const int tiles = (N + T - 1) / T;
-  if (nparts > tiles) nparts = tiles;
-  Params p{h_V,  e_in,  G,    m_att, wa, wb, b1,    w2,         b2,
-           w3,   g,     g_hV, g_ein, g_G, part, wT, N,          K,
-           T,    tiles, contract_e, aggregate};
-  switch (H) {
-    case 32: return launch<32>(p, nparts, wgrad, stream);
-    case 64: return launch<64>(p, nparts, wgrad, stream);
-    case 128: return launch<128>(p, nparts, wgrad, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return backward<float>(h_V, e_in, G, m_att, wa, wb, b1, w2, b2, w3, g, g_hV,
+                         g_ein, g_G, part, wT, wgrad, N, K, H, contract_e,
+                         aggregate, nparts, stream);
+}
+
+// The same with bf16 inputs, weights, cotangent, g_hV, g_ein and g_G;
+// wgrad and the scratch stay fp32.
+extern "C" int message_mlp_backward_bf16(
+    const bf16* h_V, const bf16* e_in, const bf16* G, const bf16* m_att,
+    const bf16* wa, const bf16* wb, const bf16* b1, const bf16* w2,
+    const bf16* b2, const bf16* w3, const bf16* g, bf16* g_hV, bf16* g_ein,
+    bf16* g_G, float* part, float* wT, float* wgrad, int N, int K, int H,
+    int contract_e, int aggregate, int nparts, cudaStream_t stream) {
+  return backward<bf16>(h_V, e_in, G, m_att, wa, wb, b1, w2, b2, w3, g, g_hV,
+                        g_ein, g_G, part, wT, wgrad, N, K, H, contract_e,
+                        aggregate, nparts, stream);
 }

@@ -1,5 +1,5 @@
 // Dense all-pair-atom RBF edge features fused with their projection, for
-// Hopper (sm_90a), fp32 (rbf_mode="dense").
+// Hopper (sm_90a), rbf_mode="dense"; fp32, and bf16 for the bf16 trunk.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/rbf_edge.py::rbf_edge_embed
 // (_kernel, rbf_edge.py:38). Per edge (query row i -> key row j): the
@@ -11,6 +11,12 @@
 // model stores it. The function is the class-specialised kernel's
 // (rbf_classed.cu); this one computes every atom pair instead of the
 // populated class blocks.
+//
+// bf16 (rbf_edge_forward_bf16; the TPU kernel's bf16 branch,
+// rbf_edge.py:63-76): the bins are the fp32 kernel's exact exp bins, each
+// masked bin rounded to bf16, W arrives as bf16(W), and the products of the
+// two sum in fp32 into the fp32 output. (The damped recursive bins belong
+// to the classed kernel's bf16 branch only.)
 //
 // What bounds it on the card: operations, 2*H multiply-adds per atom pair and
 // bin of every edge (2 * 5184 * H = 1.3 MFLOP per edge at H = 128), against
@@ -29,12 +35,12 @@ constexpr int kAA = kA * kA;
 
 constexpr int smem_floats() { return 2 * kTE * 3 * kA + 2 * kTE * kA + kAA * kTE; }
 
-template <int HC>
+template <int HC, typename TW>
 __global__ void __launch_bounds__(kThreads)
 rbf_edge_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
                 const float* __restrict__ Xk, const float* __restrict__ Mk,
                 const long long* __restrict__ nbr, int E, int K, int H,
-                const float* __restrict__ W, float* __restrict__ out) {
+                const TW* __restrict__ W, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   float* bins = smem;                  // [kAA][kTE]
   float* qx = bins + kAA * kTE;        // [kTE][3A]
@@ -56,16 +62,16 @@ rbf_edge_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
     const float mu = bin_mu(r);
     for (int idx = tid; idx < kAA * kTE; idx += kThreads) {
       const int a = idx / kTE, e = idx % kTE;
-      bins[idx] = rbf_bin(qx, nx, qm, nm, e, a / kA, a % kA, mu);
+      bins[idx] = rnd<TW>(rbf_bin(qx, nx, qm, nm, e, a / kA, a % kA, mu));
     }
     __syncthreads();
     for (int a = 0; a < kAA; ++a) {
-      const float* Wr = W + ((size_t)a * kR + r) * H;
+      const TW* Wr = W + ((size_t)a * kR + r) * H;
       float w[HC];
 #pragma unroll
       for (int c = 0; c < HC; ++c) {
         const int h = tid + c * kThreads;
-        w[c] = h < H ? __ldg(Wr + h) : 0.f;
+        w[c] = h < H ? ldf(Wr + h) : 0.f;
       }
       const float4* brow = reinterpret_cast<const float4*>(bins + a * kTE);
 #pragma unroll
@@ -93,18 +99,28 @@ rbf_edge_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
   }
 }
 
-template <int HC>
+template <int HC, typename TW>
 int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
-           const long long* nbr, int E, int K, int H, const float* W,
+           const long long* nbr, int E, int K, int H, const TW* W,
            float* out, cudaStream_t stream) {
   const size_t smem = smem_floats() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      rbf_edge_kernel<HC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rbf_edge_kernel<HC, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rbf_edge_kernel<HC><<<(E + kTE - 1) / kTE, kThreads, smem, stream>>>(
+  rbf_edge_kernel<HC, TW><<<(E + kTE - 1) / kTE, kThreads, smem, stream>>>(
       Xq, Mq, Xk, Mk, nbr, E, K, H, W, out);
   return (int)cudaGetLastError();
+}
+
+template <typename TW>
+int forward(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
+            const long long* nbr, int E, int K, int H, const TW* W, float* out,
+            cudaStream_t stream) {
+  if (E < 1 || K < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (H <= kThreads) return launch<1>(Xq, Mq, Xk, Mk, nbr, E, K, H, W, out, stream);
+  if (H <= 2 * kThreads) return launch<2>(Xq, Mq, Xk, Mk, nbr, E, K, H, W, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -118,8 +134,15 @@ extern "C" int rbf_edge_forward(const float* Xq, const float* Mq,
                                 const long long* nbr, int E, int K, int H,
                                 const float* W, float* out,
                                 cudaStream_t stream) {
-  if (E < 1 || K < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (H <= kThreads) return launch<1>(Xq, Mq, Xk, Mk, nbr, E, K, H, W, out, stream);
-  if (H <= 2 * kThreads) return launch<2>(Xq, Mq, Xk, Mk, nbr, E, K, H, W, out, stream);
-  return (int)cudaErrorInvalidValue;
+  return forward<float>(Xq, Mq, Xk, Mk, nbr, E, K, H, W, out, stream);
+}
+
+// The bf16 trunk's function: bf16-rounded exact bins against bf16(W);
+// coordinates, masks and out fp32.
+extern "C" int rbf_edge_forward_bf16(const float* Xq, const float* Mq,
+                                     const float* Xk, const float* Mk,
+                                     const long long* nbr, int E, int K,
+                                     int H, const bf16* W, float* out,
+                                     cudaStream_t stream) {
+  return forward<bf16>(Xq, Mq, Xk, Mk, nbr, E, K, H, W, out, stream);
 }

@@ -1,4 +1,5 @@
-// Weight gradient of the dense RBF projection, for Hopper (sm_90a), fp32.
+// Weight gradient of the dense RBF projection, for Hopper (sm_90a); fp32, and
+// bf16 for the bf16 trunk.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/rbf_edge.py::rbf_edge_embed_dw
 // (_bwd_kernel, rbf_edge.py:151). For the cotangent g [E, H] of the
@@ -16,6 +17,10 @@
 //    It writes them to its chunk's partial [kSplit][5184][H]. No atomics.
 // 2. reduce: dW[row] = sum over the kSplit partials, in order.
 // The result is deterministic: two identical launches agree bitwise.
+//
+// bf16 (rbf_edge_dw_bf16; the TPU kernel's bf16 branch, rbf_edge.py:179-186):
+// the forward's exact bins and g both enter rounded to bf16, and their
+// products sum in fp32 in the same fixed order into the fp32 dW.
 //
 // What bounds it on the card: operations, 2*H multiply-adds per atom pair and
 // bin of every edge (as the forward), against the edge operands and g (about
@@ -36,7 +41,7 @@ constexpr int acc_smem_floats() {
   return 2 * kTE * 3 * kA + 2 * kTE * kA + kSliceRows * kTE + kTE * H;
 }
 
-template <int H>
+template <int H, typename T>
 __global__ void __launch_bounds__(kThreads)
 rbf_edge_dw_accumulate(const float* __restrict__ Xq,
                        const float* __restrict__ Mq,
@@ -72,7 +77,7 @@ rbf_edge_dw_accumulate(const float* __restrict__ Xq,
     load_edge_tile(Xq, Mq, Xk, Mk, nbr, E, K, e0, qx, nx, qm, nm);
     for (int idx = tid; idx < kTE * H; idx += kThreads) {
       const int e = idx / H;
-      gs[idx] = e0 + e < E ? g[(size_t)e0 * H + idx] : 0.f;
+      gs[idx] = e0 + e < E ? rnd<T>(g[(size_t)e0 * H + idx]) : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < kSliceRows * kTE; idx += kThreads) {
@@ -80,7 +85,7 @@ rbf_edge_dw_accumulate(const float* __restrict__ Xq,
       float v = 0.f;
       if (i < nrows) {
         const int rho = row0 + i, pair = rho / kR, r = rho % kR;
-        v = rbf_bin(qx, nx, qm, nm, e, pair / kA, pair % kA, bin_mu(r));
+        v = rnd<T>(rbf_bin(qx, nx, qm, nm, e, pair / kA, pair % kA, bin_mu(r)));
       }
       bins[idx] = v;
     }
@@ -99,16 +104,16 @@ rbf_edge_dw_accumulate(const float* __restrict__ Xq,
   }
 }
 
-template <int H>
+template <int H, typename T>
 int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
            const long long* nbr, const float* g, int E, int K, float* part,
            float* dW, cudaStream_t stream) {
   const size_t smem = acc_smem_floats<H>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      rbf_edge_dw_accumulate<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rbf_edge_dw_accumulate<H, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rbf_edge_dw_accumulate<H><<<dim3(kSlices, kSplit), kThreads, smem, stream>>>(
+  rbf_edge_dw_accumulate<H, T><<<dim3(kSlices, kSplit), kThreads, smem, stream>>>(
       Xq, Mq, Xk, Mk, nbr, g, E, K, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -116,6 +121,20 @@ int launch(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
   dw_reduce<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       part, kSplit, nullptr, kTotalRows, H, dW);
   return (int)cudaGetLastError();
+}
+
+// T: the operand type the bins and g are rounded to (float: none).
+template <typename T>
+int dw(const float* Xq, const float* Mq, const float* Xk, const float* Mk,
+       const long long* nbr, const float* g, int E, int K, int H, float* part,
+       float* dW, cudaStream_t stream) {
+  if (E < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  switch (H) {
+    case 32: return launch<32, T>(Xq, Mq, Xk, Mk, nbr, g, E, K, part, dW, stream);
+    case 64: return launch<64, T>(Xq, Mq, Xk, Mk, nbr, g, E, K, part, dW, stream);
+    case 128: return launch<128, T>(Xq, Mq, Xk, Mk, nbr, g, E, K, part, dW, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -130,11 +149,14 @@ extern "C" int rbf_edge_dw(const float* Xq, const float* Mq, const float* Xk,
                            const float* Mk, const long long* nbr,
                            const float* g, int E, int K, int H, float* part,
                            float* dW, cudaStream_t stream) {
-  if (E < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  switch (H) {
-    case 32: return launch<32>(Xq, Mq, Xk, Mk, nbr, g, E, K, part, dW, stream);
-    case 64: return launch<64>(Xq, Mq, Xk, Mk, nbr, g, E, K, part, dW, stream);
-    case 128: return launch<128>(Xq, Mq, Xk, Mk, nbr, g, E, K, part, dW, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dw<float>(Xq, Mq, Xk, Mk, nbr, g, E, K, H, part, dW, stream);
+}
+
+// The bf16 trunk's weight gradient (same operands, fp32 g and dW).
+extern "C" int rbf_edge_dw_bf16(const float* Xq, const float* Mq,
+                                const float* Xk, const float* Mk,
+                                const long long* nbr, const float* g, int E,
+                                int K, int H, float* part, float* dW,
+                                cudaStream_t stream) {
+  return dw<bf16>(Xq, Mq, Xk, Mk, nbr, g, E, K, H, part, dW, stream);
 }

@@ -75,11 +75,8 @@ class ModelConfig:
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
-def check_supported(cfg: ModelConfig, mesh: bool = False):
-    """Raise for the options this port does not run yet (ROADMAP Queue 1);
-    ``mesh``: the caller runs the graph-parallel route. A bf16 training
-    step at ``L % 32 != 0`` (the gathered decoder) raises where the route
-    is chosen (``models/mpnn.py::dec_layer``)."""
+def check_supported(cfg: ModelConfig):
+    """Raise for the options this port does not run yet (ROADMAP Queue 1)."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: choose from "
                          f"{COMPUTE_DTYPES}")
@@ -91,11 +88,6 @@ def check_supported(cfg: ModelConfig, mesh: bool = False):
         raise NotImplementedError(
             "gp_knn_key_chunk / gp_rbf_row_chunk: the chunked graph-parallel "
             "featurisation is not ported (ROADMAP Queue 1, 'Multi-GPU')")
-    if cfg.compute_dtype == "bfloat16" and (cfg.rbf_mode == "dense" or mesh):
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' runs the one-device routes with "
-            "rbf_mode='classed'; the dense RBF and the mesh route at bf16 are "
-            "the next slice (ROADMAP Queue 1, 'bf16 trunk')")
     if cfg.atom_table != "backbone" or not cfg.include_pred_na_N:
         raise NotImplementedError(
             "only the 18-atom backbone frame (atom_table='backbone', "

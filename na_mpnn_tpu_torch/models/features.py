@@ -103,23 +103,25 @@ def features_apply(p, cfg: ModelConfig, batch, plain: bool = False,
 
 
 def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
-                         gather=None):
+                         gather=None, low_pos=None):
     """``features_apply`` on the (possibly noised) coordinates ``X``.
 
     ``gather`` is None on one device. On the graph-parallel route the batch
     holds a shard's query rows, ``gather`` all-gathers ``[B,Ls,...]`` rows
     along the graph axis into the structure's ``[B,L,...]`` key rows, and the
     query/key forms of the kNN and RBF kernels run; ``E_idx`` then holds key
-    (global) indices."""
+    (global) indices. At ``compute_dtype="bfloat16"`` the RBF projection
+    takes its bf16 function on every route; ``low_pos`` (default: the same
+    as the RBF) makes the positional block bf16 too, as the one-device JAX
+    featuriser does (``features.py:216``) and the JAX graph-parallel one does
+    not (``graph_parallel.py:275-278``)."""
     from ..ops.knn import knn_graph as knn_kernel
     from ..ops.knn import knn_graph_qk, knn_graph_qk_plain
-    from ..ops.rbf_classed import (rbf_edge_features_classed,
-                                   rbf_edge_features_classed_plain,
-                                   rbf_edge_features_classed_qk)
-    from ..ops.rbf_edge import (rbf_edge_features, rbf_edge_features_plain,
-                                rbf_edge_features_qk)
+    from ..ops.rbf_classed import rbf_edge_features_classed_qk
+    from ..ops.rbf_edge import rbf_edge_features_qk
 
     low = cfg.compute_dtype == "bfloat16"
+    low_pos = low if low_pos is None else low_pos
     mask = batch["mask"].to(X.dtype)
     X_aug, X_m_aug, X_ref = build_augmented_atoms(X, batch["X_m"], batch, cfg)
     # Relative position, same-chain indicator and neighbour mask through one
@@ -130,28 +132,19 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
                              dim=-1)
     n_pos = cfg.num_positional_embeddings
     W = p["edge_embedding"]["w"]
-    dense = cfg.rbf_mode == "dense"
     if gather is None:
         knn = knn_graph if plain else knn_kernel
         _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
-        if dense:
-            rbf = rbf_edge_features_plain if plain else rbf_edge_features
-            E_rbf = rbf(X_aug, X_m_aug, E_idx, W[n_pos:])
-        else:
-            E_rbf = rbf_edge_features_classed(X_aug, X_m_aug, E_idx, W[n_pos:],
-                                              low=low, plain=plain)
+        keys = (X_aug, X_m_aug)
     else:
         knn = knn_graph_qk_plain if plain else knn_graph_qk
         _, E_idx = knn(X_ref, gather(X_ref), mask, gather(mask),
                        cfg.k_neighbors)
         keys = (gather(X_aug), gather(X_m_aug))
-        if plain:
-            rbf = rbf_edge_features_plain if dense else rbf_edge_features_classed_plain
-            E_rbf = rbf(X_aug, X_m_aug, E_idx, W[n_pos:], *keys)
-        else:
-            rbf = rbf_edge_features_qk if dense else rbf_edge_features_classed_qk
-            E_rbf = rbf(X_aug, X_m_aug, *keys, E_idx, W[n_pos:])
         scalar_tab = gather(scalar_tab)
+    rbf = (rbf_edge_features_qk if cfg.rbf_mode == "dense"
+           else rbf_edge_features_classed_qk)
+    E_rbf = rbf(X_aug, X_m_aug, *keys, E_idx, W[n_pos:], low=low, plain=plain)
     g = take_rows(scalar_tab, E_idx)                            # [B,L,K,3]
     offset = R_idx[:, :, None] - g[..., 0].long()
     E_chains = (chain_labels[:, :, None] == g[..., 1].long()).long()
@@ -161,13 +154,13 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     # (table[d] + b) @ W_pos == (table @ W_pos)[d] + b @ W_pos, the row
     # picked by a one-hot product in the compute type (the JAX package's
     # form, features.py:210-219: exact in any type, and its table gradient
-    # is a product, not an index scatter). At bf16 the block is bf16 and
-    # E = E_pos + E_rbf promotes to fp32.
+    # is a product, not an index scatter). With ``low_pos`` the block is
+    # bf16 and E = E_pos + E_rbf promotes to fp32.
     mrf = cfg.max_relative_feature
     d = torch.clamp(offset + mrf, 0, 2 * mrf)
     d = d * E_chains + (1 - E_chains) * (2 * mrf + 1)
     pos_table = p["positional"]["w"] @ W[:n_pos]               # [66,H]
-    cdt = torch.bfloat16 if low else pos_table.dtype
+    cdt = torch.bfloat16 if low_pos else pos_table.dtype
     E_pos = F.one_hot(d, pos_table.shape[0]).to(cdt) @ pos_table.to(cdt)
     if "b" in p["positional"]:
         E_pos = E_pos + (p["positional"]["b"] @ W[:n_pos]).to(cdt)

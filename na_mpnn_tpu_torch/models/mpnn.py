@@ -34,8 +34,9 @@ bf16 as the JAX package does (``mpnn.py:131-142``, ``:280-290``,
 encoder's and decoder's layers; ``W_v``, ``W_e``, ``W_s`` and ``W_out`` stay
 fp32), ``h_V``, ``h_E``, ``h_S`` and the masks enter the layers as bf16,
 LayerNorm statistics are fp32, and ``h_V`` returns to fp32 before
-``W_out``; the kernels take their bf16 variants. The one-device table and
-fused routes run at bf16; the gathered route refuses it (the next slice). A
+``W_out``; the kernels take their bf16 variants on every route. (The
+graph-parallel forward keeps its layers in fp32 at G > 1, as JAX does;
+``parallel/graph_parallel.py``.) A
 ``torch.Generator`` turns on training randomness (dropout, coordinate
 noise), ``None`` makes them deterministic; the inference entry points run
 under ``torch.no_grad``. The autoregressive samplers are plain PyTorch, as
@@ -252,15 +253,10 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
     (_, wb, ws, wv), _ = _split_w1(p, H)
     fused = fused_route(drop, p, h_V, h_V_enc, h_S, h_E2)
     if not fused and gather is _identity and not mk.table_gather_ok(L):
-        if h_V.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"a bf16 training step at L={L} (not a multiple of 32) takes the "
-                "gathered decoder route, whose bf16 kernels (rows 7, 8) are the "
-                "next slice (ROADMAP Queue 1, 'bf16 trunk'); collate with length "
-                "buckets")
         # The gathered route (JAX ``edge_context`` + ``message_agg_batched``,
         # mpnn.py:303-316, 383-387): the three neighbour terms through one
-        # gather, ``mask_fw = mask_1d - mask_bw`` exactly (0/1 masks).
+        # gather, ``mask_fw = mask_1d - mask_bw`` exactly (0/1 masks); at
+        # bf16 the context and the edge term are bf16 tensors, as JAX's.
         E_idx = eidx2.reshape(B, L, K)
         mbw, m1d = mbw2.reshape(B, L, K, 1), m1d2.reshape(B, L, K, 1)
         g = gather_nodes(torch.cat([h_S @ ws, h_V @ wv, h_V_enc @ wv], dim=-1),
@@ -302,12 +298,8 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
                                               plain, generator)
     h_V = linear(params["W_v"], V)
     h_E = linear(params["W_e"], E)
-    layers = params["encoder"]
-    cdt = _trunk_dtype(cfg)
-    if cdt is not None:
-        layers = cast_tree(layers, cdt)
-        h_V, h_E, mask, mask_attend = (t.to(cdt) for t in (h_V, h_E, mask,
-                                                           mask_attend))
+    layers, h_V, h_E, mask, mask_attend = to_trunk(
+        _trunk_dtype(cfg), params["encoder"], h_V, h_E, mask, mask_attend)
     B, L, K = E_idx.shape
     H = h_V.shape[-1]
     h_E2 = h_E.reshape(B * L * K, H)
@@ -326,6 +318,17 @@ def _trunk_dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
+def to_trunk(cdt, layers, *tensors):
+    """The bf16 trunk's casts, shared by every forward: with ``cdt`` the
+    layer parameters and the activations and masks that enter the layers
+    go to it (the layers keep their LayerNorm statistics in fp32, and
+    ``_logits`` runs ``W_out`` in fp32); with None nothing changes. Returns
+    ``(layers, *tensors)``."""
+    if cdt is None:
+        return (layers, *tensors)
+    return (cast_tree(layers, cdt), *(t.to(cdt) for t in tensors))
+
+
 def _logits(params, h_V):
     """``W_out`` on the decoder's output, in fp32 for a bf16 trunk."""
     if h_V.dtype == torch.bfloat16:
@@ -339,12 +342,8 @@ def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
     dropout on the node message and the FFN output (``run_layer_kernel``)."""
     plain = _plain(cfg, h_V)
     B, L, K = E_idx.shape
-    layers = params["decoder"]
-    cdt = _trunk_dtype(cfg)
-    if cdt is not None:
-        layers = cast_tree(layers, cdt)
-        h_V, h_E, h_S, mask, mask_bw = (t.to(cdt) for t in (h_V, h_E, h_S, mask,
-                                                           mask_bw))
+    layers, h_V, h_E, h_S, mask, mask_bw = to_trunk(
+        _trunk_dtype(cfg), params["decoder"], h_V, h_E, h_S, mask, mask_bw)
     h_E2 = h_E.reshape(B * L * K, -1)
     eidx2 = E_idx.reshape(-1)
     m1d2 = mask[:, :, None].expand(B, L, K).reshape(-1)

@@ -47,7 +47,10 @@ versions ``message_mlp_plain`` and ``message_mlp_bwd_plain``, behind the
 autograd Function ``_MessageMLP``; ``message_agg_batched`` and
 ``message_edge_batched`` are its layer-level entries. The JAX training
 decoder runs it at ``L % 32 != 0`` (``table_gather_ok``), and so does the
-port's (``models/mpnn.py::dec_layer``, the gathered route).
+port's (``models/mpnn.py::dec_layer``, the gathered route). bf16 operands
+select its bf16 variant (``*_bf16`` entries, launches counted as
+``message_mlp_bf16`` / ``message_mlp_bwd_bf16``), with the rounding points
+of the JAX ``_fwd_kernel`` / ``_bwd_kernel`` at ``compute_dtype=bfloat16``.
 """
 from __future__ import annotations
 
@@ -354,9 +357,11 @@ def table_gather_ok(L) -> bool:
 
 def _mlp_x(h_V, e_in, G, wa, wb, b1, K, contract_e):
     """Pre-GELU ``x = rep_K(h_V@wa) + G + b1 + (e_in@wb or e_in)``, summed in
-    the kernels' order."""
-    x = (h_V @ wa).repeat_interleave(K, dim=0) + G + b1
-    return x + (e_in @ wb if contract_e else e_in)
+    the kernels' order; at bf16 the JAX ``_compute_x``: ``dotp`` products
+    and the sum in fp32 on the widened inputs."""
+    low = h_V.dtype == torch.bfloat16
+    x = dotp(h_V, wa, low).repeat_interleave(K, dim=0) + widen(G) + widen(b1)
+    return x + (dotp(e_in, wb, low) if contract_e else widen(e_in))
 
 
 def message_mlp_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
@@ -364,48 +369,56 @@ def message_mlp_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
     """Plain version of ``csrc/message_mlp.cu``: ``h_V [N,H]``, ``e_in`` and
     ``G [N*K,H]``, ``mask_att [N*K]`` -> ``sum_k(mask_att * m) / 30``
     ``[N,H]`` (``aggregate``) or the per-edge ``m [N*K,H]``, with
-    ``m = W3 . gelu(W2 . gelu(x) + b2) + b3``."""
+    ``m = W3 . gelu(W2 . gelu(x) + b2) + b3``. bf16 operands: the bf16
+    variant (fp32 activations, bf16 product operands, the K-sum in fp32,
+    the output rounded once)."""
     N, H = h_V.shape
+    low = h_V.dtype == torch.bfloat16
     x = _mlp_x(h_V, e_in, G, wa, wb, b1, K, contract_e)
-    m = gelu(gelu(x) @ w2 + b2) @ w3 + b3
+    m = dotp(gelu(dotp(gelu(x), w2, low) + widen(b2)), w3, low) + widen(b3)
     if aggregate:
-        return (m * mask_att[:, None]).view(N, K, H).sum(dim=1) / MESSAGE_SCALE
-    return m
+        m = (m * widen(mask_att)[:, None]).view(N, K, H).sum(dim=1) / MESSAGE_SCALE
+    return m.to(h_V.dtype)
 
 
 def _check_mlp(N, K, H, h_V, e_in, G, mask_att, weights, biases):
+    """Check the operands of a launch; returns (the operand type, the
+    symbol and launch-count suffix)."""
     if not 1 <= K <= MAX_K or H not in (32, 64, 128):
         raise ValueError(f"message_mlp kernel: K={K} (1..{MAX_K}), "
                          f"H={H} (32, 64 or 128) not supported")
-    f32 = torch.float32
-    check_operand(h_V, "h_V", f32, (N, H))
-    check_operand(e_in, "e_in", f32, (N * K, H))
-    check_operand(G, "G", f32, (N * K, H))
-    check_operand(mask_att, "mask_att", f32, (N * K,))
+    dt, sfx = _dtype_of(h_V)
+    check_operand(h_V, "h_V", dt, (N, H))
+    check_operand(e_in, "e_in", dt, (N * K, H))
+    check_operand(G, "G", dt, (N * K, H))
+    check_operand(mask_att, "mask_att", dt, (N * K,))
     for name, w in zip(("wa", "wb", "w2", "w3"), weights):
-        check_operand(w, name, f32, (H, H))
+        check_operand(w, name, dt, (H, H))
     for name, b in zip(("b1", "b2", "b3"), biases):
-        check_operand(b, name, f32, (H,))
+        check_operand(b, name, dt, (H,))
+    return dt, sfx
 
 
 def message_mlp_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
                      K, contract_e, aggregate):
-    """Launch ``csrc/message_mlp.cu`` on fp32 CUDA tensors (the contract of
+    """Launch ``csrc/message_mlp.cu`` on CUDA tensors, all fp32 or all bf16
+    (then the bf16 variant, a bf16 output; the contract of
     ``message_mlp_plain``)."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V.shape
-    _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3), (b1, b2, b3))
-    out = torch.empty((N if aggregate else N * K, H), dtype=torch.float32,
+    dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
+                         (b1, b2, b3))
+    out = torch.empty((N if aggregate else N * K, H), dtype=dt,
                       device=h_V.device)
-    fn = library("message_mlp").message_mlp_forward
+    fn = getattr(library("message_mlp"), "message_mlp_forward" + sfx)
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, out)
     err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
              int(aggregate), stream_ptr(h_V.device))
-    raise_on_error(err, "message_mlp")
-    LAUNCHES["message_mlp"] += 1
+    raise_on_error(err, "message_mlp" + sfx)
+    LAUNCHES["message_mlp" + sfx] += 1
     return out
 
 
@@ -414,56 +427,68 @@ def message_mlp_bwd_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
     """Plain version of ``csrc/message_mlp_bwd.cu``: recomputes the
     activations from the inputs and takes the cotangent ``g`` of the output
     -> ``(g_hV, g_ein, g_G, dwa, dwb, db1, dw2, db2, dw3, db3)`` (biases
-    ``[H]``; ``dwb`` zero without ``contract_e``, as the JAX VJP returns)."""
+    ``[H]``; ``dwb`` zero without ``contract_e``, as the JAX VJP returns), in
+    the operands' type. bf16 operands: the bf16 variant (the JAX
+    ``_bwd_kernel`` at bf16): ``g_m`` fp32 (with ``aggregate``, ``g`` times
+    the bf16 ``mask_att / 30``), every product operand rounded to bf16,
+    ``gelu'`` on the unrounded fp32 ``x`` and ``y``, the bias sums and
+    ``sum_k g_x`` in fp32, every gradient rounded once."""
     N, H = h_V.shape
+    low = h_V.dtype == torch.bfloat16
     x = _mlp_x(h_V, e_in, G, wa, wb, b1, K, contract_e)
     u1 = gelu(x)
-    y = u1 @ w2 + b2
+    y = dotp(u1, w2, low) + widen(b2)
     if aggregate:
-        g_m = g.repeat_interleave(K, dim=0) * (mask_att[:, None] / MESSAGE_SCALE)
+        g_m = widen(g).repeat_interleave(K, dim=0) * widen(
+            mask_att[:, None] / MESSAGE_SCALE)
     else:
-        g_m = g
-    dw3 = gelu(y).T @ g_m
-    g_y = (g_m @ w3.T) * gelu_grad(y)
-    dw2 = u1.T @ g_y
-    g_x = (g_y @ w2.T) * gelu_grad(x)
+        g_m = widen(g)
+    dw3 = dotp(gelu(y).T, g_m, low)
+    g_y = dotp(g_m, w3.T, low) * gelu_grad(y)
+    dw2 = dotp(u1.T, g_y, low)
+    g_x = dotp(g_y, w2.T, low) * gelu_grad(x)
     if contract_e:
-        g_ein, dwb = g_x @ wb.T, e_in.T @ g_x
+        g_ein, dwb = dotp(g_x, wb.T, low), dotp(e_in.T, g_x, low)
     else:
-        g_ein, dwb = g_x, torch.zeros_like(wb)
+        g_ein, dwb = g_x, torch.zeros_like(widen(wb))
     s = g_x.view(N, K, H).sum(dim=1)
-    return (s @ wa.T, g_ein, g_x, h_V.T @ s, dwb, g_x.sum(0), dw2, g_y.sum(0),
-            dw3, g_m.sum(0))
+    grads = (dotp(s, wa.T, low), g_ein, g_x, dotp(h_V.T, s, low), dwb,
+             g_x.sum(0), dw2, g_y.sum(0), dw3, g_m.sum(0))
+    return tuple(t.to(h_V.dtype) for t in grads)
 
 
 def message_mlp_bwd_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
                          g, *, K, contract_e, aggregate):
-    """Launch ``csrc/message_mlp_bwd.cu`` on fp32 CUDA tensors (the contract
-    of ``message_mlp_bwd_plain``)."""
+    """Launch ``csrc/message_mlp_bwd.cu`` on CUDA tensors, all fp32 or all
+    bf16 (the contract of ``message_mlp_bwd_plain``). The bf16 variant sums
+    the weight and bias gradients in fp32 and rounds them here, once, as
+    the JAX VJP does (``message_kernels.py:272-276``)."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V.shape
-    _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3), (b1, b2, b3))
+    dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
+                         (b1, b2, b3))
     f32 = torch.float32
-    check_operand(g, "g", f32, (N if aggregate else N * K, H))
+    check_operand(g, "g", dt, (N if aggregate else N * K, H))
     dev = h_V.device
-    g_hV = torch.empty((N, H), dtype=f32, device=dev)
-    g_ein = torch.empty((N * K, H), dtype=f32, device=dev)
-    g_G = torch.empty((N * K, H), dtype=f32, device=dev)
+    g_hV = torch.empty((N, H), dtype=dt, device=dev)
+    g_ein = torch.empty((N * K, H), dtype=dt, device=dev)
+    g_G = torch.empty((N * K, H), dtype=dt, device=dev)
     nslot = 4 * H * H + 3 * H
     nparts = torch.cuda.get_device_properties(dev).multi_processor_count
     part = torch.empty((nparts, nslot), dtype=f32, device=dev)
     wT = torch.empty((4, H, H), dtype=f32, device=dev)
     wgrad = torch.empty((nslot,), dtype=f32, device=dev)
-    fn = library("message_mlp_bwd").message_mlp_backward
+    fn = getattr(library("message_mlp_bwd"), "message_mlp_backward" + sfx)
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, g, g_hV, g_ein,
                g_G, part, wT, wgrad)
     err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
              int(aggregate), nparts, stream_ptr(dev))
-    raise_on_error(err, "message_mlp_bwd")
-    LAUNCHES["message_mlp_bwd"] += 1
+    raise_on_error(err, "message_mlp_bwd" + sfx)
+    LAUNCHES["message_mlp_bwd" + sfx] += 1
+    wgrad = wgrad.to(dt)
     HH = H * H
     dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
     db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))

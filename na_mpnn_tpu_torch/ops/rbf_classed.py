@@ -272,17 +272,21 @@ def rbf_edge_features_classed(X_aug, X_m_aug, E_idx, W, low=False, plain=False):
     CUDA tensors, plain version for CPU tensors (``plain``: always the plain
     versions); differentiable in ``W``. ``low``: the bf16 trunk's function
     (damped bins, bf16 operands, the fold scales applied to ``W`` here)."""
-    if low:
-        return RbfProjection.apply(_PLAIN_BF16 if plain else _KERNELS_BF16,
-                                   X_aug, X_m_aug, X_aug, X_m_aug, E_idx,
-                                   fold_scaled(W))
-    if plain:
-        return rbf_edge_features_classed_plain(X_aug, X_m_aug, E_idx, W)
-    return RbfProjection.apply(_KERNELS, X_aug, X_m_aug, X_aug, X_m_aug, E_idx, W)
+    return rbf_edge_features_classed_qk(X_aug, X_m_aug, X_aug, X_m_aug, E_idx,
+                                        W, low, plain)
 
 
-def rbf_edge_features_classed_qk(X_aug_q, X_m_q, X_aug_k, X_m_k, E_idx, W):
+def rbf_edge_features_classed_qk(X_aug_q, X_m_q, X_aug_k, X_m_k, E_idx, W,
+                                 low=False, plain=False):
     """Query/key form: query rows ``[B,Lq,18,3]`` and ``[B,Lq,18]``, key rows
     ``[B,Lk,18,3]`` and ``[B,Lk,18]``, ``E_idx [B,Lq,K]`` key indices ->
-    ``[B,Lq,K,H]``. The same kernels as ``rbf_edge_features_classed``."""
+    ``[B,Lq,K,H]``. The same kernels as ``rbf_edge_features_classed``, with
+    its ``low`` and ``plain``."""
+    if low:
+        return RbfProjection.apply(_PLAIN_BF16 if plain else _KERNELS_BF16,
+                                   X_aug_q, X_m_q, X_aug_k, X_m_k, E_idx,
+                                   fold_scaled(W))
+    if plain:
+        return rbf_edge_features_classed_plain(X_aug_q, X_m_q, E_idx, W,
+                                               X_aug_k, X_m_k)
     return RbfProjection.apply(_KERNELS, X_aug_q, X_m_q, X_aug_k, X_m_k, E_idx, W)

@@ -27,6 +27,17 @@ tensor ops) and Box-Muller for normals. A global row is ``b*L + l`` over the
 whole batch, so the loss and its gradient do not depend on the mesh shape,
 up to the order of the sums. The streams are not JAX's ``fold_in`` streams,
 nor the one-device ``Trainer``'s ``torch.Generator`` draws.
+
+``compute_dtype="bfloat16"`` follows the JAX Trainer on the same mesh. At
+G > 1 (JAX ``forward_graph_parallel``, ``_forward_local``) only the RBF
+projection is bf16 (rows 3 / 4 or 5 / 6 in their bf16 function, on the key
+rows): the positional block, both layer stacks and ``W_out`` run in fp32.
+At G = 1 (the JAX Trainer's data-parallel ``forward``, ``trainer.py:111-112``,
+``:160-161``) the whole one-device bf16 trunk runs: the positional block,
+the encoder's and decoder's parameters, ``h_V``, ``h_E``, ``h_S`` and the
+masks in bf16, LayerNorm statistics and ``W_out`` in fp32, with this
+module's row-keyed streams (uniforms drawn in fp32). Parameters and
+gradients stay fp32 either way, so no collective carries bf16.
 """
 from __future__ import annotations
 
@@ -38,8 +49,9 @@ import torch.distributed as dist
 
 from ..models.config import ModelConfig, check_supported
 from ..models.features import features_from_coords
-from ..models.modules import linear, take_rows
-from ..models.mpnn import _plain, dec_layer, embed_tokens, enc_layer
+from ..models.modules import linear, take_rows, widen
+from ..models.mpnn import (_logits, _plain, _trunk_dtype, dec_layer,
+                           embed_tokens, enc_layer, to_trunk)
 from .mesh import Mesh
 
 # Tags of the random streams (any distinct ints).
@@ -133,12 +145,14 @@ def row_normal(key, tag: int, rid, shape, dtype):
 def row_dropout(rate: float, key, tag: int, rid):
     """The graph-parallel layers' dropout source: ``drop(x, slot)`` keeps
     each entry of ``x [B, Ls, ...]`` where its row-keyed uniform (tag
-    ``tag + slot``) is below ``1 - rate``, scaled by ``1 / (1 - rate)``."""
+    ``tag + slot``; fp32 for a bf16 ``x``) is below ``1 - rate``, scaled by
+    ``1 / (1 - rate)``."""
     def drop(x, slot):
         if key is None or rate <= 0.0:
             return x
         keep = 1.0 - rate
-        u = row_uniform(key, tag + slot, rid, math.prod(x.shape[2:]), x.dtype)
+        u = row_uniform(key, tag + slot, rid, math.prod(x.shape[2:]),
+                        widen(x).dtype)
         return torch.where(u.view(x.shape) < keep, x / keep, 0.0)
     return drop
 
@@ -160,7 +174,7 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     step)`` turns on training randomness (coordinate noise, dropout);
     ``None`` is deterministic, and then the rows equal the one-device
     ``forward`` with the same decode order."""
-    check_supported(cfg, mesh=True)
+    check_supported(cfg)
     X = batch["X"]
     plain = _plain(cfg, X)
     B, Ls = batch["S"].shape
@@ -183,10 +197,14 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
                + batch["rna_mask"] * cfg.rna_augment_eps).to(X.dtype)
         noise = row_normal(key, TAG_NOISE, rid, X.shape[2:], X.dtype)
         X = X + batch["X_m"][..., None].to(X.dtype) * eps[:, :, None, None] * noise
+    cdt = _trunk_dtype(cfg) if mesh.graph == 1 else None
     V, E, E_idx, mask_attend = features_from_coords(
-        params["features"], cfg, batch, X, plain, gather=gather)
+        params["features"], cfg, batch, X, plain, gather=gather,
+        low_pos=cdt is not None)
     h_V = linear(params["W_v"], V)
     h_E = linear(params["W_e"], E)
+    enc_layers, h_V, h_E, layer_mask, mask_attend = to_trunk(
+        cdt, params["encoder"], h_V, h_E, mask, mask_attend)
     K, H = E_idx.shape[2], h_V.shape[-1]
     h_E2 = h_E.reshape(B * Ls * K, H)
     eidx2 = E_idx.reshape(-1)
@@ -194,9 +212,9 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     def drop(tag):
         return row_dropout(rate, key, tag, rid) if rate > 0 else None
 
-    for i, p in enumerate(params["encoder"]):
+    for i, p in enumerate(enc_layers):
         h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_attend.reshape(-1),
-                              mask, drop(TAG_ENC + 10 * i), gather, plain)
+                              layer_mask, drop(TAG_ENC + 10 * i), gather, plain)
 
     if decoding_order is None:
         if key is None:
@@ -211,11 +229,12 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
                                            stable=True)
     rank = torch.argsort(decoding_order, dim=-1)              # [B, L]
     attend = take_rows(rank, E_idx) < rank[:, l0:l0 + Ls, None]
-    m1d2 = mask[:, :, None].expand(B, Ls, K).reshape(-1)
-    mbw2 = m1d2 * attend.reshape(-1).to(X.dtype)
-    h_S = embed_tokens(params, batch["S"])
+    m1d2 = layer_mask[:, :, None].expand(B, Ls, K).reshape(-1)
+    mbw2 = m1d2 * attend.reshape(-1).to(layer_mask.dtype)
+    dec_layers, h_S = to_trunk(cdt, params["decoder"],
+                               embed_tokens(params, batch["S"]))
     h_V_enc = h_V
-    for i, p in enumerate(params["decoder"]):
-        h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,
+    for i, p in enumerate(dec_layers):
+        h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, layer_mask,
                         drop(TAG_DEC + 10 * i), gather, plain)
-    return torch.log_softmax(linear(params["W_out"], h_V), dim=-1)
+    return torch.log_softmax(_logits(params, h_V), dim=-1)

@@ -26,10 +26,13 @@ Batches are host numpy dicts (``collate_batch``); they reach the card as one
 pinned-memory, non-blocking copy per array.
 
 ``MIXED_PRECISION`` (default 1, as in the JAX package) selects the bf16
-trunk (``compute_dtype="bfloat16"``, one device): the parameters, the flat
-gradient and the Noam-Adam state stay fp32 (the model casts the layers'
-parameters in its forward, so autograd returns their gradients in fp32),
-and the ``.npz`` checkpoints are those of an fp32 run.
+trunk (``compute_dtype="bfloat16"``) on one device and on every mesh, with
+the JAX Trainer's policy on the same mesh: the whole trunk in bf16 on one
+device and at G = 1, only the RBF projection at G > 1
+(``parallel/graph_parallel.py``). The parameters, the flat gradient, its
+all-reduce and the Noam-Adam state stay fp32 at every mesh shape (the model
+casts the layers' parameters in its forward, so autograd returns their
+gradients in fp32), and the ``.npz`` checkpoints are those of an fp32 run.
 """
 from __future__ import annotations
 
@@ -142,7 +145,7 @@ class Trainer:
                  loss_tokens=6000.0, grad_clip_norm=1.0,
                  na_shared_tokens=True, seed=0, device="cuda",
                  mesh: Mesh = None, dtype=torch.float32):
-        check_supported(cfg, mesh=mesh is not None)
+        check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
         self.seed = seed
@@ -408,8 +411,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
     waiting for the next training batch) and ``steps`` (training steps taken
     in the epoch, a ``PROFILE_DIR`` capture's included).
 
-    ``MIXED_PRECISION`` (default 1) trains the bf16 trunk on one device;
-    with a mesh it raises, as ``CHECKPOINT_FORMAT: "orbax"`` does."""
+    ``MIXED_PRECISION`` (default 1) trains the bf16 trunk, on one device
+    and on a mesh; ``CHECKPOINT_FORMAT: "orbax"`` raises."""
     from .. import constants
     from ..data.dataset import (DatasetConfig, NADataset, make_batch_iter,
                                 parse_date, read_examples_csv)

@@ -22,8 +22,12 @@ one-device training path on the CPU.
   logits of order 1, through 6 layers of LayerNorm-bounded activations).
 * ``run_training`` from a config without ``MIXED_PRECISION`` trains the
   bf16 trunk, writes its fp32 ``.npz`` and resumes.
-* The options that still refuse: ``remat``, the graph-parallel chunks, and
-  bf16 with the dense RBF, a mesh or the gathered decoder route.
+* The options that still refuse: ``remat`` and the graph-parallel chunks.
+* The bf16 combinations that run since the rest of the bf16 trunk was
+  ported, one step each at a tiny width: the dense RBF, a one-rank mesh
+  ``Trainer``, and the gathered decoder route (L = 40) whose ``eval_step``
+  still takes the fused route. Their parity with JAX is held in
+  ``test_torch_bf16_rows5to8.py`` and ``test_torch_bf16_mesh.py``.
 """
 import dataclasses
 import json
@@ -45,7 +49,6 @@ from na_mpnn_tpu.train import losses as jax_losses
 from na_mpnn_tpu_torch.models import (forward, init_params, sample, score,
                                       unconditional_probs)
 from na_mpnn_tpu_torch.ops import fused_layers as fl
-from na_mpnn_tpu_torch.parallel.graph_parallel import forward_graph_parallel
 from na_mpnn_tpu_torch.train.collate import collate_batch
 from na_mpnn_tpu_torch.train.trainer import (Trainer, model_config_from_params,
                                              run_training)
@@ -225,10 +228,8 @@ def test_inference_entry_points_run_a_bf16_trunk():
 
 
 @pytest.mark.parametrize("kw", [dict(remat="full"), dict(gp_knn_key_chunk=64),
-                                dict(gp_rbf_row_chunk=64),
-                                dict(rbf_mode="dense")],
-                         ids=["remat", "knn_key_chunk", "rbf_row_chunk",
-                              "bf16_dense_rbf"])
+                                dict(gp_rbf_row_chunk=64)],
+                         ids=["remat", "knn_key_chunk", "rbf_row_chunk"])
 def test_unported_options_refuse(kw):
     cfg = _tiny(**kw)
     with pytest.raises(NotImplementedError):
@@ -239,37 +240,80 @@ def test_unported_options_refuse(kw):
         forward(init_params(0, cfg, device="cpu"), cfg, bt)
 
 
-def test_bf16_refuses_a_mesh(tmp_path):
+def _unbucketed(L=40):
+    parsed = [{k: v[0] for k, v in make_synthetic_structure(
+        L=L, seed=s, n_protein=20, n_dna=10).items()} for s in (1, 2)]
+    nb = collate_batch(parsed, use_buckets=False)
+    assert nb["S"].shape == (2, L)
+    return nb
+
+
+def _moved(tr, nb, generator=None):
+    """One train step's loss, checked finite, and that it moved the
+    parameters."""
+    flat0 = tr.flat.clone()
+    loss = float(tr.train_step(nb, generator)["loss_av"])
+    assert np.isfinite(loss) and not torch.equal(tr.flat, flat0)
+    assert bool(torch.isfinite(tr.flat).all())
+    return loss
+
+
+def test_bf16_dense_rbf_trains_a_step():
+    """``rbf_mode="dense"`` at bf16: the bf16 dense RBF and its weight
+    gradient (plain versions on the CPU), not the fp32 ones."""
+    from na_mpnn_tpu_torch.ops import rbf_edge
+
+    calls = []
+    tr = Trainer(_tiny(rbf_mode="dense"), device="cpu")
+    before = tuple(rbf_edge._KERNELS_BF16)
+    try:
+        rbf_edge._KERNELS_BF16 = tuple(
+            (lambda *a, _f=f, **k: calls.append(_f.__name__) or _f(*a, **k))
+            for f in before)
+        _moved(tr, _unbucketed(32), torch.Generator().manual_seed(0))
+    finally:
+        rbf_edge._KERNELS_BF16 = before
+    assert calls == ["rbf_edge_bf16_plain", "rbf_edge_dw_bf16_plain"]
+
+
+def test_bf16_mesh_trainer_runs_a_step(tmp_path):
+    """``Trainer(mesh=(1,1))`` at bf16 (the G = 1 policy: the whole bf16
+    trunk) runs one step; the parameters stay fp32."""
     import torch.distributed as dist
 
     from na_mpnn_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
     initialize_distributed(1, 0, "cpu", init_file=str(tmp_path / "store"))
     try:
-        mesh = make_mesh(1, 1, "cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
-            Trainer(_tiny(), mesh=mesh)
-        b = make_synthetic_structure(L=32, seed=1, n_protein=16, n_dna=8)
-        bt = {k: torch.from_numpy(v) for k, v in b.items()}
-        with pytest.raises(NotImplementedError, match="mesh"):
-            forward_graph_parallel(init_params(0, _tiny(), device="cpu"), _tiny(),
-                                   bt, mesh)
-        Trainer(dataclasses.replace(_tiny(), compute_dtype="float32"), mesh=mesh)
+        tr = Trainer(_tiny(), mesh=make_mesh(1, 1, "cpu"))
+        _moved(tr, _unbucketed(64))
+        assert tr.flat.dtype == torch.float32
     finally:
         dist.destroy_process_group()
 
 
-def test_bf16_refuses_the_gathered_training_route():
-    """At L % 32 != 0 a training step takes the gathered decoder route
-    (rows 7, 8), whose bf16 kernels are not ported: it raises; evaluation at
-    that L takes the fused route and runs."""
-    parsed = [{k: v[0] for k, v in make_synthetic_structure(
-        L=40, seed=s, n_protein=20, n_dna=10).items()} for s in (1, 2)]
-    nb = collate_batch(parsed, use_buckets=False)
-    assert nb["S"].shape == (2, 40)
+def test_bf16_unbucketed_batch_trains_and_evaluates():
+    """At L % 32 != 0 a bf16 training step takes the gathered decoder route
+    (rows 7, 8 at bf16: the plain versions see bf16 operands), with and
+    without a generator; evaluation at that L takes the fused route."""
+    from na_mpnn_tpu_torch.ops import message_kernels as mk
+
+    seen = []
+    fn = mk.message_mlp_plain
+    nb = _unbucketed()
     tr = Trainer(_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="gathered"):
-        tr.train_step(nb, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="gathered"):
-        tr.train_step(nb)
-    m = tr.eval_step(nb)
+    try:
+        mk.message_mlp_plain = lambda *a, **k: seen.append(a[0].dtype) or fn(*a, **k)
+        _moved(tr, nb, torch.Generator().manual_seed(0))
+        _moved(tr, nb)
+    finally:
+        mk.message_mlp_plain = fn
+    assert seen == [torch.bfloat16] * 2
+    calls = []
+    fused = fl.fused_node_update
+    try:
+        fl.fused_node_update = lambda *a, **k: calls.append(a[0]) or fused(*a, **k)
+        m = tr.eval_step(nb)
+    finally:
+        fl.fused_node_update = fused
+    assert calls == ["enc", "dec"]
     assert bool(torch.isfinite(m["loss_per_token"]).all())

@@ -1,5 +1,6 @@
 """Rank workers of the port's multi-process tests (``test_torch_graph_
-parallel.py``, ``test_torch_mesh_train.py``) and ``spawn``, which runs one
+parallel.py``, ``test_torch_mesh_train.py``, ``test_torch_bf16_mesh.py``)
+and ``spawn``, which runs one
 on a gloo mesh of CPU processes. The workers import only ``torch``, numpy
 and the port; the JAX reference runs in the parent. This module holds no
 tests."""
@@ -166,6 +167,80 @@ def trainer_step(rank, data, graph, batch_np, cfg_kw, trainer_kw, ckpt):
             "restored": same, "synced": synced}
 
 
+def _record_layer_dtypes(dtypes):
+    """Record (layer kind, dtype of ``h_V``) of every layer the graph-parallel
+    forward runs."""
+    from na_mpnn_tpu_torch.parallel import graph_parallel as gp
+
+    for name in ("enc_layer", "dec_layer"):
+        fn = getattr(gp, name)
+
+        def wrapper(p, h_V, *a, _fn=fn, _name=name, **kw):
+            dtypes.add((_name, str(h_V.dtype)))
+            return _fn(p, h_V, *a, **kw)
+        setattr(gp, name, wrapper)
+
+
+def mesh_steps(rank, data, graph, batch_np, cfg_kws, trainer_kw):
+    """Per config of ``cfg_kws``: one loss and its flat gradient of an
+    fp32-parameter mesh ``Trainer`` (the decode order from
+    ``batch_np["decoding_order"]``) and the (layer, ``h_V`` dtype) pairs of
+    its layers."""
+    torch.set_num_threads(1)
+    dtypes = set()
+    _record_layer_dtypes(dtypes)
+    mesh = make_mesh(data, graph, device="cpu")
+    out = []
+    for cfg_kw in cfg_kws:
+        dtypes.clear()
+        tr = Trainer(ModelConfig(**cfg_kw), mesh=mesh, device="cpu", **trainer_kw)
+        loss, grad = tr.loss_and_grads(tr.device_batch(batch_np))[:2]
+        out.append((float(loss), grad.numpy(), sorted(dtypes)))
+    return out
+
+
+def mesh_features(rank, data, graph, batch_np, order, cfg_kws, params_np):
+    """Per config of ``cfg_kws``: this rank's deterministic
+    ``forward_graph_parallel`` (no gradient; the fp32 parameters of the JAX
+    tree ``params_np``), its log-probs ``lp`` and, inside it, the RBF
+    projection and the ``low`` it was called with, and the featuriser's edge
+    features, ``E_idx`` and ``low_pos``."""
+    from na_mpnn_tpu_torch.ops import rbf_classed, rbf_edge
+    from na_mpnn_tpu_torch.parallel import graph_parallel as gp
+
+    torch.set_num_threads(1)
+    seen = {}
+    for mod, name in ((rbf_classed, "rbf_edge_features_classed_qk"),
+                      (rbf_edge, "rbf_edge_features_qk")):
+        fn = getattr(mod, name)
+
+        def rbf(*a, _fn=fn, **kw):
+            out = _fn(*a, **kw)
+            seen.update(rbf=out.numpy(), low=kw.get("low"))
+            return out
+        setattr(mod, name, rbf)
+    feats = gp.features_from_coords
+
+    def features(*a, **kw):
+        out = feats(*a, **kw)
+        seen.update(E=out[1].numpy(), E_idx=out[2].numpy(),
+                    low_pos=kw.get("low_pos"))
+        return out
+    gp.features_from_coords = features
+    mesh = make_mesh(data, graph, device="cpu")
+    local = {k: torch.from_numpy(v) for k, v in shard_batch(batch_np, mesh).items()}
+    order_rows = torch.from_numpy(_rows(mesh, batch_np, order))
+    params = from_jax_params(params_np, device="cpu")
+    out = []
+    for cfg_kw in cfg_kws:
+        seen.clear()
+        with torch.no_grad():
+            lp = forward_graph_parallel(params, ModelConfig(**cfg_kw), local, mesh,
+                                        order_rows)
+        out.append(dict(seen, lp=lp.numpy()))
+    return out
+
+
 def run_training_rank(rank, cfg):
     """This rank of ``run_training`` (one epoch on the CPU) on the
     initialised gloo world: a (world, 1) mesh, every rank loading the whole
@@ -174,3 +249,13 @@ def run_training_rank(rank, cfg):
 
     torch.set_num_threads(1)
     return run_training(cfg, max_epochs=1, device="cpu").step
+
+
+def run_training_dtype_rank(rank, cfg):
+    """``run_training_rank``, returning (the trainer's step, its
+    ``compute_dtype``)."""
+    from na_mpnn_tpu_torch.train.trainer import run_training
+
+    torch.set_num_threads(1)
+    tr = run_training(cfg, max_epochs=1, device="cpu")
+    return tr.step, tr.cfg.compute_dtype
