@@ -37,7 +37,9 @@ CUDA toolkit. Phases, each of which raises on failure:
    versions (kNN's E_idx exact; the RBF projection, the message table with
    its saved ``x``, its backward in three modes, the RBF weight gradient;
    relative error < 1e-5 on rows and nodes, < 1e-4 on sums over
-   all edges; two identical launches compared), then the full-width
+   all edges; every output of the two backward kernels bitwise equal
+   across two launches; the RBF dW's edge groups and both kernels' scratch
+   bytes printed), then the full-width
    ``Trainer`` (dropout 0.1, noise 0.1 A): 5 train steps and 1 eval step,
    with the launches of every step counted, loss, gradients and parameters
    checked, ms per step and peak memory printed, save -> restore bitwise,
@@ -61,11 +63,12 @@ CUDA toolkit. Phases, each of which raises on failure:
    bf16 variants of rows 3, 4, 9-12 (``*_bf16`` entries of the same
    sources) against their plain bf16 versions at the training shape
    (relative error < 2^-8 on the RBF's fp32 sums, < 2^-6 on bf16 outputs;
-   the RBF weight gradient and row 10's weight gradients bitwise equal
-   across two launches, the table gradient's spread printed; bounds at the
-   bf16 tensor-core peak); 5 bf16 ``Trainer`` steps of
-   ``model_config_from_params({})`` at B=8 x L=768 (launches per step: kNN 1
-   and the bf16 variants only: RBF 1, RBF dW 1, message table 9, its
+   the RBF weight gradient and every output of row 10 bitwise equal
+   across two launches; both nearer their plain bf16 versions than the
+   fp32 kernels, ``_check_rounding``; bounds at the bf16 tensor-core
+   peak); 5 bf16 ``Trainer`` steps of ``model_config_from_params({})``
+   at B=8 x L=768 (launches per step: kNN 1 and the bf16 variants only:
+   RBF 1, RBF dW 1, message table 9, its
    backward 9), ms per step and peak memory against the fp32 step, a bf16
    eval step (fused route: 3 + 3 + 3 launches), one step against
    ``kernels="torch"`` at bf16; and ``run_training`` for 1 epoch from a
@@ -962,6 +965,52 @@ def _bwd_bound(mode, N, K, H, C, g_rows, esize=4, peak=PEAK_FP32_FLOPS):
     return _bound_ms(ops, nbytes, peak)
 
 
+# The times of rows 4 and 10 in their earlier scalar-FMA form, from PERF.md's
+# kernel table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W): reference
+# values printed beside this run's times, never part of the kernels JSON line.
+SCALAR_MS = {"rbf_classed_dw": 8.8538, "rbf_classed_dw_bf16": 11.9795,
+          "message_table_bwd_enc_node": 3.7350, "message_table_bwd_enc_edge": 3.6429,
+          "message_table_bwd_dec": 3.8073, "message_table_bwd_enc_node_bf16": 3.8616,
+          "message_table_bwd_enc_edge_bf16": 3.8230,
+          "message_table_bwd_dec_bf16": 3.9768}
+
+
+def _launch_bytes(fn):
+    """``fn()`` and the bytes of scratch it allocated: its peak beyond what
+    was allocated before, less its outputs."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    out_bytes = sum(t.numel() * t.element_size() for t in outs)
+    return out, torch.cuda.max_memory_allocated() - base - out_bytes
+
+
+def _print_edge_groups(X_aug, X_m_aug, E_idx):
+    """The RBF weight gradient's per-edge groups on these operands: edges
+    per group (PP, PN, NP, NN), those with a residue in both blocks, and the
+    rows x edges the kernel multiplies against all four tables for all."""
+    import torch
+    from na_mpnn_tpu_torch.ops import rbf_classed
+    from na_mpnn_tpu_torch.ops.rbf_edge import edge_operands
+    _, Mq, _, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, None, None,
+                                      rbf_classed.PERM)
+    K = E_idx.shape[2]
+    counts = rbf_classed.edge_groups(Mq, Mk, nbr, K).sum(1).tolist()
+    edge_node = torch.arange(nbr.shape[0], device=nbr.device) // K
+    sq = rbf_classed.residue_sides(Mq)[edge_node]
+    mixed = int(((sq == 2) | (rbf_classed.residue_sides(Mk)[nbr] == 2)).sum())
+    rows = [16 * len(q) * len(n) for q, n in rbf_classed.GROUP_SELS]
+    work = sum(c * r for c, r in zip(counts, rows))
+    print(f"rbf_classed_dw edge groups (E={nbr.shape[0]}): PP {counts[0]}, PN "
+          f"{counts[1]}, NP {counts[2]}, NN {counts[3]}, with a residue in both "
+          f"blocks {mixed}; rows x edges {work} ({work / (nbr.shape[0] * 5184):.3f} "
+          f"of all four tables for every edge)", flush=True)
+
+
 def train_kernel_phase(nb):
     """The training kernels against their plain versions on the card at
     the training shape, and the forward kernels' times there; returns the
@@ -1011,21 +1060,26 @@ def train_kernel_phase(nb):
                 f"rel err {rel:.3g} (< {REL_TOL})")
 
     # RBF weight gradient (row 4)
+    _print_edge_groups(X_aug, X_m_aug, E_idx)
     g = torch.randn((B, L, K, H), generator=gen, device=dev)
-    dw_k = rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g)
+    dw_k, extra = _launch_bytes(
+        lambda: rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g))
     dw_k2 = rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g)
     dw_p = rbf_classed.rbf_classed_dw_plain(X_aug, X_m_aug, E_idx, g)
     rel = _rel_err(dw_k, dw_p)
-    repeat = float((dw_k - dw_k2).abs().max())
     if not rel < 1e-4:
         raise AssertionError(f"rbf_classed_dw: relative error {rel:.3g}")
+    if not torch.equal(dw_k, dw_k2):
+        raise AssertionError("rbf_classed_dw: two launches differ")
     ms = _sync_time(lambda: rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g), 5)
     plain_ms = _sync_time(lambda: rbf_classed.rbf_classed_dw_plain(
         X_aug, X_m_aug, E_idx, g), 2)
     bound = _rbf_bound(X_aug, X_m_aug, E_idx, H)
     print(f"rbf_classed_dw B={B} L={L} K={K}: rel err {rel:.3g} (< 1e-4), "
-          f"two launches differ by {repeat:.3g}, {ms:.4f} ms (plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms)", flush=True)
+          f"two launches bitwise equal, {ms:.4f} ms (scalar-FMA form, PERF.md: "
+          f"{SCALAR_MS['rbf_classed_dw']} ms; plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms); {extra / 2**20:.1f} "
+          f"MiB of scratch per launch", flush=True)
     rows["rbf_classed_dw"] = dict(max_abs_err=float((dw_k - dw_p).abs().max()),
                                   ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                                   bound_by=bound[1])
@@ -1041,6 +1095,14 @@ def train_kernel_phase(nb):
     ones = torch.ones_like(m_att)
     names = ("g_hV", "g_ein", "g_table", "dwa", "dwb", "db1", "dw2", "db2",
              "dw3", "db3")
+    # the table order, as a stack sorts it once for its layers (two sorts
+    # per one-device step: encoder and decoder); timed on its own, outside
+    # row 10's ms
+    order = mk.table_order(eidx2, K, L, L, N)
+    order_ms = _sync_time(lambda: mk.table_order(eidx2, K, L, L, N), 10)
+    print(f"table order (torch.argsort + searchsorted, E={N * K}): {order_ms:.4f} "
+          f"ms per sort, 2 per one-device training step, not in row 10's ms",
+          flush=True)
     for mode, ma, mb in (("enc_node", m_att, ones), ("enc_edge", ones, ones),
                          ("dec", m1d, mbw)):
         C = 2 * H if mode == "dec" else H
@@ -1066,28 +1128,34 @@ def train_kernel_phase(nb):
         g_rows = N * K if mode == "enc_edge" else N
         g = torch.randn((g_rows, H), generator=gen, device=dev)
         bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
-        got = [t.clone() for t in mk.message_table_bwd_cuda(*bargs, K=K, L=L)]
-        again = mk.message_table_bwd_cuda(*bargs, K=K, L=L)
+        # the first launch sorts for itself, the second takes the stack's order
+        got, extra = _launch_bytes(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L))
+        again = mk.message_table_bwd_cuda(*bargs, K=K, L=L, order=order)
         want = mk.message_table_bwd_plain(*bargs, K=K, L=L)
-        errs, repeat = {}, {}
+        errs = {}
         for i, (name, a, b, c) in enumerate(zip(names, got, want, again)):
             errs[name] = _rel_err(a, b)
-            repeat[name] = float((a - c).abs().max())
             tol = REL_TOL if name in ("g_hV", "g_ein") else 1e-4
             if not errs[name] < tol:
                 raise AssertionError(f"message_table_bwd {mode} {name}: "
                                      f"rel err {errs[name]:.3g} (tol {tol})")
-        ms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L), 10)
+            if not torch.equal(a, c):
+                raise AssertionError(f"message_table_bwd {mode} {name}: two "
+                                     "launches differ")
+        ms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L,
+                                                          order=order), 10)
         plain_ms = _sync_time(lambda: mk.message_table_bwd_plain(*bargs, K=K, L=L), 3)
         bound = _bwd_bound(mode, N, K, H, C, g_rows)
         worst = max(errs, key=errs.get)
         print(f"message_table_bwd {mode} N={N} K={K} H={H}: worst rel err "
               f"{errs[worst]:.3g} ({worst}); g_hV {errs['g_hV']:.3g}, g_ein "
               f"{errs['g_ein']:.3g}, g_table {errs['g_table']:.3g}, dW2 "
-              f"{errs['dw2']:.3g}; two launches differ by at most "
-              f"{max(repeat.values()):.3g} (g_table {repeat['g_table']:.3g}); "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)",
-              flush=True)
+              f"{errs['dw2']:.3g}; two launches bitwise equal, g_table "
+              f"included, with and without the stack's order; {ms:.4f} ms with "
+              f"the order given (scalar-FMA form, PERF.md: "
+              f"{SCALAR_MS[f'message_table_bwd_{mode}']} ms; plain {plain_ms:.4f} ms, "
+              f"bound {bound[0]:.5f} ms); {extra / 2**20:.1f} MiB of scratch per "
+              f"launch", flush=True)
         rows[f"message_table_bwd_{mode}"] = dict(
             max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
             ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
@@ -1140,8 +1208,9 @@ def bf16_kernel_phase(nb):
     against the structure's 768 key rows (the graph-parallel route's
     operands; equal to the structure's own rows within 1e-6), the message
     table in three modes with its saved ``x``
-    and its backward (< 2^-6 on every output; two backward launches bitwise
-    equal except the table gradient, whose spread from atomics is printed)
+    and its backward (< 2^-6 on every output, each nearer its plain bf16
+    version than the fp32 kernel's, ``_check_rounding``; two backward
+    launches bitwise equal, the table gradient included)
     and the fused node (encoder, decoder) and edge updates of ``eval_step``
     (< 2^-6). Bounds at the bf16 tensor-core peak with bf16 bytes. Returns
     the rows of the kernels JSON line."""
@@ -1204,7 +1273,9 @@ def bf16_kernel_phase(nb):
         RBF_BF16_TOL, lambda: rbf_classed.rbf_classed_dw_bf16_cuda(*dw_args),
         lambda: rbf_classed.rbf_classed_dw_bf16_plain(*dw_args),
         _rbf_bound(X_aug, X_m_aug, E_idx, H, peak=PEAK_BF16_FLOPS), 5,
-        ", two launches bitwise equal")
+        f", two launches bitwise equal (scalar-FMA form, PERF.md: "
+        f"{SCALAR_MS['rbf_classed_dw_bf16']} ms)",
+        fp32=rbf_classed.rbf_classed_dw_cuda(*dw_args))
 
     # rows 5 and 6: the dense RBF on the reference-order weight
     W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
@@ -1269,6 +1340,7 @@ def bf16_kernel_phase(nb):
     ones = torch.ones_like(m_att)
     names = ("g_hV", "g_ein", "g_table", "dwa", "dwb", "db1", "dw2", "db2",
              "dw3", "db3")
+    order = mk.table_order(eidx2, K, L, L, N)     # as the kernel phase's
     for mode, ma, mb in (("enc_node", m_att, ones), ("enc_edge", ones, ones),
                          ("dec", m1d, mbw)):
         C = 2 * H if mode == "dec" else H
@@ -1293,34 +1365,44 @@ def bf16_kernel_phase(nb):
         g_rows = N * K if mode == "enc_edge" else N
         g = torch.randn((g_rows, H), generator=gen, device=dev).to(bf)
         bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
-        got = [t.clone() for t in mk.message_table_bwd_cuda(*bargs, K=K, L=L)]
-        again = mk.message_table_bwd_cuda(*bargs, K=K, L=L)
+        # the first launch sorts for itself, the second takes the stack's order
+        got, extra = _launch_bytes(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L))
+        again = mk.message_table_bwd_cuda(*bargs, K=K, L=L, order=order)
         want = mk.message_table_bwd_plain(*bargs, K=K, L=L)
-        errs = {}
-        for name, a, b, c in zip(names, got, want, again):
+        g32 = mk.message_table_bwd_cuda(*[t.float() if torch.is_tensor(t) and
+                                          t.dtype == bf else t for t in bargs],
+                                        K=K, L=L)
+        errs, seps = {}, {}
+        for name, a, b, c, f in zip(names, got, want, again, g32):
             errs[name] = _rel_err(a.float(), b.float())
             if not errs[name] < BF16_TOL:
                 raise AssertionError(f"message_table_bwd {mode} bf16 {name}: "
                                      f"rel err {errs[name]:.3g}")
-            if name != "g_table" and not torch.equal(a, c):
+            if not torch.equal(a, c):
                 raise AssertionError(f"message_table_bwd {mode} bf16 {name}: two "
                                      "launches differ")
-        spread = float((got[2].float() - again[2].float()).abs().max())
+            seps[name] = _check_rounding(f"message_table_bwd_{mode}_bf16 {name}",
+                                         a, b, f)
+        near = min(seps, key=lambda n: seps[n][1] / (seps[n][0] + 1e-30))
         worst = max(errs, key=errs.get)
-        ms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L), 10)
+        ms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=L,
+                                                          order=order), 10)
         plain_ms = _sync_time(lambda: mk.message_table_bwd_plain(*bargs, K=K, L=L), 3)
         bound = _bwd_bound(mode, N, K, H, C, g_rows, esize=2, peak=PEAK_BF16_FLOPS)
         print(f"message_table_bwd_{mode}_bf16 N={N} K={K} H={H}: worst rel err "
               f"{errs[worst]:.3g} ({worst}; < {BF16_TOL:.3g}); two launches bitwise "
-              f"equal but for g_table (spread {spread:.3g} of max "
-              f"{float(got[2].float().abs().max()):.3g}); {ms:.4f} ms (plain "
+              f"equal, g_table included; nearest the fp32 kernel: {near}, rms "
+              f"{seps[near][0]:.3g} from plain vs {seps[near][1]:.3g} from fp32; "
+              f"{ms:.4f} ms with the order given (scalar-FMA form, PERF.md: "
+              f"{SCALAR_MS[f'message_table_bwd_{mode}_bf16']} ms; plain "
               f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} at the "
-              f"bf16 peak, {ms / bound[0]:.1f}x)", flush=True)
+              f"bf16 peak, {ms / bound[0]:.1f}x); {extra / 2**20:.1f} MiB of "
+              f"scratch per launch", flush=True)
         rows[f"message_table_bwd_{mode}_bf16"] = dict(
             max_abs_err=max(float((a.float() - b.float()).abs().max())
                             for a, b in zip(got, want)),
             ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
-        del got, again, want, out_k, out_p, x_k, x_p
+        del got, again, want, g32, out_k, out_p, x_k, x_p
 
     # rows 11 and 12 at eval_step's shape, bf16 parameters as the model casts them
     pe, pd = (cast_tree(p, bf) for p in _random_layer(cfg, 6, dev))
@@ -2021,6 +2103,7 @@ def mesh_kernel_phase(nb):
     m1d = (torch.rand((N * K,), generator=gen, device=dev) > 0.2).float()
     mbw = m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5).float()
     ones = torch.ones_like(m_att)
+    order = mk.table_order(eidx2, K, Lq, L, B * L)
     for mode, ma, mb in (("enc_node", m_att, ones), ("enc_edge", ones, ones),
                          ("dec", m1d, mbw)):
         C = 2 * H if mode == "dec" else H
@@ -2037,19 +2120,25 @@ def mesh_kernel_phase(nb):
         g = torch.randn((N * K if mode == "enc_edge" else N, H), generator=gen,
                         device=dev)
         bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
-        got = mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L)
+        got = [t.clone() for t in mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L)]
+        again = mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L, order=order)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"message_table_bwd {mode} Lk != L: two "
+                                 "launches differ")
         want = mk.message_table_bwd_plain(*bargs, K=K, L=Lq, Lk=L)
         errs = [_rel_err(a, b) for a, b in zip(got, want)]
         if not (max(errs[:2]) < REL_TOL and max(errs) < 1e-4):
             raise AssertionError(f"message_table_bwd {mode} Lk != L: rel errs {errs}")
         ms = _sync_time(lambda: mk.message_table_cuda(*args, K=K, L=Lq, Lk=L,
                                                       save_x=True), 10)
-        bms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L), 10)
+        bms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L,
+                                                           order=order), 10)
         print(f"message_table {mode} shard Lq={Lq} of Lk={L} (B={B}): forward rel "
               f"err {fwd:.3g} (< {REL_TOL}), {ms:.4f} ms; backward worst rel err "
               f"{max(errs):.3g} (g_hV, g_ein < {REL_TOL}; g_table {errs[2]:.3g} "
-              f"[{B * L} x {C}]), {bms:.4f} ms", flush=True)
-        del got, want, out_p, x_p
+              f"[{B * L} x {C}]; two launches bitwise equal), {bms:.4f} ms with the "
+              f"order given", flush=True)
+        del got, again, want, out_p, x_p
     return rows
 
 
@@ -2291,8 +2380,9 @@ def _bf16_mesh_steps(nb, mesh, order, fp32_ms):
     of each held to knn_qk 1 and the bf16 variants of rows 3, 4, 9, 10; then
     one step without dropout and noise under a given decode order against
     the one-device bf16 step (loss within 1e-4 relative, each gradient leaf
-    within 2^-7 of its max: row 10's table gradient adds in an order the
-    atomics choose, and a bf16 rounding of it may fall apart). Returns the
+    within 2^-7 of its max: PyTorch's index-gather backward of ``emb[S]``
+    adds in an order its atomics choose, and a bf16 rounding may fall
+    apart). Returns the
     launches."""
     import dataclasses
 

@@ -1,7 +1,8 @@
-// What the message-table forward (message_table.cu) and its backward
-// (message_table_bwd.cu) share: the tiling, the exact erf GELU and its
-// derivative, and the tile-by-weight product. The backward resumes from the
-// forward's pre-GELU x, so both must compute GELU and the products alike.
+// What the message-table forward (message_table.cu) and the message MLP
+// kernels share: the tiling, the exact erf GELU and its derivative, and the
+// tile-by-weight product. The backward (message_table_bwd.cu) takes the
+// GELU, its derivative and the mode codes from here: it resumes from the
+// forward's pre-GELU x, so both must compute GELU alike.
 // The weights of a product are fp32 or bf16 (precision.cuh); the tile's
 // activations are fp32 in shared memory, already rounded to bf16 where the
 // bf16 trunk feeds them to a product.
@@ -21,10 +22,18 @@ __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
-// Phi(x) + x * phi(x), the exact derivative of gelu.
-__device__ __forceinline__ float gelu_grad(float x) {
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+// Phi(x), so that gelu(x) = x * Phi(x) (the same fp32 value: halving is
+// exact).
+__device__ __forceinline__ float gelu_cdf(float x) {
+  return 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// Phi(x) + x * phi(x), the exact derivative of gelu (cdf = Phi(x)).
+__device__ __forceinline__ float gelu_grad(float x, float cdf) {
   return cdf + x * 0.39894228040143268f * expf(-0.5f * x * x);
+}
+__device__ __forceinline__ float gelu_grad(float x) {
+  return gelu_grad(x, gelu_cdf(x));
 }
 
 // acc[i][c] = sum_k As[ty + 8i][k] * W[k][tx*CPT + c]; W is [H, H] ([in, out]),

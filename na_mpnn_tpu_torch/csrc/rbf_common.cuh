@@ -65,19 +65,30 @@ __device__ __forceinline__ float bin_mu(int r) {
   return (float)(2.0 + r * (20.0 / (kR - 1)));
 }
 
+// The distance between query atom qa of row xq and key atom na of row xn
+// (x|y|z planes of kA slots each), as the exact bins take it.
+__device__ __forceinline__ float pair_distance(const float* xq,
+                                               const float* xn, int qa,
+                                               int na) {
+  const float dx = xq[qa] - xn[na];
+  const float dy = xq[kA + qa] - xn[kA + na];
+  const float dz = xq[2 * kA + qa] - xn[2 * kA + na];
+  return sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f);
+}
+
+// The exact bin of centre mu at distance D.
+__device__ __forceinline__ float gauss_bin(float D, float mu) {
+  const float z = (D - mu) / 1.25f;
+  return expf(-z * z);
+}
+
 // Bin r (centre mu) of the distance between query atom qa and key atom na of
 // tile edge e; 0 where either atom is absent.
 __device__ __forceinline__ float rbf_bin(const float* qx, const float* nx,
                                          const float* qm, const float* nm,
                                          int e, int qa, int na, float mu) {
   if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
-  const float* xq = qx + e * 3 * kA;
-  const float* xn = nx + e * 3 * kA;
-  const float dx = xq[qa] - xn[na];
-  const float dy = xq[kA + qa] - xn[kA + na];
-  const float dz = xq[2 * kA + qa] - xn[2 * kA + na];
-  const float z = (sqrtf(dx * dx + dy * dy + dz * dz + 1e-6f) - mu) / 1.25f;
-  return expf(-z * z);
+  return gauss_bin(pair_distance(qx + e * 3 * kA, nx + e * 3 * kA, qa, na), mu);
 }
 
 // fp32 constants of the recursion, as the JAX package rounds them
@@ -89,22 +100,22 @@ constexpr float kUndamp = 0x1.89fc0ep+24f;   // e^{(R-1)c}
 constexpr float kTiny = 0x1.05563cp-126f;    // seeds below are flushed to 0
 constexpr float kDistCap = 50.0f;
 
-// Damped bin r of the pair (query atom qa, key atom na) of tile edge e, 0
-// where either atom is absent. The fp32 operations of the JAX package's
-// _bins_recursive in its order, with the distance rounded step by step
-// (no contraction into FMAs), as the plain version computes them:
+// The damped walk of the pair (query atom qa of row xq, key atom na of row
+// xn): the fp32 operations of the JAX package's _bins_recursive in its
+// order, with the distance rounded step by step (no contraction into FMAs),
+// as the plain version computes them:
 //   D = min(sqrt(dx^2 + dy^2 + dz^2 + 1e-6), 50), t0 = D - 2, t1 = D - 22,
 //   f_lo = exp(-(t0 t0) / s^2), f_hi = exp(-(t1 t1) / s^2) (< kTiny: 0),
-//   g = exp(kGen t0), u_r = f_lo (g kDamp)^r, d_m = f_hi (kUndamp / g)^m.
-// 3 exps and a division per call, then R - 1 multiplications.
-__device__ __forceinline__ float rbf_bin_damped(const float* qx,
-                                                const float* nx,
-                                                const float* qm,
-                                                const float* nm, int e,
-                                                int qa, int na, int r) {
-  if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
-  const float* xq = qx + e * 3 * kA;
-  const float* xn = nx + e * 3 * kA;
+//   g = exp(kGen t0), up = g kDamp, down = kUndamp / g.
+// Bin r is max(f_lo up^r, f_hi down^(R-1-r)), each power taken by repeated
+// rounded multiplication. 3 exps and a division per pair.
+struct DampedWalk {
+  float f_lo, f_hi, up, down;
+};
+
+__device__ __forceinline__ DampedWalk damped_walk(const float* xq,
+                                                  const float* xn, int qa,
+                                                  int na) {
   const float dx = __fsub_rn(xq[qa], xn[na]);
   const float dy = __fsub_rn(xq[kA + qa], xn[kA + na]);
   const float dz = __fsub_rn(xq[2 * kA + qa], xn[2 * kA + na]);
@@ -113,17 +124,55 @@ __device__ __forceinline__ float rbf_bin_damped(const float* qx,
                              1e-6f);
   const float D = fminf(sqrtf(d2), kDistCap);
   const float t0 = __fsub_rn(D, 2.0f), t1 = __fsub_rn(D, 22.0f);
-  float f_lo = expf(__fmul_rn(-__fmul_rn(t0, t0), kInvS2));
-  float f_hi = expf(__fmul_rn(-__fmul_rn(t1, t1), kInvS2));
-  if (f_lo < kTiny) f_lo = 0.f;
-  if (f_hi < kTiny) f_hi = 0.f;
+  DampedWalk w;
+  w.f_lo = expf(__fmul_rn(-__fmul_rn(t0, t0), kInvS2));
+  w.f_hi = expf(__fmul_rn(-__fmul_rn(t1, t1), kInvS2));
+  if (w.f_lo < kTiny) w.f_lo = 0.f;
+  if (w.f_hi < kTiny) w.f_hi = 0.f;
   const float g = expf(__fmul_rn(kGen, t0));
-  const float up_step = __fmul_rn(g, kDamp);
-  const float down_step = __fdiv_rn(kUndamp, g);
-  float up = f_lo, down = f_hi;
-  for (int i = 0; i < r; ++i) up = __fmul_rn(up, up_step);
-  for (int i = 0; i < kR - 1 - r; ++i) down = __fmul_rn(down, down_step);
+  w.up = __fmul_rn(g, kDamp);
+  w.down = __fdiv_rn(kUndamp, g);
+  return w;
+}
+
+// Damped bin r of the pair (query atom qa, key atom na) of tile edge e, 0
+// where either atom is absent; R - 1 multiplications after the walk.
+__device__ __forceinline__ float rbf_bin_damped(const float* qx,
+                                                const float* nx,
+                                                const float* qm,
+                                                const float* nm, int e,
+                                                int qa, int na, int r) {
+  if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
+  const DampedWalk w = damped_walk(qx + e * 3 * kA, nx + e * 3 * kA, qa, na);
+  float up = w.f_lo, down = w.f_hi;
+  for (int i = 0; i < r; ++i) up = __fmul_rn(up, w.up);
+  for (int i = 0; i < kR - 1 - r; ++i) down = __fmul_rn(down, w.down);
   return fmaxf(up, down);
+}
+
+// All 16 bins of the pair (query atom qa of row xq, key atom na of row xn),
+// the distance or walk taken once: fp32 the exact Gaussians of rbf_bin,
+// bf16 (kLow) the damped bins of rbf_bin_damped rounded to bf16. The caller
+// handles absent atoms.
+template <bool kLow>
+__device__ __forceinline__ void pair_bins(const float* xq, const float* xn,
+                                          int qa, int na, float (&b)[kR]) {
+  if constexpr (!kLow) {
+    const float D = pair_distance(xq, xn, qa, na);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) b[r] = gauss_bin(D, bin_mu(r));
+  } else {
+    const DampedWalk w = damped_walk(xq, xn, qa, na);
+    float up = w.f_lo, down[kR];
+    down[0] = w.f_hi;
+#pragma unroll
+    for (int m = 1; m < kR; ++m) down[m] = __fmul_rn(down[m - 1], w.down);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      b[r] = rnd<bf16>(fmaxf(up, down[kR - 1 - r]));
+      up = __fmul_rn(up, w.up);
+    }
+  }
 }
 
 // The weight-gradient tile product: acc[i][c] += sum_e bins[ty + 8i][e] *

@@ -181,29 +181,45 @@ def _leaves(tree):
         yield tree
 
 
+def _wants_grad(p, *tensors) -> bool:
+    """True when a gradient is wanted through a layer: grad mode is on and an
+    input or a parameter requires one."""
+    if not torch.is_grad_enabled():
+        return False
+    return (any(t.requires_grad for t in tensors)
+            or any(leaf.requires_grad for leaf in _leaves(p)))
+
+
 def fused_route(drop, p, *tensors) -> bool:
     """True when a layer runs the fused kernels: it applies no dropout
-    (``drop`` is None) and no gradient is wanted through it (grad mode off,
-    or neither an input nor a parameter requires one). Never depends on L."""
-    if drop is not None:
-        return False
-    if not torch.is_grad_enabled():
-        return True
-    return not (any(t.requires_grad for t in tensors)
-                or any(leaf.requires_grad for leaf in _leaves(p)))
+    (``drop`` is None) and no gradient is wanted through it. Never depends
+    on L."""
+    return drop is None and not _wants_grad(p, *tensors)
+
+
+def table_order(eidx2, K, L, Lk, plain, layers, *tensors):
+    """The message-table backward's edge order (``mk.table_order``), sorted
+    once for the ``layers`` of a stack that share ``eidx2`` and passed to
+    each of them; None where no backward kernel runs (the plain versions,
+    CPU tensors, or no gradient wanted through the stack's first layer)."""
+    if (plain or not layers or not tensors[0].is_cuda
+            or not _wants_grad(layers[0], *tensors)):
+        return None
+    return mk.table_order(eidx2, K, L, Lk, eidx2.shape[0] // (K * L) * Lk)
 
 
 def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop=None,
-              gather=_identity, plain=False):
+              gather=_identity, plain=False, order=None):
     """One encoder layer on flat edges: the node update (``W1..W3``, LN1,
     FFN, LN2, mask), then the edge update (``W11..W13``, LN3). ``h_V
     [B,L,H]``, ``h_E2 [B*L*K,H]``; ``drop(x, slot)``, where given, applies
     dropout to the node message (slot 0), the FFN output (1) and the edge
     message (2, as ``[B,L,K*H]``); ``gather`` turns a node table ``[B,L,C]``
     into the rows that ``eidx2`` indexes (identity on one device, the
-    graph-axis all-gather on the graph-parallel route). On the fused route
-    (``fused_route``) two launches, else two message-table launches with
-    the tail in PyTorch. Returns (``h_V``, ``h_E2``)."""
+    graph-axis all-gather on the graph-parallel route); ``order`` is the
+    stack's ``table_order`` for the message-table backward. On the fused
+    route (``fused_route``) two launches, else two message-table launches
+    with the tail in PyTorch. Returns (``h_V``, ``h_E2``)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
@@ -222,20 +238,21 @@ def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop=None,
     drop = drop or _no_dropout
     dh = mk.message_agg_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
                                    eidx2, mask_att2, K=K, L=L, Lk=Lk,
-                                   plain=plain)
+                                   plain=plain, order=order)
     h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
     h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
     h_V = mask[..., None] * h_V
     h_V2 = h_V.reshape(N, H)
     table = gather((h_V2 @ p["W11"]["w"][2 * H:]).view(B, L, H))
     m = mk.message_edge_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
-                                   eidx2, K=K, L=L, Lk=Lk, plain=plain)
+                                   eidx2, K=K, L=L, Lk=Lk, plain=plain,
+                                   order=order)
     h_E2 = layer_norm(p["norm3"], h_E2 + drop(m.view(B, L, K * H), 2).view(N * K, H))
     return h_V, h_E2
 
 
 def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
-              gather=_identity, plain=False):
+              gather=_identity, plain=False, order=None):
     """One parallel-decoder layer: a 2H node table ``[h_S@ws + h_V@wv -
     h_Venc@wv | h_Venc@wv]`` replaces the ``[B,L,K,3H]`` causal context
     (``mbw*A[j] + m1d*B[j]`` is the three-term context exactly, because
@@ -245,8 +262,8 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
     dropout or a gradient at ``L % 32 != 0`` takes the gathered route
     instead: the ``[B,L,K,H]`` causal context and edge term gathered in
     PyTorch into the pre-gathered message MLP (``mk.message_agg_batched``),
-    as the JAX training decoder does at such L. ``drop`` and ``gather`` as
-    in ``enc_layer`` (slots 0 and 1)."""
+    as the JAX training decoder does at such L. ``drop``, ``gather`` and
+    ``order`` as in ``enc_layer`` (slots 0 and 1)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
@@ -277,7 +294,8 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
                         mask.reshape(N), K=K, L=L, Lk=Lk).view(B, L, H)
         dh = mk.message_dec_table_flat(p, h_V.reshape(N, H), h_E2,
                                        table.reshape(B * Lk, 2 * H), eidx2,
-                                       m1d2, mbw2, K=K, L=L, Lk=Lk, plain=plain)
+                                       m1d2, mbw2, K=K, L=L, Lk=Lk, plain=plain,
+                                       order=order)
     drop = drop or _no_dropout
     h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
     h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
@@ -306,9 +324,10 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     eidx2 = E_idx.reshape(-1)
     mask_att2 = mask_attend.reshape(-1)
     drop = generator_dropout(cfg.dropout, generator)
+    order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
     for p in layers:
         h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
-                              plain=plain)
+                              plain=plain, order=order)
     return h_V, h_E2.view(B, L, K, H), E_idx
 
 
@@ -349,10 +368,13 @@ def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
     m1d2 = mask[:, :, None].expand(B, L, K).reshape(-1)
     mbw2 = mask_bw.reshape(-1)
     drop = generator_dropout(cfg.dropout, generator)
+    # at L % 32 != 0 a layer with a gradient takes the gathered route
+    order = None if not mk.table_gather_ok(L) else table_order(
+        eidx2, K, L, L, plain, layers, h_V, h_E2, h_S)
     h_V_enc = h_V
     for p in layers:
         h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,
-                        drop, plain=plain)
+                        drop, plain=plain, order=order)
     return h_V
 
 

@@ -30,6 +30,13 @@ def check_operand(t, name, dtype, shape=None):
                          f"got {tuple(t.shape)}")
 
 
+def check_aligned(t, name, nbytes=16):
+    """Raise unless ``t`` starts on an ``nbytes`` boundary (a kernel that
+    reads its rows as vectors; a view at an odd offset would fault)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: expected a {nbytes}-byte aligned start")
+
+
 def raise_on_error(code: int, kernel: str):
     """Raise for a nonzero ``cudaError_t`` returned by a launcher."""
     if code != 0:

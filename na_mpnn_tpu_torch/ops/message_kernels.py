@@ -24,10 +24,17 @@ with ``m = W3 . gelu(W2 . gelu(x) + b2) + b3``.
 
 Backward: ``csrc/message_table_bwd.cu`` (replaces ``_message_table_bwd_call``)
 resumes from the pre-GELU ``x`` that the forward saves (``save_x=True``), and
-``message_table_bwd_plain`` is its plain version. ``message_table`` wraps both
-in a ``torch.autograd.Function`` when a gradient is wanted: ``eidx2``,
-``mask_att2`` and ``mbw2`` are structural and get none; the weights enter as
-row blocks of ``W1`` (views), so autograd carries ``dwa``/``dwb`` into ``W1``.
+``message_table_bwd_plain`` is its plain version. Its products run on the
+tensor cores (bf16 ``mma.sync``; 3xTF32 at fp32) and every output is the
+same on every launch: no atomics, the weight and bias gradients reduce in a
+fixed order, and the table gradient sums each row's edge contributions in
+ascending edge order through ``table_order`` (index glue: the model
+sorts once per stack and passes it to every layer as ``order``; a call
+without it sorts for itself).
+``message_table`` wraps both in a ``torch.autograd.Function`` when a
+gradient is wanted: ``eidx2``, ``mask_att2`` and ``mbw2`` are structural and
+get none; the weights enter as row blocks of ``W1`` (views), so autograd
+carries ``dwa``/``dwb`` into ``W1``.
 
 The bf16 trunk: every operand bf16 (weights, masks and tables included)
 selects the TPU kernels' ``compute_dtype=bfloat16`` branch, with the JAX
@@ -55,10 +62,11 @@ of the JAX ``_fwd_kernel`` / ``_bwd_kernel`` at ``compute_dtype=bfloat16``.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
-from . import LAUNCHES, check_operand, raise_on_error
+from . import LAUNCHES, check_aligned, check_operand, raise_on_error
 from ..models.modules import MESSAGE_SCALE, dotp, gelu, widen
 
 MODES = {"enc_node": 0, "enc_edge": 1, "dec": 2}
@@ -212,12 +220,37 @@ def message_table_bwd_plain(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     return tuple(t.to(h_V2.dtype) for t in grads)
 
 
+def table_rows(eidx2, K, L, Lk):
+    """The table row of every edge, ``(n // L) * Lk + eidx`` (``n = e // K``
+    the edge's node)."""
+    node = torch.arange(eidx2.shape[0], device=eidx2.device) // K
+    return (node // L) * Lk + eidx2
+
+
+def table_order(eidx2, K, L, Lk, n_rows):
+    """The edges sorted stably by table row -> ``(order [E], offsets
+    [n_rows + 1])``: row ``t``'s edges are ``order[offsets[t]:offsets[t+1]]``
+    in ascending edge order. Index glue for the backward kernel's table
+    gradient, which sums each row's contributions in this order (no
+    atomics, so the sum is the same on every launch)."""
+    key = table_rows(eidx2, K, L, Lk)
+    order = torch.argsort(key, stable=True)
+    bounds = torch.arange(n_rows + 1, device=key.device, dtype=key.dtype)
+    return order, torch.searchsorted(key[order], bounds)
+
+
 def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
-                           wa, wb, b1, w2, b2, w3, b3, g, *, K, L, Lk=None):
+                           wa, wb, b1, w2, b2, w3, b3, g, *, K, L, Lk=None,
+                           order=None):
     """Launch ``csrc/message_table_bwd.cu`` on CUDA tensors, all fp32 or all
-    bf16 (same contract as ``message_table_bwd_plain``). The bf16 variant
+    bf16 (same contract as ``message_table_bwd_plain``). ``order`` is
+    ``table_order(eidx2, K, L, Lk, B*Lk)``, sorted here when not given
+    (the layers of one stack share one). The bf16 variant
     sums the table and weight gradients in fp32 and rounds them here, once,
-    as the JAX VJP does (``message_kernels.py:581-585``)."""
+    as the JAX VJP does (``message_kernels.py:581-585``). Scratch of the
+    operands' type: gelu(x), g_m (not in enc_edge, where it is ``g``),
+    gelu(y), g_y ``[N*K,H]``, the table contributions ``[N*K,C]`` and
+    ``sum_k g_x`` ``[N,H]``; fp32 bias and weight partials."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V2.shape
@@ -226,33 +259,52 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     dt, sfx = _dtype_of(h_V2)
     f32 = torch.float32
     C = 2 * H if mode == "dec" else H
+    E = N * K
     check_operand(h_V2, "h_V2", dt, (N, H))
-    check_operand(h_E2, "h_E2", dt, (N * K, H))
-    check_operand(x, "x", dt, (N * K, H))
-    check_operand(eidx2, "eidx2", torch.int64, (N * K,))
-    check_operand(mask_att2, "mask_att2", dt, (N * K,))
-    check_operand(mbw2, "mbw2", dt, (N * K,))
+    check_operand(h_E2, "h_E2", dt, (E, H))
+    check_operand(x, "x", dt, (E, H))
+    check_operand(eidx2, "eidx2", torch.int64, (E,))
+    check_operand(mask_att2, "mask_att2", dt, (E,))
+    check_operand(mbw2, "mbw2", dt, (E,))
     for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
         check_operand(w, name, dt, (H, H))
     check_operand(b2, "b2", dt, (H,))
-    check_operand(g, "g", dt, (N * K if mode == "enc_edge" else N, H))
+    check_operand(g, "g", dt, (E if mode == "enc_edge" else N, H))
+    for name, t in (("h_V2", h_V2), ("h_E2", h_E2), ("x", x), ("g", g)):
+        check_aligned(t, name)
     dev = h_V2.device
+    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, nblocks // 3)   # three weight-gradient products per SM
+    lib = library("message_table_bwd")
+    lib.message_table_backward_tiles.restype = ctypes.c_int
+    tiles = lib.message_table_backward_tiles(N, K)
+    n_rows = N // L * Lk
+    order, offsets = (table_order(eidx2, K, L, Lk, n_rows) if order is None
+                      else order)
+    check_operand(order, "order", torch.int64, (E,))
+    check_operand(offsets, "offsets", torch.int64, (n_rows + 1,))
     g_hV = torch.empty((N, H), dtype=dt, device=dev)
-    g_ein = torch.empty((N * K, H), dtype=dt, device=dev)
-    g_table = torch.zeros((N // L * Lk, C), dtype=f32, device=dev)
-    nslot = 4 * H * H + 3 * H
-    nparts = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((nparts, nslot), dtype=f32, device=dev)
-    wT = torch.empty((4, H, H), dtype=f32, device=dev)
-    wgrad = torch.empty((nslot,), dtype=f32, device=dev)
-    fn = getattr(library("message_table_bwd"), "message_table_backward" + sfx)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    g_ein = torch.empty((E, H), dtype=dt, device=dev)
+    g_table = torch.empty((n_rows, C), dtype=f32, device=dev)
+    u1s = torch.empty((E, H), dtype=dt, device=dev)
+    gms = None if mode == "enc_edge" else torch.empty((E, H), dtype=dt, device=dev)
+    u2s = torch.empty((E, H), dtype=dt, device=dev)
+    gys = torch.empty((E, H), dtype=dt, device=dev)
+    tcs = torch.empty((E, C), dtype=dt, device=dev)
+    ss = torch.empty((N, H), dtype=dt, device=dev)
+    bpart = torch.empty((tiles, 3 * H), dtype=f32, device=dev)
+    wpart = torch.empty((splits, 4, H, H), dtype=f32, device=dev)
+    wgrad = torch.empty((4 * H * H + 3 * H,), dtype=f32, device=dev)
+    fn = getattr(lib, "message_table_backward" + sfx)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 26
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     tensors = (h_V2, h_E2, x, eidx2, mask_att2, mbw2, wa, wb, w2, b2, w3, g,
-               g_hV, g_ein, g_table, part, wT, wgrad)
-    err = fn(MODES[mode], *[ptr(t) for t in tensors], N, K, L, Lk, H, nparts,
-             stream_ptr(dev))
+               g_hV, g_ein, u1s, gms, u2s, gys, tcs, ss, bpart, wpart, order,
+               offsets, g_table, wgrad)
+    err = fn(MODES[mode], *[None if t is None else ptr(t) for t in tensors],
+             N, K, L, Lk, H, nblocks,
+             splits, stream_ptr(dev))
     raise_on_error(err, "message_table_bwd" + sfx)
     LAUNCHES[f"message_table_bwd_{mode}{sfx}"] += 1
     g_table, wgrad = g_table.to(dt), wgrad.to(dt)
@@ -264,38 +316,43 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
 
 class _MessageTable(torch.autograd.Function):
     """The message table with its backward kernel (plain versions on the
-    CPU). Saves the pre-GELU ``x`` for the backward."""
+    CPU). Saves the pre-GELU ``x`` for the backward; ``order`` (the table
+    order, or None) goes to the backward kernel as it is."""
 
     @staticmethod
-    def forward(ctx, mode, K, L, Lk, h_V2, h_E2, table2, eidx2, mask_att2,
-                mbw2, wa, wb, b1, w2, b2, w3, b3):
+    def forward(ctx, mode, K, L, Lk, order, h_V2, h_E2, table2, eidx2,
+                mask_att2, mbw2, wa, wb, b1, w2, b2, w3, b3):
         fn = message_table_cuda if h_V2.is_cuda else message_table_plain
         out, x = fn(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
                     wa, wb, b1, w2, b2, w3, b3, K=K, L=L, Lk=Lk, save_x=True)
-        ctx.mode, ctx.K, ctx.L, ctx.Lk = mode, K, L, Lk
+        ctx.mode, ctx.K, ctx.L, ctx.Lk, ctx.order = mode, K, L, Lk, order
         ctx.save_for_backward(h_V2, h_E2, x, eidx2, mask_att2, mbw2,
                               wa, wb, b1, w2, b2, w3, b3)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        fn = message_table_bwd_cuda if g.is_cuda else message_table_bwd_plain
-        (g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3,
-         db3) = fn(ctx.mode, *ctx.saved_tensors, g.contiguous(), K=ctx.K,
-                   L=ctx.L, Lk=ctx.Lk)
-        return (None, None, None, None, g_hV, g_ein, g_table, None, None,
-                None, dwa, dwb, db1, dw2, db2, dw3, db3)
+        args = (ctx.mode, *ctx.saved_tensors, g.contiguous())
+        if g.is_cuda:
+            grads = message_table_bwd_cuda(*args, K=ctx.K, L=ctx.L, Lk=ctx.Lk,
+                                           order=ctx.order)
+        else:
+            grads = message_table_bwd_plain(*args, K=ctx.K, L=ctx.L, Lk=ctx.Lk)
+        g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3, db3 = grads
+        return (None, None, None, None, None, g_hV, g_ein, g_table, None,
+                None, None, dwa, dwb, db1, dw2, db2, dw3, db3)
 
 
 def message_table(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
-                  wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None):
+                  wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None, order=None):
     """Kernel for CUDA tensors, plain version for CPU tensors; through the
-    autograd Function (which saves ``x``) only when a gradient is wanted."""
+    autograd Function (which saves ``x``) only when a gradient is wanted.
+    ``order``: the table order for the backward kernel, or None (it sorts)."""
     Lk = L if Lk is None else Lk
     args = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
             wa, wb, b1, w2, b2, w3, b3)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _MessageTable.apply(mode, K, L, Lk, *args)
+        return _MessageTable.apply(mode, K, L, Lk, order, *args)
     fn = message_table_cuda if h_V2.is_cuda else message_table_plain
     return fn(mode, *args, K=K, L=L, Lk=Lk)
 
@@ -306,36 +363,40 @@ def _weights(p, H, w1, w2, w3):
             p[w3]["w"], p[w3]["b"])
 
 
+def _table_fn(plain, order):
+    return message_table_plain if plain else partial(message_table, order=order)
+
+
 def message_agg_table_flat(p, h_V2, h_E2, table2, eidx2, mask_att2, *, K, L,
-                           Lk=None, plain=False):
+                           Lk=None, plain=False, order=None):
     """Encoder node update (``W1..W3``): ``table2 = h_V2 @ W1c`` ``[B*Lk,H]``
-    -> dh ``[N,H]``."""
-    fn = message_table_plain if plain else message_table
+    -> dh ``[N,H]``. ``order`` as in ``message_table``, in the three
+    entries here."""
     ones = torch.ones_like(mask_att2)
-    return fn("enc_node", h_V2, h_E2, table2, eidx2, mask_att2, ones,
-              *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)
+    return _table_fn(plain, order)(
+        "enc_node", h_V2, h_E2, table2, eidx2, mask_att2, ones,
+        *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)
 
 
 def message_edge_table_flat(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None,
-                            plain=False):
+                            plain=False, order=None):
     """Encoder edge update (``W11..W13``): ``table2 = h_V2 @ W11c`` -> per-edge
     message ``[N*K,H]``."""
-    fn = message_table_plain if plain else message_table
     ones = torch.ones(h_E2.shape[0], dtype=h_E2.dtype, device=h_E2.device)
-    return fn("enc_edge", h_V2, h_E2, table2, eidx2, ones, ones,
-              *_weights(p, h_V2.shape[1], "W11", "W12", "W13"), K=K, L=L,
-              Lk=Lk)
+    return _table_fn(plain, order)(
+        "enc_edge", h_V2, h_E2, table2, eidx2, ones, ones,
+        *_weights(p, h_V2.shape[1], "W11", "W12", "W13"), K=K, L=L, Lk=Lk)
 
 
 def message_dec_table_flat(p, h_V2, h_E2, table2, eidx2, m1d2, mbw2, *, K, L,
-                           Lk=None, plain=False):
+                           Lk=None, plain=False, order=None):
     """Parallel-decoder node update on the 2H table ``[A | B]``
     (``A = h_S@ws + h_V@wv - h_Venc@wv``, ``B = h_Venc@wv``) -> dh ``[N,H]``.
     ``mbw*A[j] + m1d*B[j]`` is the three-term causal context exactly,
     because ``mask_fw = mask_1d - mask_bw``."""
-    fn = message_table_plain if plain else message_table
-    return fn("dec", h_V2, h_E2, table2, eidx2, m1d2, mbw2,
-              *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)
+    return _table_fn(plain, order)(
+        "dec", h_V2, h_E2, table2, eidx2, m1d2, mbw2,
+        *_weights(p, h_V2.shape[1], "W1", "W2", "W3"), K=K, L=L, Lk=Lk)
 
 
 # ---------------------------------------------------------------------------

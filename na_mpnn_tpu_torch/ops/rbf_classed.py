@@ -14,9 +14,15 @@ the reference-order ``[18*18*16, H]`` weight splits into one table per
 
 The weight gradient is ``csrc/rbf_classed_dw.cu`` (replaces
 ``_classed_dw``), which writes the reference-order ``[5184, H]`` gradient
-directly. The plain versions are the dense ones of ``ops/rbf_edge.py``, and
-the projection is its ``RbfProjection`` Function (a gradient for ``W``
-only: coordinates and masks are structural, as in the JAX package,
+directly. It classifies each edge, not each tile: ``edge_groups`` puts an
+edge in every (query side, neighbour side) group its two residues allow,
+``edge_group_lists`` lists each group's edges in ascending order (index
+glue, no host sync), and the kernel runs one tensor-core product per group
+table over that list (bf16 ``mma.sync``; 3xTF32 at fp32), rows pair-major
+(``_pair_row_map``), reduced over fixed edge ranges in a fixed order. The
+plain versions are the dense ones of ``ops/rbf_edge.py``, and the
+projection is its ``RbfProjection`` Function (a gradient for ``W`` only:
+coordinates and masks are structural, as in the JAX package,
 ``rbf_classed.py:592-596``).
 
 The bf16 trunk (``low=True``) takes the TPU kernels' bf16 branch, a
@@ -40,7 +46,7 @@ import functools
 import numpy as np
 import torch
 
-from . import LAUNCHES, check_operand, raise_on_error
+from . import LAUNCHES, check_aligned, check_operand, raise_on_error
 from ..models.features import RBF_D_MAX, RBF_D_MIN
 from ..models.modules import take_rows
 from .rbf_edge import (A, NUM_RBF, ROWS, RbfProjection, edge_operands,
@@ -75,12 +81,6 @@ def _group_index(device):
 def split_weight_tables(W):
     """Reference-order ``[A*A*R, H]`` weight -> the 4 kernel-order tables."""
     return [W.index_select(0, r) for r in _group_index(W.device)]
-
-
-@functools.cache
-def _row_map(device):
-    """Kernel-order row -> reference row, the four tables one after another."""
-    return torch.cat(_group_index(device))
 
 
 # The class split changes the work, not the function: the plain versions
@@ -175,6 +175,58 @@ def rbf_classed_dw_bf16_plain(X_aug, X_m_aug, E_idx, g, X_aug_k=None,
     return bins.float().T @ g.float()
 
 
+@functools.cache
+def _pair_row_map(device):
+    """The weight-gradient kernel's row order -> reference row: the four
+    tables one after another, each pair-major (``pair*16 + r``, ``pair =
+    qpos*An + npos``), so a block's 128 rows are 16 bins of 8 atom pairs."""
+    rows = []
+    for selq, seln in GROUP_SELS:
+        a = np.asarray(selq)[:, None]
+        b = np.asarray(seln)[None, :]
+        pair = (a * A + b).reshape(-1)                    # qpos-major, then npos
+        rows.append((pair[:, None] * NUM_RBF + np.arange(NUM_RBF)).reshape(-1))
+    return torch.as_tensor(np.concatenate(rows), dtype=torch.int64, device=device)
+
+
+def residue_sides(M):
+    """Side of each residue row from its PERM-ordered atom masks ``[R, 18]``:
+    0 protein (or no atom), 1 nucleic, 2 both (the kernels' ``side_code``)."""
+    has_p = (M[:, :len(P_SEL)] > 0).any(dim=1)
+    has_n = (M[:, len(P_SEL):] > 0).any(dim=1)
+    return has_n.long() + (has_n & has_p).long()
+
+
+def edge_groups(Mq, Mk, nbr, K):
+    """``[4, E]`` bool: edge ``e`` (query row ``e // K``, key row
+    ``nbr[e]``) feeds group ``g = 2*a + b`` when ``a`` is a side of its query
+    residue and ``b`` one of its neighbour's (a residue with atoms in both
+    blocks has both sides)."""
+    sq = residue_sides(Mq)[torch.arange(nbr.shape[0], device=nbr.device) // K]
+    sn = residue_sides(Mk)[nbr]
+    in_q = [(sq == a) | (sq == 2) for a in (0, 1)]
+    in_n = [(sn == b) | (sn == 2) for b in (0, 1)]
+    return torch.stack([in_q[g >> 1] & in_n[g & 1] for g in range(4)])
+
+
+def edge_group_lists(member):
+    """``[4, E]`` membership -> ``(lists [4, 2E], counts [4])``: group g's
+    edges in ascending order in ``lists[g, :counts[g]]`` (int64). Index
+    glue without a host sync: non-members go past ``E``, each to a slot of
+    its own."""
+    E = member.shape[1]
+    idx = torch.arange(E, device=member.device)
+    counts = member.sum(dim=1)
+    # one scan over the four rows in turn (a scan along each short row of a
+    # [4, E] tensor is several times slower on the card)
+    before = torch.cumsum(counts, 0) - counts
+    pos = torch.cumsum(member.reshape(-1), 0).view(4, E) - 1 - before[:, None]
+    pos = torch.where(member, pos, E + idx)
+    lists = torch.empty((4, 2 * E), dtype=torch.int64, device=member.device)
+    lists.scatter_(1, pos, idx.expand(4, E))
+    return lists, counts
+
+
 def _dw_launch(symbol, X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k, name):
     from ._build import library, ptr, stream_ptr
 
@@ -185,20 +237,21 @@ def _dw_launch(symbol, X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k, name):
                                         PERM)
     g = g.reshape(E, H)
     check_operand(g, "g", torch.float32, (E, H))
+    check_aligned(g, "g")
     dev = X_aug.device
+    lists, counts = edge_group_lists(edge_groups(Mq, Mk, nbr, K))
     lib = library("rbf_classed_dw")
     lib.rbf_classed_dw_splits.restype = ctypes.c_int
     splits = lib.rbf_classed_dw_splits()
-    code = torch.empty(((E + 31) // 32,), dtype=torch.int32, device=dev)
     part = torch.empty((splits, ROWS, H), dtype=torch.float32, device=dev)
     dW = torch.empty((ROWS, H), dtype=torch.float32, device=dev)
     fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 4)
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), ptr(g),
-             ptr(_row_map(dev)), E, K, H, ptr(code), ptr(part), ptr(dW),
-             stream_ptr(dev))
+    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), ptr(g), ptr(lists),
+             ptr(counts), lists.shape[1], ptr(_pair_row_map(dev)), K, H,
+             ptr(part), ptr(dW), stream_ptr(dev))
     raise_on_error(err, name)
     LAUNCHES[name] += 1
     return dW

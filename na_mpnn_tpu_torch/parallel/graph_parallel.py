@@ -51,7 +51,7 @@ from ..models.config import ModelConfig, check_supported
 from ..models.features import features_from_coords
 from ..models.modules import linear, take_rows, widen
 from ..models.mpnn import (_logits, _plain, _trunk_dtype, dec_layer,
-                           embed_tokens, enc_layer, to_trunk)
+                           embed_tokens, enc_layer, table_order, to_trunk)
 from .mesh import Mesh
 
 # Tags of the random streams (any distinct ints).
@@ -212,9 +212,11 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     def drop(tag):
         return row_dropout(rate, key, tag, rid) if rate > 0 else None
 
+    order = table_order(eidx2, K, Ls, L, plain, enc_layers, h_V, h_E2)
     for i, p in enumerate(enc_layers):
         h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_attend.reshape(-1),
-                              layer_mask, drop(TAG_ENC + 10 * i), gather, plain)
+                              layer_mask, drop(TAG_ENC + 10 * i), gather, plain,
+                              order)
 
     if decoding_order is None:
         if key is None:
@@ -236,5 +238,5 @@ def forward_graph_parallel(params, cfg: ModelConfig, batch, mesh: Mesh,
     h_V_enc = h_V
     for i, p in enumerate(dec_layers):
         h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, layer_mask,
-                        drop(TAG_DEC + 10 * i), gather, plain)
+                        drop(TAG_DEC + 10 * i), gather, plain, order)
     return torch.log_softmax(_logits(params, h_V), dim=-1)
