@@ -91,6 +91,23 @@ CUDA toolkit. Phases, each of which raises on failure:
    bound), then the card's name and power limit as ``nvidia-smi`` gives
    them and, last, the device JSON.
 
+Rows 3 and 9 (the classed RBF and the message-table forward, both on the
+tensor cores) are held at both dtypes wherever they are held: row 3 at B=1
+and B=10 of the design structure, at the training shape and for the
+192-row key shard; row 9 at N = 389 and 3890, at the training shape with
+and without x, and for the 192-row shard against the 768-row table. Every
+such output is bitwise equal across two launches, row 9's output without x
+equal to its output with x, both bf16 variants pass ``_check_rounding``
+(row 9 for x too), the classify kernel of row 3 gives the plain
+``edge_list_codes``, and the new kernels' dynamic shared memory is
+printed beside ``ptxas``'s registers and spills. The token embedding's
+gradient (a one-hot product) is held bitwise equal across two backward
+passes, and the run prints whether the whole flat gradient of one B=8 x
+L=768 classed step, fp32 and bf16, is bitwise equal across two passes
+from the same state and generator, naming any leaf that is not. The
+earlier scalar-FMA times of rows 3, 4, 9 and 10 are printed as text beside
+this run's (``SCALAR_MS``), never in the kernels JSON line.
+
 Outputs go to ``build/chip_smoke/`` in the checkout.
 """
 from __future__ import annotations
@@ -493,8 +510,11 @@ def kernel_phase(pdb):
             rows["knn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound[0], bound_by=bound[1])
 
-    # RBF at the design shape (B=1) and the score shape (B=10).
+    # RBF at the design shape (B=1) and the score shape (B=10); its bf16
+    # variant (the fold-scaled weight) beside it, both bitwise across two
+    # launches.
     W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
+    W_fold = rbf_classed.fold_scaled(W)
     for n_copies in (1, 10):
         _, X_aug, X_m_aug, X_ref, mask = _structure(pdb, dev, n_copies)
         _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
@@ -503,6 +523,22 @@ def kernel_phase(pdb):
         rel = _rel_err(out_k, out_p)
         if not rel < REL_TOL:
             raise AssertionError(f"rbf B={n_copies}: relative error {rel:.3g}")
+        if not torch.equal(out_k, rbf_classed.rbf_edge_features_classed_cuda(
+                X_aug, X_m_aug, E_idx, W)):
+            raise AssertionError(f"rbf B={n_copies}: two launches differ")
+        lo_k = rbf_classed.rbf_classed_bf16_cuda(X_aug, X_m_aug, E_idx, W_fold)
+        lo_rel = _rel_err(lo_k, rbf_classed.rbf_classed_bf16_plain(
+            X_aug, X_m_aug, E_idx, W_fold))
+        if not (lo_rel < RBF_BF16_TOL and torch.equal(lo_k, rbf_classed.rbf_classed_bf16_cuda(
+                X_aug, X_m_aug, E_idx, W_fold))):
+            raise AssertionError(f"rbf_classed_bf16 B={n_copies}: relative error "
+                                 f"{lo_rel:.3g}, or two launches differ")
+        lo_ms = _sync_time(lambda: rbf_classed.rbf_classed_bf16_cuda(
+            X_aug, X_m_aug, E_idx, W_fold), 20)
+        print(f"rbf_classed_bf16 B={n_copies}: rel err {lo_rel:.3g} (< "
+              f"{RBF_BF16_TOL:.3g}), two launches bitwise equal, {lo_ms:.4f} ms",
+              flush=True)
+        del lo_k
         ms = _sync_time(lambda: rbf_classed.rbf_edge_features_classed_cuda(
             X_aug, X_m_aug, E_idx, W), 20)
         plain_ms = _sync_time(lambda: rbf_classed.rbf_edge_features_classed_plain(
@@ -510,8 +546,10 @@ def kernel_phase(pdb):
         B, L = mask.shape
         bound = _rbf_bound(X_aug, X_m_aug, E_idx, H)
         print(f"rbf_classed B={B} L={L} K={K}: rel err {rel:.3g} (< {REL_TOL}), "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)",
-              flush=True)
+              f"two launches bitwise equal, {ms:.4f} ms ("
+              + (f"scalar-FMA form, PERF.md: {SCALAR_MS['rbf_classed_B1']} ms; "
+                 if n_copies == 1 else "")
+              + f"plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)", flush=True)
         if n_copies == 1:
             rows["rbf_classed"] = dict(max_abs_err=float((out_k - out_p).abs().max()),
                                        ms=ms, plain_ms=plain_ms,
@@ -551,6 +589,21 @@ def kernel_phase(pdb):
             rel = _rel_err(out_k, out_p)
             if not rel < REL_TOL:
                 raise AssertionError(f"message_table {mode} N={N}: rel err {rel:.3g}")
+            if not torch.equal(out_k, message_kernels.message_table_cuda(*args, K=K, L=L)):
+                raise AssertionError(f"message_table {mode} N={N}: two launches differ")
+            # the bf16 variant on the same operands rounded to bf16
+            lo = [t.to(torch.bfloat16) if torch.is_tensor(t) and t.is_floating_point()
+                  else t for t in args]
+            lo_k = message_kernels.message_table_cuda(*lo, K=K, L=L)
+            lo_rel = _rel_err(lo_k.float(), message_kernels.message_table_plain(
+                *lo, K=K, L=L).float())
+            if not (lo_rel < BF16_TOL and torch.equal(
+                    lo_k, message_kernels.message_table_cuda(*lo, K=K, L=L))):
+                raise AssertionError(f"message_table {mode} bf16 N={N}: rel err "
+                                     f"{lo_rel:.3g}, or two launches differ")
+            print(f"message_table {mode} bf16 N={N}: rel err {lo_rel:.3g} "
+                  f"(< {BF16_TOL:.3g}), two launches bitwise equal (fp32 too)",
+                  flush=True)
             ms = _sync_time(lambda: message_kernels.message_table_cuda(*args, K=K, L=L), 20)
             plain_ms = _sync_time(lambda: message_kernels.message_table_plain(
                 *args, K=K, L=L), 5)
@@ -965,14 +1018,19 @@ def _bwd_bound(mode, N, K, H, C, g_rows, esize=4, peak=PEAK_FP32_FLOPS):
     return _bound_ms(ops, nbytes, peak)
 
 
-# The times of rows 4 and 10 in their earlier scalar-FMA form, from PERF.md's
-# kernel table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W): reference
+# The times of rows 3, 4, 9 and 10 in their earlier scalar-FMA form, from
+# PERF.md's kernel table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W; at
+# the training shape, row 3 also at B=1 x L=389, row 9 with x): reference
 # values printed beside this run's times, never part of the kernels JSON line.
 SCALAR_MS = {"rbf_classed_dw": 8.8538, "rbf_classed_dw_bf16": 11.9795,
-          "message_table_bwd_enc_node": 3.7350, "message_table_bwd_enc_edge": 3.6429,
-          "message_table_bwd_dec": 3.8073, "message_table_bwd_enc_node_bf16": 3.8616,
-          "message_table_bwd_enc_edge_bf16": 3.8230,
-          "message_table_bwd_dec_bf16": 3.9768}
+             "message_table_bwd_enc_node": 3.7350, "message_table_bwd_enc_edge": 3.6429,
+             "message_table_bwd_dec": 3.8073, "message_table_bwd_enc_node_bf16": 3.8616,
+             "message_table_bwd_enc_edge_bf16": 3.8230,
+             "message_table_bwd_dec_bf16": 3.9768,
+             "rbf_classed": 4.1096, "rbf_classed_bf16": 5.1675, "rbf_classed_B1": 1.3518,
+             "message_table_enc_node": 0.7693, "message_table_enc_edge": 0.8056,
+             "message_table_dec": 0.7934, "message_table_enc_node_bf16": 0.7605,
+             "message_table_enc_edge_bf16": 0.7961, "message_table_dec_bf16": 0.7793}
 
 
 def _launch_bytes(fn):
@@ -1009,6 +1067,45 @@ def _print_edge_groups(X_aug, X_m_aug, E_idx):
           f"{counts[1]}, NP {counts[2]}, NN {counts[3]}, with a residue in both "
           f"blocks {mixed}; rows x edges {work} ({work / (nbr.shape[0] * 5184):.3f} "
           f"of all four tables for every edge)", flush=True)
+
+
+def _table_fwd_bitwise(tag, args, out_k, x_k, **kw):
+    """The message-table forward's outputs bitwise the same in a second
+    launch, and its output without x the same as with x."""
+    import torch
+    from na_mpnn_tpu_torch.ops import message_kernels as mk
+    out2, x2 = mk.message_table_cuda(*args, save_x=True, **kw)
+    if not (torch.equal(out_k, out2) and torch.equal(x_k, x2)):
+        raise AssertionError(f"{tag}: two launches differ")
+    if not torch.equal(out_k, mk.message_table_cuda(*args, **kw)):
+        raise AssertionError(f"{tag}: the output without x differs from the one with x")
+
+
+def _check_edge_codes(X_aug, X_m_aug, E_idx):
+    """The classed RBF forward's per-edge lists on the card: its classify
+    kernel's code of every edge equal to the plain ``edge_list_codes``;
+    prints the edges of each list and the kernels' shared memory."""
+    import torch
+    from na_mpnn_tpu_torch.ops import rbf_classed
+    from na_mpnn_tpu_torch.ops._build import library
+    from na_mpnn_tpu_torch.ops.rbf_edge import edge_operands
+    _, Mq, _, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, None, None,
+                                      rbf_classed.PERM)
+    K = E_idx.shape[2]
+    code = rbf_classed.edge_list_codes_cuda(Mq, Mk, nbr, K)
+    if not torch.equal(code, rbf_classed.edge_list_codes(Mq, Mk, nbr, K)):
+        raise AssertionError("rbf_classed classify: codes differ from edge_list_codes")
+    counts = torch.bincount(code, minlength=5).tolist()
+    rc, mt = library("rbf_classed"), library("message_table")
+    print(f"rbf_classed lists (E={nbr.numel()}): PP {counts[0]}, PN {counts[1]}, "
+          f"NP {counts[2]}, NN {counts[3]}, several groups {counts[4]}; classify "
+          f"kernel's codes equal the plain ones; dynamic shared memory per block "
+          f"(H = 128): rbf_classed fp32 {rc.rbf_classed_forward_smem(128, 0)} B, "
+          f"bf16 {rc.rbf_classed_forward_smem(128, 1)} B; message_table fp32 "
+          f"{mt.message_table_forward_smem(128, 128, 0)} B (dec "
+          f"{mt.message_table_forward_smem(128, 256, 0)} B), bf16 "
+          f"{mt.message_table_forward_smem(128, 128, 1)} B (dec "
+          f"{mt.message_table_forward_smem(128, 256, 1)} B)", flush=True)
 
 
 def train_kernel_phase(nb):
@@ -1049,15 +1146,21 @@ def train_kernel_phase(nb):
                 _knn_bound(B, L, K), 10, "E_idx exact")
     params = init_params(1, cfg, device=dev)
     W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
-    rel = _rel_err(rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W),
-                   rbf_classed.rbf_edge_features_classed_plain(X_aug, X_m_aug, E_idx, W))
+    out_k = rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W)
+    rel = _rel_err(out_k, rbf_classed.rbf_edge_features_classed_plain(X_aug, X_m_aug, E_idx, W))
     if not rel < REL_TOL:
         raise AssertionError(f"rbf_classed at the training shape: relative error {rel:.3g}")
+    if not torch.equal(out_k, rbf_classed.rbf_edge_features_classed_cuda(
+            X_aug, X_m_aug, E_idx, W)):
+        raise AssertionError("rbf_classed at the training shape: two launches differ")
+    del out_k
+    _check_edge_codes(X_aug, X_m_aug, E_idx)
     forward_row("rbf_classed",
                 lambda: rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W),
                 lambda: rbf_classed.rbf_edge_features_classed_plain(X_aug, X_m_aug, E_idx, W),
                 _rbf_bound(X_aug, X_m_aug, E_idx, H), 5,
-                f"rel err {rel:.3g} (< {REL_TOL})")
+                f"rel err {rel:.3g} (< {REL_TOL}), two launches bitwise equal "
+                f"(scalar-FMA form, PERF.md: {SCALAR_MS['rbf_classed']} ms)")
 
     # RBF weight gradient (row 4)
     _print_edge_groups(X_aug, X_m_aug, E_idx)
@@ -1119,12 +1222,15 @@ def train_kernel_phase(nb):
             if not fwd_err[what] < REL_TOL:
                 raise AssertionError(f"message_table {mode} {what}: "
                                      f"rel err {fwd_err[what]:.3g}")
+        _table_fwd_bitwise(f"message_table {mode}", args, out_k, x_k, K=K, L=L)
         forward_row(f"message_table_{mode}",
                     lambda: mk.message_table_cuda(*args, K=K, L=L, save_x=True),
                     lambda: mk.message_table_plain(*args, K=K, L=L, save_x=True),
                     _message_table_bound(mode, N, K, H, C, save_x=True), 10,
                     f"rel err out {fwd_err['out']:.3g}, x {fwd_err['x']:.3g} "
-                    f"(< {REL_TOL})")
+                    f"(< {REL_TOL}); bitwise across launches, and without x "
+                    f"(scalar-FMA form with x, PERF.md: "
+                    f"{SCALAR_MS[f'message_table_{mode}']} ms)")
         g_rows = N * K if mode == "enc_edge" else N
         g = torch.randn((g_rows, H), generator=gen, device=dev)
         bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
@@ -1256,14 +1362,22 @@ def bf16_kernel_phase(nb):
 
     # rows 3 and 4: the fold-scaled weight, as the model passes it
     params = init_params(1, cfg, device=dev)
-    W = rbf_classed.fold_scaled(
-        params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:])
+    W0 = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
+    W = rbf_classed.fold_scaled(W0)
     rbf_args = (X_aug, X_m_aug, E_idx, W)
-    row("rbf_classed_bf16", rbf_classed.rbf_classed_bf16_cuda(*rbf_args),
-        rbf_classed.rbf_classed_bf16_plain(*rbf_args), RBF_BF16_TOL,
-        lambda: rbf_classed.rbf_classed_bf16_cuda(*rbf_args),
+    rbf_k = rbf_classed.rbf_classed_bf16_cuda(*rbf_args)
+    if not torch.equal(rbf_k, rbf_classed.rbf_classed_bf16_cuda(*rbf_args)):
+        raise AssertionError("rbf_classed_bf16: two launches differ")
+    # the fp32 kernel: exact bins against the unscaled weight, the same
+    # function up to the bf16 roundings
+    row("rbf_classed_bf16", rbf_k, rbf_classed.rbf_classed_bf16_plain(*rbf_args),
+        RBF_BF16_TOL, lambda: rbf_classed.rbf_classed_bf16_cuda(*rbf_args),
         lambda: rbf_classed.rbf_classed_bf16_plain(*rbf_args),
-        _rbf_bound(X_aug, X_m_aug, E_idx, H, w_bytes=2, peak=PEAK_BF16_FLOPS), 5)
+        _rbf_bound(X_aug, X_m_aug, E_idx, H, w_bytes=2, peak=PEAK_BF16_FLOPS), 5,
+        f", two launches bitwise equal (scalar-FMA form, PERF.md: "
+        f"{SCALAR_MS['rbf_classed_bf16']} ms)",
+        fp32=rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W0))
+    del rbf_k
     g = torch.randn((B, L, K, H), generator=gen, device=dev)
     dw_args = (X_aug, X_m_aug, E_idx, g)
     dw_k = rbf_classed.rbf_classed_dw_bf16_cuda(*dw_args)
@@ -1311,6 +1425,19 @@ def bf16_kernel_phase(nb):
              rbf_edge.rbf_edge_dw_bf16_cuda, rbf_edge.rbf_edge_dw_bf16_plain, W,
              RBF_EDGE_BF16_TOL)):
         out_k = fwd(Xq, Mq, Eq, w, X_aug, X_m_aug)
+        if not torch.equal(out_k, fwd(Xq, Mq, Eq, w, X_aug, X_m_aug)):
+            raise AssertionError(f"{name}_bf16 key rows: two launches differ")
+        if name == "rbf_classed":   # row 3 at fp32 on the same shard
+            f32 = rbf_classed.rbf_edge_features_classed_cuda(Xq, Mq, Eq, W, X_aug, X_m_aug)
+            f32_err = _rel_err(f32, rbf_classed.rbf_edge_features_classed_plain(
+                Xq, Mq, Eq, W, X_aug, X_m_aug))
+            if not (f32_err < REL_TOL and torch.equal(f32, rbf_classed.rbf_edge_features_classed_cuda(
+                    Xq, Mq, Eq, W, X_aug, X_m_aug))):
+                raise AssertionError(f"rbf_classed key rows: rel err {f32_err:.3g}, "
+                                     "or two launches differ")
+            print(f"rbf_classed with key rows (B={B} Lq={Lq} of Lk={L}): rel err "
+                  f"{f32_err:.3g} (< {REL_TOL}), two launches bitwise equal", flush=True)
+            del f32
         err = _rel_err(out_k, fwd_plain(Xq, Mq, Eq, w, X_aug, X_m_aug))
         # the same bins and products as the structure's own rows
         same = _rel_err(out_k, fwd(*rbf_args[:3], w)[:, s0:s0 + Lq])
@@ -1356,12 +1483,21 @@ def bf16_kernel_phase(nb):
         err_x = _rel_err(x_k.float(), x_p.float())
         if not err_x < BF16_TOL:
             raise AssertionError(f"message_table {mode} bf16 x: rel err {err_x:.3g}")
+        _table_fwd_bitwise(f"message_table {mode} bf16", args, out_k, x_k, K=K, L=L)
+        f_out, f_x = mk.message_table_cuda(*[t.float() if torch.is_tensor(t) and
+                                             t.dtype == bf else t for t in args],
+                                           K=K, L=L, save_x=True)
+        sep_x = _check_rounding(f"message_table_{mode}_bf16 x", x_k, x_p, f_x)
         row(f"message_table_{mode}_bf16", out_k, out_p, BF16_TOL,
             lambda: mk.message_table_cuda(*args, K=K, L=L, save_x=True),
             lambda: mk.message_table_plain(*args, K=K, L=L, save_x=True),
             _message_table_bound(mode, N, K, H, C, save_x=True, esize=2,
                                  peak=PEAK_BF16_FLOPS), 10,
-            f" (x {err_x:.3g})")
+            f" (x {err_x:.3g}; x rms {sep_x[0]:.3g} from plain vs {sep_x[1]:.3g} "
+            f"from the fp32 kernel); bitwise across launches, and without x "
+            f"(scalar-FMA form with x, PERF.md: "
+            f"{SCALAR_MS[f'message_table_{mode}_bf16']} ms)", fp32=f_out)
+        del f_out, f_x
         g_rows = N * K if mode == "enc_edge" else N
         g = torch.randn((g_rows, H), generator=gen, device=dev).to(bf)
         bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
@@ -1637,6 +1773,83 @@ def _grads_against_plain(tag, kernel_trainer, plain_trainer, batch, generator,
           f"worst gradient leaf {worst:.3g} of its max (< {grad_tol:g})", flush=True)
 
 
+def _leaf_paths(tree, prefix=""):
+    """The parameter paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1]
+
+
+def _grads_twice(tag, trainer, batch, seed):
+    """Whether one step's whole flat gradient is bitwise the same in two
+    passes from the same parameters and generator seed; prints the leaves
+    that differ (no step is taken)."""
+    import torch
+    grads = [trainer.loss_and_grads(batch, torch.Generator(device="cuda").manual_seed(seed))[1]
+             for _ in range(2)]
+    differ, off = [], 0
+    for path, p in zip(_leaf_paths(trainer.params), trainer.leaves):
+        if not torch.equal(grads[0][off:off + p.numel()], grads[1][off:off + p.numel()]):
+            differ.append(path)
+        off += p.numel()
+    print(f"{tag}: the flat gradient ({off} entries) of one B=8 x L=768 step "
+          f"{'is' if not differ else 'is NOT'} bitwise equal across two passes "
+          f"from the same state and generator"
+          + (f"; leaves that differ: {differ}" if differ else ""), flush=True)
+
+
+def _embedding_grads_twice(tag, trainer, batch):
+    """The token embedding's gradient (``models/mpnn.py::embed_tokens``, the
+    one-hot product) bitwise equal across two backward passes of a random
+    cotangent at the batch's shape; raises if not."""
+    import torch
+    from na_mpnn_tpu_torch.models.mpnn import embed_tokens
+    emb = trainer.params["W_s"]["emb"].detach().clone().requires_grad_(True)
+    S = batch["S"]
+    g = torch.randn(S.shape + (emb.shape[1],), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    grads = []
+    for _ in range(2):
+        emb.grad = None
+        embed_tokens({"W_s": {"emb": emb}}, S).backward(g)
+        grads.append(emb.grad.clone())
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError(f"{tag}: the embedding gradient differs between two passes")
+
+    def one_hot_pass():
+        embed_tokens({"W_s": {"emb": emb}}, S).backward(g)
+
+    def index_pass():   # PyTorch's own gather backward (atomics), for comparison
+        emb[S.long()].backward(g)
+
+    ms, index_ms = _device_ms(one_hot_pass, "embed_one_hot"), _device_ms(index_pass, "embed_index")
+    print(f"{tag}: the embedding gradient [{emb.shape[0]} x {emb.shape[1]}] "
+          f"(one-hot product) is bitwise equal across two backward passes; gather "
+          f"+ backward: device busy {ms:.4f} ms per pass against {index_ms:.4f} ms "
+          f"through PyTorch's index backward (torch.profiler, 5 passes)", flush=True)
+
+
+def _device_ms(fn, tag, n=5):
+    """Device-busy ms per call of ``fn`` (the union of its device intervals
+    in a ``torch.profiler`` trace of ``n`` calls, after one warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT, f"{tag}.json")
+    prof.export_chrome_trace(path)
+    return _trace_summary(path, n)[1]
+
+
 def training_phase(nb, fwd_ms, rows):
     """The full-width Trainer on the card: 5 train steps and 1 eval step;
     returns the launches of the whole run, the median step ms and the peak
@@ -1691,6 +1904,8 @@ def training_phase(nb, fwd_ms, rows):
     plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, device=dev)
     plain.restore(path)
     _grads_against_plain("training", trainer, plain, to_device(nb, dev), 7, want)
+    _embedding_grads_twice("training", trainer, to_device(nb, dev))
+    _grads_twice("training", trainer, to_device(nb, dev), 7)
     return total, median, peak
 
 
@@ -1760,6 +1975,7 @@ def bf16_training_phase(nb, fp32_ms, fp32_peak):
     plain.restore(path)
     _grads_against_plain("bf16 training", trainer, plain, to_device(nb, dev), 7, want,
                          loss_tol=1e-3, grad_tol=3e-2)
+    _grads_twice("bf16 training", trainer, to_device(nb, dev), 7)
     return total
 
 
@@ -1858,18 +2074,28 @@ def _trace_summary(path, steps):
         name = e["name"].replace("(anonymous namespace)::", "")
         n, d = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, d + e["dur"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return (t1 - t0) / 1e3 / steps, busy / 1e3 / steps, top
+    return (t1 - t0) / 1e3 / steps, busy / 1e3 / steps, by_name
 
 
 def _print_profile(profile, tag):
-    window, busy, top = _trace_summary(os.path.join(profile, "train_steps.json"), 3)
+    """The profile's top device operations, rows 3 and 9 wherever they
+    rank; raises if PyTorch's index backward (the embedding's gradient
+    before it became a one-hot product) is in it."""
+    window, busy, by_name = _trace_summary(os.path.join(profile, "train_steps.json"), 3)
     print(f"{tag} profile of 3 train steps (torch.profiler, CUDA activity): "
           f"{window:.2f} ms per step, device busy {busy:.2f} ms "
           f"({100 * busy / window:.1f}%), idle {100 * (1 - busy / window):.1f}%; "
           f"top device operations per step:", flush=True)
-    for name, (n, us) in top:
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3 / 3:8.3f} ms  {n / 3:5.1f}x  {name[:90]}", flush=True)
+    for key in ("rbf_classed_kernel", "message_table_kernel"):
+        for name, (n, us) in by_name.items():
+            if key in name:
+                print(f"  {tag} {key}: {us / 1e3 / 3:.3f} ms per step, {n / 3:.1f}x "
+                      f"({name[:60]})", flush=True)
+    if any("indexing_backward_kernel" in name for name in by_name):
+        raise AssertionError(f"{tag} profile: indexing_backward_kernel is in it")
+    print(f"  {tag}: no indexing_backward_kernel in the profile", flush=True)
 
 
 def _loop_epochs(run):
@@ -2117,6 +2343,19 @@ def mesh_kernel_phase(nb):
         fwd = max(_rel_err(out_k, out_p), _rel_err(x_k, x_p))
         if not fwd < REL_TOL:
             raise AssertionError(f"message_table {mode} Lk != L: rel err {fwd:.3g}")
+        _table_fwd_bitwise(f"message_table {mode} Lk != L", args, out_k, x_k, K=K,
+                           L=Lq, Lk=L)
+        lo = [t.to(torch.bfloat16) if torch.is_tensor(t) and t.is_floating_point()
+              else t for t in args]
+        lo_k, lo_x = mk.message_table_cuda(*lo, K=K, L=Lq, Lk=L, save_x=True)
+        lo_p, lo_xp = mk.message_table_plain(*lo, K=K, L=Lq, Lk=L, save_x=True)
+        lo_err = max(_rel_err(lo_k.float(), lo_p.float()),
+                     _rel_err(lo_x.float(), lo_xp.float()))
+        if not lo_err < BF16_TOL:
+            raise AssertionError(f"message_table {mode} bf16 Lk != L: rel err {lo_err:.3g}")
+        _table_fwd_bitwise(f"message_table {mode} bf16 Lk != L", lo, lo_k, lo_x, K=K,
+                           L=Lq, Lk=L)
+        del lo, lo_k, lo_x, lo_p, lo_xp
         g = torch.randn((N * K if mode == "enc_edge" else N, H), generator=gen,
                         device=dev)
         bargs = (mode, h_V2, h_E2, x_k, eidx2, ma, mb, wa, wb, b1, w2, b2, w3, b3, g)
@@ -2134,7 +2373,9 @@ def mesh_kernel_phase(nb):
         bms = _sync_time(lambda: mk.message_table_bwd_cuda(*bargs, K=K, L=Lq, Lk=L,
                                                            order=order), 10)
         print(f"message_table {mode} shard Lq={Lq} of Lk={L} (B={B}): forward rel "
-              f"err {fwd:.3g} (< {REL_TOL}), {ms:.4f} ms; backward worst rel err "
+              f"err {fwd:.3g} (< {REL_TOL}; bf16 {lo_err:.3g} < {BF16_TOL:.3g}; "
+              f"both bitwise across launches and without x), {ms:.4f} ms; "
+              f"backward worst rel err "
               f"{max(errs):.3g} (g_hV, g_ein < {REL_TOL}; g_table {errs[2]:.3g} "
               f"[{B * L} x {C}]; two launches bitwise equal), {bms:.4f} ms with the "
               f"order given", flush=True)

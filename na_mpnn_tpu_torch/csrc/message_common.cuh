@@ -1,8 +1,9 @@
-// What the message-table forward (message_table.cu) and the message MLP
-// kernels share: the tiling, the exact erf GELU and its derivative, and the
-// tile-by-weight product. The backward (message_table_bwd.cu) takes the
-// GELU, its derivative and the mode codes from here: it resumes from the
-// forward's pre-GELU x, so both must compute GELU alike.
+// What the message kernels share: the exact erf GELU and its derivative
+// and the mode codes (the message-table forward and backward,
+// message_table.cu and message_table_bwd.cu: the backward resumes from the
+// forward's pre-GELU x, so both must compute GELU alike), and the tiling
+// and tile-by-weight product of the message MLP kernels and the fused layer
+// updates (message_mlp*.cu, fused_layers.cu).
 // The weights of a product are fp32 or bf16 (precision.cuh); the tile's
 // activations are fp32 in shared memory, already rounded to bf16 where the
 // bf16 trunk feeds them to a product.

@@ -1,5 +1,7 @@
 // Message MLP with the neighbour-table gather inside, for Hopper (sm_90a),
-// forward, in three modes; fp32, and bf16 for the bf16 trunk.
+// forward, in three modes; fp32, and bf16 for the bf16 trunk. Products on
+// the tensor cores (mma.cuh): bf16 mma.sync for the bf16 variant, 3xTF32
+// for fp32.
 //
 // Replaces the TPU kernel na_mpnn_tpu/ops/message_kernels.py::
 // _message_table_fwd_call (_fwd_kernel_table, message_kernels.py:314).
@@ -23,25 +25,57 @@
 //
 // bf16 (message_table_forward_bf16; the TPU kernel's compute_dtype=bfloat16
 // branch, message_kernels.py:165, :336-356): every operand, weight and
-// output is bf16; x is computed in fp32 and saved rounded to bf16; gelu(x)
-// and gelu(y) are rounded to bf16 before the next product; the K-sum of
-// the summing modes runs in fp32 and is rounded once. Each product sums
-// exact bf16 x bf16 products in fp32 (FMA on widened operands).
+// output is bf16; x is computed in fp32 from the fp32 fragments and saved
+// rounded to bf16; gelu(x) and gelu(y) are rounded to bf16 before the next
+// product; the K-sum of the summing modes runs in fp32, in the order
+// k = 0..K-1, and is rounded once. Each product sums exact bf16 x bf16
+// products in fp32. Every output is the same on every launch (no atomics).
 //
-// What bounds it on the card: operations. Three H x H products per edge
-// (2*3*H*H = 98 kFLOP at H = 128) against about 1 KB per edge of e_in,
-// gathered table row and output (fp32, outside the tensor cores in this
-// first version).
-// Design: one block of 256 threads per tile of T = 64/K nodes (64 edge rows).
-// The tile's activations stay in shared memory ([64, H], 32 KB at H = 128)
-// through all three products; the weights stream through shared memory in
-// chunks of 32 rows; each thread owns 8 rows x H/32 columns of every product
-// in registers. h_V@Wa is computed once per node and added to its K rows,
-// b1 once per row, and the K-reduction of the agg modes runs in fp32 over
-// the rows in shared memory.
+// What bounds it on the card: at bf16 the bytes (e_in, the gathered table
+// rows, x and the output, about 0.8 KB per edge at H = 128), at fp32 the
+// operations (three H x H products per edge, 98 kFLOP at H = 128).
+// Design: a persistent grid, one block of 512 threads per SM, walks tiles of
+// 64 edge rows (tn = min(64 / K, 16) nodes, chosen by the caller); 64 rather
+// than 128 rows so that the dec mode's [A | B] rows and the fp32 operands
+// fit beside the weights. 16 warps (4 row blocks x 4 column quarters) run
+// the four products on the tensor cores from operands in shared memory:
+// h_V@Wa once per node (the tile's nodes padded to one 16-row block), then
+// e_in@Wb, W2 and W3 on the tile's rows. The bf16 weights (Wa, Wb, W2, W3:
+// 136 KB at H = 128) stay in shared memory for the block's life; an fp32
+// weight (68 KB) is copied in by cp.async before each product, while the
+// previous epilogue runs (the caller hands over 16-byte aligned weights: a
+// view at any offset of the flat parameter vector is copied first). The
+// tile's e_in rows and its gathered table rows come in by cp.async one tile
+// ahead: the next tile's e_in rows once this tile's e_in@Wb is done, its
+// table rows once this tile's last product is, so each load overlaps
+// products. The epilogues
+// work from the fp32 fragments; the K-sum stages the fp32 messages over the
+// free activation and table buffers.
+#include "cp_async.cuh"
 #include "message_common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+constexpr int kTileRows = 64;
+constexpr int kTileThreads = 512;  // 16 warps: 4 row blocks x 4 column quarters
+constexpr int kMaxTileNodes = 16;
+
+// Row stride (elements) of an operand in shared memory: conflict-free
+// fragment loads for each type (mma.cuh).
+template <typename T>
+__host__ __device__ constexpr int lda(int W) { return sizeof(T) == 2 ? W + 8 : W + 4; }
+
+template <int H, typename T>
+__host__ __device__ constexpr size_t smem_bytes(int C) {
+  constexpr bool kLow = sizeof(T) == 2;
+  return (kLow ? 4 * (size_t)H * (H + 8) * 2 : (size_t)H * (H + 8) * 4)  // weights
+         + 2 * (size_t)kTileRows * lda<T>(H) * sizeof(T)               // e_in, u
+         + (size_t)kTileRows * lda<T>(C) * sizeof(T)                   // table rows
+         + (size_t)kMaxTileNodes * (H + 4) * 4                         // h_V @ Wa
+         + (size_t)kMaxTileNodes * lda<T>(H) * sizeof(T)               // h_V rows
+         + 3 * (size_t)H * 4;                                          // b1 | b2 | b3
+}
 
 template <typename T>
 struct Params {
@@ -60,120 +94,324 @@ struct Params {
   const T* b3;
   T* out;
   T* x_out;
-  int N, K, L, Lk, tn;  // tn: nodes per tile
+  int N, K, L, Lk, tn, tiles, C;
 };
 
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Start the copies of tile `tile`'s e_in rows into Es (zero past its rows).
 template <int H, typename T>
-__global__ void __launch_bounds__(kThreads)
-message_table_kernel(Params<T> p, int mode) {
-  extern __shared__ __align__(16) float smem[];
-  float* Xs = smem;               // [kRows][H] activations
-  float* Ws = Xs + kRows * H;     // [kKC][H] weight chunk
-  float* AI = Ws + kKC * H;       // [tn][H] h_V @ Wa of the tile's nodes
-  float* HV = AI + p.tn * H;      // [tn][H] h_V of the tile's nodes
-  constexpr int CPT = H / 32;
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int n0 = blockIdx.x * p.tn;
-  const int nodes = min(p.tn, p.N - n0);
-  const int rows = nodes * p.K;
+__device__ __forceinline__ void start_rows(const Params<T>& p, int tile, T* Es) {
+  constexpr int EPS = 16 / (int)sizeof(T), SEG = H / EPS, LA = lda<T>(H);
+  const int n0 = tile * p.tn;
+  const int rows = min(p.tn, p.N - n0) * p.K;
   const size_t e0 = (size_t)n0 * p.K;
+  for (int i = threadIdx.x; i < kTileRows * SEG; i += kTileThreads) {
+    const int r = i / SEG, h = (i % SEG) * EPS;
+    const bool ok = r < rows;
+    async_copy16(Es + r * LA + h, p.e_in + (ok ? e0 + r : 0) * H + h, ok);
+  }
+}
 
-  for (int idx = tid; idx < p.tn * H; idx += kThreads)
-    HV[idx] = idx < nodes * H ? to_f(p.h_V[(size_t)n0 * H + idx]) : 0.f;
-  for (int idx = tid; idx < kRows * H; idx += kThreads)
-    Xs[idx] = idx < rows * H ? to_f(p.e_in[e0 * H + idx]) : 0.f;
-  __syncthreads();
-  for (int idx = tid; idx < p.tn * H; idx += kThreads) {
-    const int t = idx / H, h = idx % H;
-    float s = 0.f;
-    for (int k = 0; k < H; ++k) s = fmaf(HV[t * H + k], ldf(p.wa + k * H + h), s);
-    AI[idx] = s;
+// Start the copies of tile `tile`'s gathered table rows (C wide) into Tab.
+template <typename T>
+__device__ __forceinline__ void start_table(const Params<T>& p, int tile, T* Tab) {
+  constexpr int EPS = 16 / (int)sizeof(T);
+  const int SEG = p.C / EPS, LT = lda<T>(p.C);
+  const int n0 = tile * p.tn;
+  const int rows = min(p.tn, p.N - n0) * p.K;
+  const size_t e0 = (size_t)n0 * p.K;
+  for (int i = threadIdx.x; i < kTileRows * SEG; i += kTileThreads) {
+    const int r = i / SEG, h = (i % SEG) * EPS;
+    const bool ok = r < rows;
+    size_t t = 0;
+    if (ok) t = (size_t)((n0 + r / p.K) / p.L) * p.Lk + p.eidx[e0 + r];
+    async_copy16(Tab + r * LT + h, p.table + t * p.C + h, ok);
   }
+}
 
-  float acc[8][CPT];
-  gemm<H>(Xs, p.wb, Ws, acc);  // e_in @ Wb (its first barrier publishes AI)
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 8 * i;
-    if (r >= rows) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) Xs[r * H + tx * CPT + c] = 0.f;
-      continue;
-    }
-    const size_t e = e0 + r;
-    const int t = r / p.K;
-    const size_t grow = (size_t)((n0 + t) / p.L) * p.Lk + p.eidx[e];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int h = tx * CPT + c;
-      float x;
-      if (mode == kDec) {
-        const float m1 = to_f(p.m_att[e]), mb = to_f(p.mbw[e]);
-        const T* tr = p.table + grow * 2 * H;
-        x = AI[t * H + h] + m1 * acc[i][c] + mb * to_f(tr[h]) + m1 * to_f(tr[H + h]) +
-            to_f(p.b1[h]);
-      } else {
-        x = AI[t * H + h] + acc[i][c] + to_f(p.table[grow * H + h]) + to_f(p.b1[h]);
-      }
-      if (p.x_out) p.x_out[e * H + h] = from_f<T>(x);
-      Xs[r * H + h] = rnd<T>(gelu(x));
-    }
-  }
-  __syncthreads();
-  gemm<H>(Xs, p.w2, Ws, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 8 * i;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int h = tx * CPT + c;
-      Xs[r * H + h] = rnd<T>(gelu(acc[i][c] + to_f(p.b2[h])));
-    }
-  }
-  __syncthreads();
-  gemm<H>(Xs, p.w3, Ws, acc);
+// Start the copy of an fp32 weight [H, H] (16-byte aligned) into Wf
+// [k][H + 8].
+template <int H>
+__device__ __forceinline__ void stage_weight(const float* __restrict__ W, float* Wf) {
+  constexpr int LW = H + 8;
+  for (int idx = 4 * threadIdx.x; idx < H * H; idx += 4 * kTileThreads)
+    async_copy16(Wf + (idx / H) * LW + idx % H, W + idx, true);
+}
+template <int H>
+__device__ __forceinline__ void stage_weight(const bf16*, bf16*) {}
 
-  if (mode == kEncEdge) {
+// acc[j] = A[16 rb .. +16, :] @ W[:, cb + 8j .. +8] for the warp's NT
+// n-tiles. bf16: W resident as Bs [n][k] (stride H + 8). fp32 (3xTF32): W as
+// staged, Bs [k][n] (stride H + 8).
+template <int H, int NT>
+__device__ __forceinline__ void product(const bf16* A, const bf16* Bs, int rb,
+                                        int cb, float (&acc)[NT][4]) {
+  constexpr int LA = lda<bf16>(H), LW = H + 8;
+  const int g = lane_g(), t = lane_t();
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty + 8 * i;
-      if (r >= rows) continue;
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 4
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    uint32_t a[4];
+    frag_a_bf16(a, A, LA, 16 * rb, k0);
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int h = tx * CPT + c;
-        p.out[(e0 + r) * H + h] = from_f<T>(acc[i][c] + to_f(p.b3[h]));
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 8 * i;
-    const float w = r >= rows ? 0.f : (mode == kEncNode ? to_f(p.m_att[e0 + r]) : 1.f);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int h = tx * CPT + c;
-      Xs[r * H + h] = (acc[i][c] + to_f(p.b3[h])) * w;
+    for (int j = 0; j < NT; ++j) {
+      const bf16* b = Bs + (cb + 8 * j + g) * LW + k0 + 2 * t;
+      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
     }
   }
-  __syncthreads();
-  for (int idx = tid; idx < nodes * H; idx += kThreads) {
-    const int t = idx / H, h = idx % H;
-    float s = 0.f;
-    for (int k = 0; k < p.K; ++k) s += Xs[(t * p.K + k) * H + h];
-    p.out[(size_t)(n0 + t) * H + h] = from_f<T>(s / 30.0f);
+}
+
+template <int H, int NT>
+__device__ __forceinline__ void product(const float* A, const float* Wf, int rb,
+                                        int cb, float (&acc)[NT][4]) {
+  constexpr int LA = lda<float>(H), LW = H + 8;
+  const int g = lane_g(), t = lane_t();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    const float* pa = A + (16 * rb + g) * LA + k0 + t;
+    const float af[4] = {pa[0], pa[8 * LA], pa[4], pa[8 * LA + 4]};
+    SplitA a;
+    a.set(af);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* b = Wf + (k0 + t) * LW + cb + 8 * j + g;
+      mma_3xtf32(acc[j], a, b[0], b[4 * LW]);
+    }
+  }
+}
+
+// The node term of 16 rows (the tile's nodes, zero-padded) for the 8
+// columns at n0: HV @ Wa. bf16: Wa resident [n][k]; fp32: Wa [k][n] read
+// from global memory (one n-tile per warp, once per tile).
+template <int H>
+__device__ __forceinline__ void node_product(const bf16* HV, const bf16* Was,
+                                             const bf16*, int n0, float (&acc)[4]) {
+  const int g = lane_g(), t = lane_t();
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+#pragma unroll 4
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    uint32_t a[4];
+    frag_a_bf16(a, HV, lda<bf16>(H), 0, k0);
+    const bf16* b = Was + (n0 + g) * (H + 8) + k0 + 2 * t;
+    mma_bf16(acc, a, ld_pair(b), ld_pair(b + 8));
+  }
+}
+
+template <int H>
+__device__ __forceinline__ void node_product(const float* HV, const float*,
+                                             const float* __restrict__ wa, int n0,
+                                             float (&acc)[4]) {
+  constexpr int LA = lda<float>(H);
+  const int g = lane_g(), t = lane_t();
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    const float* pa = HV + g * LA + k0 + t;
+    const float af[4] = {pa[0], pa[8 * LA], pa[4], pa[8 * LA + 4]};
+    SplitA a;
+    a.set(af);
+    const float* b = wa + (size_t)(k0 + t) * H + n0 + g;
+    mma_3xtf32(acc, a, __ldg(b), __ldg(b + 4 * H));
   }
 }
 
 template <int H, typename T>
-int launch(const Params<T>& p, int mode, cudaStream_t stream) {
-  const size_t smem = (size_t)(kRows + kKC + 2 * p.tn) * H * sizeof(float);
+__global__ void __launch_bounds__(kTileThreads, 1)
+message_table_kernel(Params<T> p, int mode) {
+  constexpr bool kLow = sizeof(T) == 2;
+  constexpr int LA = lda<T>(H), LF = H + 4, LW = H + 8, NT = H / 32;
+  const int LT = lda<T>(p.C);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* q = smem;
+  T* Ws = reinterpret_cast<T*>(q);  // bf16: Wa, Wb, W2, W3 [n][k]; fp32: one [k][n]
+  q += kLow ? 4 * H * LW * sizeof(T) : H * LW * sizeof(T);
+  T* Es = reinterpret_cast<T*>(q);  // [64][LA] e_in rows
+  q += kTileRows * LA * sizeof(T);
+  T* Us = reinterpret_cast<T*>(q);  // [64][LA] gelu(x), then gelu(y)
+  float* F = reinterpret_cast<float*>(q);  // [64][LF] messages, over Us and Tab
+  q += kTileRows * LA * sizeof(T);
+  T* Tab = reinterpret_cast<T*>(q);  // [64][LT] gathered table rows
+  q += (size_t)kTileRows * LT * sizeof(T);
+  float* AI = reinterpret_cast<float*>(q);  // [16][LF] h_V @ Wa
+  q += kMaxTileNodes * LF * sizeof(float);
+  T* HV = reinterpret_cast<T*>(q);  // [16][LA] h_V rows
+  q += kMaxTileNodes * LA * sizeof(T);
+  float* bias = reinterpret_cast<float*>(q);  // b1 | b2 | b3
+
+  const int tid = threadIdx.x, warp = tid >> 5, g = lane_g(), t = lane_t();
+  const int rb = warp & 3, cb = (warp >> 2) * (H / 4);
+  const T* wsrc[4] = {p.wa, p.wb, p.w2, p.w3};
+  const T* Wa_s = Ws;
+  const T* Wb_s = kLow ? Ws + H * LW : Ws;
+  const T* W2_s = kLow ? Ws + 2 * H * LW : Ws;
+  const T* W3_s = kLow ? Ws + 3 * H * LW : Ws;
+
+  for (int i = tid; i < 3 * H; i += kTileThreads)
+    bias[i] = ldf(i < H ? p.b1 + i : i < 2 * H ? p.b2 + i - H : p.b3 + i - 2 * H);
+  if constexpr (kLow) {
+    for (int idx = tid; idx < H * H; idx += kTileThreads) {
+      const int r = idx / H, c = idx % H;  // W[r][c], r the input side
+#pragma unroll
+      for (int w = 0; w < 4; ++w) Ws[w * H * LW + c * LW + r] = wsrc[w][idx];
+    }
+  }
+
+  int tile = blockIdx.x;
+  if (tile < p.tiles) start_rows<H>(p, tile, Es);
+  async_commit();
+  if (tile < p.tiles) start_table(p, tile, Tab);
+  async_commit();
+  stage_weight<H>(p.wb, Ws);
+  async_commit();
+
+  for (; tile < p.tiles; tile += gridDim.x) {
+    const int n0 = tile * p.tn;
+    const int nodes = min(p.tn, p.N - n0);
+    const int rows = nodes * p.K;
+    const size_t e0 = (size_t)n0 * p.K;
+    const int next = tile + gridDim.x;
+
+    for (int idx = tid; idx < kMaxTileNodes * H; idx += kTileThreads) {
+      const int r = idx / H, h = idx % H;
+      HV[r * LA + h] = r < nodes ? p.h_V[(size_t)(n0 + r) * H + h] : from_f<T>(0.f);
+    }
+    async_wait<2>();  // this tile's e_in rows
+    __syncthreads();
+
+    // the node term, one n-tile per warp
+    if (warp < H / 8) {
+      float nacc[4];
+      node_product<H>(HV, Wa_s, p.wa, 8 * warp, nacc);
+      st2(AI + g * LF + 8 * warp + 2 * t, nacc[0], nacc[1]);
+      st2(AI + (g + 8) * LF + 8 * warp + 2 * t, nacc[2], nacc[3]);
+    }
+    async_wait<0>();  // this tile's table rows; at fp32 Wb
+    __syncthreads();
+
+    // x = h_V@Wa + e_in@Wb + table + b1 (dec: with the masks); gelu(x) to Us
+    float acc[NT][4];
+    product<H, NT>(Es, Wb_s, rb, cb, acc);
+    __syncthreads();  // Es and the fp32 weight buffer are free
+    stage_weight<H>(p.w2, Ws);
+    async_commit();
+    if (next < p.tiles) start_rows<H>(p, next, Es);
+    async_commit();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * rb + g + 8 * hf, c = cb + 8 * j + 2 * t;
+        float u0 = 0.f, u1 = 0.f;
+        if (r < rows) {
+          const size_t e = e0 + r;
+          const int nd = r / p.K;
+          float x0 = AI[nd * LF + c] + bias[c], x1 = AI[nd * LF + c + 1] + bias[c + 1];
+          const float2 tv = ld2(Tab + r * LT + c);
+          if (mode == kDec) {
+            const float m1 = to_f(p.m_att[e]), mb = to_f(p.mbw[e]);
+            const float2 bv = ld2(Tab + r * LT + H + c);
+            x0 = x0 + m1 * acc[j][2 * hf];
+            x1 = x1 + m1 * acc[j][2 * hf + 1];
+            x0 = x0 + mb * tv.x;
+            x1 = x1 + mb * tv.y;
+            x0 = x0 + m1 * bv.x;
+            x1 = x1 + m1 * bv.y;
+          } else {
+            x0 = x0 + acc[j][2 * hf] + tv.x;
+            x1 = x1 + acc[j][2 * hf + 1] + tv.y;
+          }
+          if (p.x_out) st2(p.x_out + e * H + c, x0, x1);
+          u0 = gelu(x0);
+          u1 = gelu(x1);
+        }
+        st2(Us + r * LA + c, u0, u1);
+      }
+    async_wait<1>();  // at fp32 W2
+    __syncthreads();
+
+    // gelu(gelu(x)@W2 + b2) to Us
+    product<H, NT>(Us, W2_s, rb, cb, acc);
+    __syncthreads();
+    stage_weight<H>(p.w3, Ws);
+    async_commit();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * rb + g + 8 * hf, c = cb + 8 * j + 2 * t;
+        st2(Us + r * LA + c, gelu(acc[j][2 * hf] + bias[H + c]),
+            gelu(acc[j][2 * hf + 1] + bias[H + c + 1]));
+      }
+    async_wait<0>();  // at fp32 W3; the next tile's e_in rows
+    __syncthreads();
+
+    // m = u2@W3 + b3
+    product<H, NT>(Us, W3_s, rb, cb, acc);
+    __syncthreads();  // Us, Tab and the fp32 weight buffer are free
+    if (mode == kEncEdge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = 16 * rb + g + 8 * hf, c = cb + 8 * j + 2 * t;
+          if (r < rows)
+            st2(p.out + (e0 + r) * H + c, acc[j][2 * hf] + bias[2 * H + c],
+                acc[j][2 * hf + 1] + bias[2 * H + c + 1]);
+        }
+    } else {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * rb + g + 8 * hf;
+        const float w = r >= rows ? 0.f : (mode == kEncNode ? to_f(p.m_att[e0 + r]) : 1.f);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = cb + 8 * j + 2 * t;
+          st2(F + r * LF + c, (acc[j][2 * hf] + bias[2 * H + c]) * w,
+              (acc[j][2 * hf + 1] + bias[2 * H + c + 1]) * w);
+        }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < nodes * H; idx += kTileThreads) {
+        const int nd = idx / H, h = idx % H;
+        float s = 0.f;
+        for (int k = 0; k < p.K; ++k) s += F[(nd * p.K + k) * LF + h];
+        p.out[(size_t)(n0 + nd) * H + h] = from_f<T>(s / 30.0f);
+      }
+      __syncthreads();  // F is read before the next table rows land on it
+    }
+    if (next < p.tiles) start_table(p, next, Tab);
+    async_commit();
+    stage_weight<H>(p.wb, Ws);
+    async_commit();
+  }
+  async_wait<0>();
+}
+
+template <int H, typename T>
+int launch(const Params<T>& p, int mode, int nblocks, cudaStream_t stream) {
+  const size_t smem = smem_bytes<H, T>(p.C);
   cudaError_t err = cudaFuncSetAttribute(
       message_table_kernel<H, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.N + p.tn - 1) / p.tn;
-  message_table_kernel<H, T><<<blocks, kThreads, smem, stream>>>(p, mode);
+  if (p.tiles == 0) return 0;
+  message_table_kernel<H, T><<<nblocks < p.tiles ? nblocks : p.tiles,
+                               kTileThreads, smem, stream>>>(p, mode);
   return (int)cudaGetLastError();
 }
 
@@ -182,29 +420,48 @@ int forward(int mode, const T* h_V, const T* e_in, const T* table,
             const long long* eidx, const T* m_att, const T* mbw, const T* wa,
             const T* wb, const T* b1, const T* w2, const T* b2, const T* w3,
             const T* b3, T* out, T* x_out, int N, int K, int L, int Lk, int H,
-            cudaStream_t stream) {
-  if (K < 1 || K > kRows || mode < kEncNode || mode > kDec || L < 1 || Lk < 1)
+            int tn, int nblocks, cudaStream_t stream) {
+  if (K < 1 || K > kTileRows || mode < kEncNode || mode > kDec || L < 1 ||
+      Lk < 1 || N < 0 || tn < 1 || tn > kMaxTileNodes || tn * K > kTileRows ||
+      nblocks < 1)
     return (int)cudaErrorInvalidValue;
+  const int C = mode == kDec ? 2 * H : H;
   Params<T> p{h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1, w2, b2,
-              w3,  b3,   out,   x_out, N,   K,   L,  Lk, kRows / K};
+              w3,  b3,   out,   x_out, N,   K,   L,  Lk, tn, (N + tn - 1) / tn, C};
   switch (H) {
-    case 32: return launch<32>(p, mode, stream);
-    case 64: return launch<64>(p, mode, stream);
-    case 128: return launch<128>(p, mode, stream);
+    case 32: return launch<32>(p, mode, nblocks, stream);
+    case 64: return launch<64>(p, mode, nblocks, stream);
+    case 128: return launch<128>(p, mode, nblocks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Dynamic shared memory of one block (bytes) for table width C, for the
+// report of a run.
+extern "C" int message_table_forward_smem(int H, int C, int low) {
+  switch (H) {
+    case 32: return (int)(low ? smem_bytes<32, bf16>(C) : smem_bytes<32, float>(C));
+    case 64: return (int)(low ? smem_bytes<64, bf16>(C) : smem_bytes<64, float>(C));
+    case 128: return (int)(low ? smem_bytes<128, bf16>(C) : smem_bytes<128, float>(C));
+    default: return -1;
+  }
+}
+
+// tn: nodes per tile (tn * K <= 64, tn <= 16; ops/message_kernels.py::
+// table_tile_nodes); nblocks: the persistent grid (the SM count). e_in,
+// table and the four weights 16-byte aligned.
 extern "C" int message_table_forward(
     int mode, const float* h_V, const float* e_in, const float* table,
     const long long* eidx, const float* m_att, const float* mbw,
     const float* wa, const float* wb, const float* b1, const float* w2,
     const float* b2, const float* w3, const float* b3, float* out,
-    float* x_out, int N, int K, int L, int Lk, int H, cudaStream_t stream) {
+    float* x_out, int N, int K, int L, int Lk, int H, int tn, int nblocks,
+    cudaStream_t stream) {
   return forward<float>(mode, h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1,
-                        w2, b2, w3, b3, out, x_out, N, K, L, Lk, H, stream);
+                        w2, b2, w3, b3, out, x_out, N, K, L, Lk, H, tn, nblocks,
+                        stream);
 }
 
 // The same with every operand and output bf16.
@@ -213,7 +470,8 @@ extern "C" int message_table_forward_bf16(
     const long long* eidx, const bf16* m_att, const bf16* mbw, const bf16* wa,
     const bf16* wb, const bf16* b1, const bf16* w2, const bf16* b2,
     const bf16* w3, const bf16* b3, bf16* out, bf16* x_out, int N, int K,
-    int L, int Lk, int H, cudaStream_t stream) {
+    int L, int Lk, int H, int tn, int nblocks, cudaStream_t stream) {
   return forward<bf16>(mode, h_V, e_in, table, eidx, m_att, mbw, wa, wb, b1,
-                       w2, b2, w3, b3, out, x_out, N, K, L, Lk, H, stream);
+                       w2, b2, w3, b3, out, x_out, N, K, L, Lk, H, tn, nblocks,
+                       stream);
 }

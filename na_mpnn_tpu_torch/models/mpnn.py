@@ -56,6 +56,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import constants
 from ..ops import fused_layers as fl
@@ -111,8 +112,34 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda",
     return from_jax_params(tree, device=device, dtype=dtype)
 
 
+class _EmbedTokens(torch.autograd.Function):
+    """``emb[S]``, whose gradient is the one-hot product
+    ``one_hot(S, vocab)^T @ g`` summed in fp32 (float64 for float64): the
+    gradient of JAX's ``emb[S]`` (``mpnn.py:66``), the same on every launch.
+    PyTorch's own backward of the gather adds the rows with atomics on the
+    card, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, emb, S):
+        ctx.save_for_backward(S)
+        ctx.vocab, ctx.dtype = emb.shape[0], emb.dtype
+        return emb[S]
+
+    @staticmethod
+    def backward(ctx, g):
+        (S,) = ctx.saved_tensors
+        acc = torch.promote_types(g.dtype, torch.float32)
+        one_hot = F.one_hot(S.reshape(-1), ctx.vocab).to(acc)
+        return (one_hot.T @ g.reshape(-1, g.shape[-1]).to(acc)).to(ctx.dtype), None
+
+
 def embed_tokens(p, S):
-    return p["W_s"]["emb"][S.long()]
+    """The token embedding ``W_s.emb[S]``; through ``_EmbedTokens`` when a
+    gradient is wanted."""
+    emb, S = p["W_s"]["emb"], S.long()
+    if torch.is_grad_enabled() and emb.requires_grad:
+        return _EmbedTokens.apply(emb, S)
+    return emb[S]
 
 
 # ---------------------------------------------------------------------------

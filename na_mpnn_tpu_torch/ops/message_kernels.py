@@ -20,7 +20,10 @@ Modes:
 * ``dec``: ``table = [A | B]`` ``[N,2H]``; ``x = h_V@wa + m1d*(h_E@wb) +
   mbw*A[j] + m1d*B[j] + b1``; returns ``sum_k(m) / 30`` with no mask.
 
-with ``m = W3 . gelu(W2 . gelu(x) + b2) + b3``.
+with ``m = W3 . gelu(W2 . gelu(x) + b2) + b3``. The forward runs its four
+products on the tensor cores (bf16 ``mma.sync``; 3xTF32 at fp32) over
+tiles of ``table_tile_nodes(K)`` whole nodes, and every output is the same
+on every launch.
 
 Backward: ``csrc/message_table_bwd.cu`` (replaces ``_message_table_bwd_call``)
 resumes from the pre-GELU ``x`` that the forward saves (``save_x=True``), and
@@ -110,6 +113,19 @@ def message_table_plain(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
     return (m.to(dt), x.to(dt)) if save_x else m.to(dt)
 
 
+# Edge rows per tile of the forward kernel, and its most nodes per tile
+# (csrc/message_table.cu: kTileRows, kMaxTileNodes).
+TILE_ROWS, MAX_TILE_NODES = 64, 16
+
+
+def table_tile_nodes(K):
+    """Nodes per tile of the forward kernel for K neighbours: as many whole
+    nodes as fit in its 64 edge rows, at most 16 (one 16-row block of the
+    node term ``h_V@Wa``). A tile holds whole nodes, so the K-sum of the
+    summing modes never leaves it."""
+    return min(TILE_ROWS // K, MAX_TILE_NODES)
+
+
 def _check_mode(mode, N, K, L, H):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: choose from {sorted(MODES)}")
@@ -135,7 +151,10 @@ def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
                        wa, wb, b1, w2, b2, w3, b3, *, K, L, Lk=None,
                        save_x=False):
     """Launch ``csrc/message_table.cu`` on CUDA tensors, all fp32 or all
-    bf16 (then the bf16 variant, bf16 outputs)."""
+    bf16 (then the bf16 variant, bf16 outputs): a persistent grid of one
+    block per SM over tiles of ``table_tile_nodes(K)`` nodes. ``h_E2`` and
+    ``table2`` are read as 16-byte vectors and must start aligned; weights
+    that do not are copied here."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V2.shape
@@ -153,19 +172,26 @@ def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
         check_operand(w, name, dt, (H, H))
     for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
         check_operand(b, name, dt, (H,))
+    for name, t in (("h_E2", h_E2), ("table2", table2)):
+        check_aligned(t, name)
+    if any(w.data_ptr() % 16 for w in (wa, wb, w2, w3)):
+        # views at any offset of the flat parameter vector: one aligned copy
+        # of the four, so that the kernel copies them as 16-byte vectors
+        wa, wb, w2, w3 = torch.stack((wa, wb, w2, w3)).unbind(0)
+    dev = h_V2.device
     out = torch.empty((N * K if mode == "enc_edge" else N, H), dtype=dt,
-                      device=h_V2.device)
-    x = (torch.empty((N * K, H), dtype=dt, device=h_V2.device)
-         if save_x else None)
+                      device=dev)
+    x = torch.empty((N * K, H), dtype=dt, device=dev) if save_x else None
+    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
     fn = getattr(library("message_table"), "message_table_forward" + sfx)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, wa, wb, b1, w2,
                b2, w3, b3, out)
     err = fn(MODES[mode], *[ptr(t) for t in tensors],
-             ptr(x) if save_x else None, N, K, L, Lk, H,
-             stream_ptr(h_V2.device))
+             ptr(x) if save_x else None, N, K, L, Lk, H, table_tile_nodes(K),
+             nblocks, stream_ptr(dev))
     raise_on_error(err, "message_table" + sfx)
     LAUNCHES[f"message_table_{mode}{sfx}"] += 1
     return (out, x) if save_x else out

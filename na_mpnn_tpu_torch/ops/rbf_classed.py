@@ -10,17 +10,25 @@ operand). The 18 augmented atom slots split into the protein block P (N, CA,
 C, O, virtual Cb) and the nucleic block N (12 backbone atoms + virtual
 base-N); the host permutes them (``PERM``) so each block is contiguous, and
 the reference-order ``[18*18*16, H]`` weight splits into one table per
-(query block, neighbour block) group (``split_weight_tables``).
+(query block, neighbour block) group (``group_rows``).
 
-The weight gradient is ``csrc/rbf_classed_dw.cu`` (replaces
-``_classed_dw``), which writes the reference-order ``[5184, H]`` gradient
-directly. It classifies each edge, not each tile: ``edge_groups`` puts an
-edge in every (query side, neighbour side) group its two residues allow,
-``edge_group_lists`` lists each group's edges in ascending order (index
-glue, no host sync), and the kernel runs one tensor-core product per group
-table over that list (bf16 ``mma.sync``; 3xTF32 at fp32), rows pair-major
-(``_pair_row_map``), reduced over fixed edge ranges in a fixed order. The
-plain versions are the dense ones of ``ops/rbf_edge.py``, and the
+Both kernels classify each edge, not each tile: ``edge_groups`` puts an
+edge in every (query side, neighbour side) group its two residues allow
+(index glue, no host sync), and each kernel runs tensor-core products
+(bf16 ``mma.sync``; 3xTF32 at fp32) against the four group tables in one
+pair-major row order (``_pair_row_map``), every pair's 16 bins computed
+from one distance or damped walk. The forward (``csrc/rbf_classed.cu``)
+takes the edges of exactly one group in that group's list and the edges of
+several groups in a fifth: its classify kernel gives each edge its list
+(plain version ``edge_list_codes``), and one stable sort lays the lists
+out (``edge_tile_order``); a tile of the fifth runs each of its groups in
+turn into the same sums, so every output row is written once, the same on
+every launch, and the wrapper permutes the weight into the pair-major
+tables once per call. The weight gradient is ``csrc/rbf_classed_dw.cu``
+(replaces ``_classed_dw``), which writes the reference-order ``[5184, H]``
+gradient directly: one product per group table over that group's list
+(``edge_group_lists``), reduced over fixed edge ranges in a fixed order.
+The plain versions are the dense ones of ``ops/rbf_edge.py``, and the
 projection is its ``RbfProjection`` Function (a gradient for ``W`` only:
 coordinates and masks are structural, as in the JAX package,
 ``rbf_classed.py:592-596``).
@@ -60,7 +68,7 @@ PERM = list(P_SEL) + list(N_SEL)
 
 def group_rows(num_rbf=NUM_RBF):
     """Row indices (into the reference ``[A*A*R, H]`` weight) of each
-    group's table, in kernel order ``r*(Aq*An) + qpos*An + npos``."""
+    group's table, bin-major: ``r*(Aq*An) + qpos*An + npos``."""
     rows = []
     for selq, seln in GROUP_SELS:
         Aq, An = len(selq), len(seln)
@@ -70,17 +78,6 @@ def group_rows(num_rbf=NUM_RBF):
         b = np.asarray(seln)[n]
         rows.append(((a * A + b) * num_rbf + r).reshape(-1))
     return rows
-
-
-@functools.cache
-def _group_index(device):
-    return [torch.as_tensor(r, dtype=torch.int64, device=device)
-            for r in group_rows()]
-
-
-def split_weight_tables(W):
-    """Reference-order ``[A*A*R, H]`` weight -> the 4 kernel-order tables."""
-    return [W.index_select(0, r) for r in _group_index(W.device)]
 
 
 # The class split changes the work, not the function: the plain versions
@@ -177,9 +174,9 @@ def rbf_classed_dw_bf16_plain(X_aug, X_m_aug, E_idx, g, X_aug_k=None,
 
 @functools.cache
 def _pair_row_map(device):
-    """The weight-gradient kernel's row order -> reference row: the four
-    tables one after another, each pair-major (``pair*16 + r``, ``pair =
-    qpos*An + npos``), so a block's 128 rows are 16 bins of 8 atom pairs."""
+    """The kernels' row order -> reference row: the four tables one after
+    another, each pair-major (``pair*16 + r``, ``pair = qpos*An + npos``),
+    so 16 consecutive rows are one atom pair's 16 bins."""
     rows = []
     for selq, seln in GROUP_SELS:
         a = np.asarray(selq)[:, None]
@@ -225,6 +222,42 @@ def edge_group_lists(member):
     lists = torch.empty((4, 2 * E), dtype=torch.int64, device=member.device)
     lists.scatter_(1, pos, idx.expand(4, E))
     return lists, counts
+
+
+def edge_list_codes(Mq, Mk, nbr, K):
+    """Plain version of the forward's ``classify_kernel``: the list of each
+    edge ``[E]`` (uint8), 0-3 the one group it feeds (``edge_groups``), 4
+    when it feeds several (a residue with atoms in both blocks at either
+    end)."""
+    member = edge_groups(Mq, Mk, nbr, K)
+    first = member.to(torch.uint8).argmax(dim=0).to(torch.uint8)
+    return torch.where(member.sum(dim=0) > 1, 4, first).to(torch.uint8)
+
+
+def edge_list_codes_cuda(Mq, Mk, nbr, K):
+    """Launch the forward's ``classify_kernel`` (the contract of
+    ``edge_list_codes``) on the laid-out CUDA operands of ``edge_operands``."""
+    from ._build import library, ptr, stream_ptr
+
+    code = torch.empty(nbr.shape, dtype=torch.uint8, device=nbr.device)
+    fn = library("rbf_classed").rbf_classed_classify
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    raise_on_error(fn(ptr(Mq), ptr(Mk), ptr(nbr), nbr.numel(), K, ptr(code),
+                      stream_ptr(nbr.device)), "rbf_classed classify")
+    return code
+
+
+def edge_tile_order(code):
+    """The forward kernel's lists from the edge codes: ``(order [E],
+    counts [5])``, the edges sorted stably by code, so list ``l`` is
+    ``order[sum(counts[:l]) : sum(counts[:l + 1])]`` in ascending edge
+    order. No host sync (``torch.bincount`` on the card reads the largest
+    code back to the host, so the counts are a comparison and a sum)."""
+    lists = torch.arange(5, device=code.device, dtype=code.dtype)
+    return (torch.argsort(code, stable=True),
+            (code[None, :] == lists[:, None]).sum(dim=1))
 
 
 def _dw_launch(symbol, X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k, name):
@@ -278,18 +311,24 @@ def _forward_launch(symbol, X_aug, X_m_aug, E_idx, W, X_aug_k, X_m_k, name,
 
     B, L, K = E_idx.shape
     H = W.shape[1]
+    if H not in (32, 64, 128):
+        raise ValueError(f"rbf_classed kernel: H={H} (32, 64 or 128) not supported")
     Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k,
                                         PERM)
     check_operand(W, "W", torch.float32, (ROWS, H))
-    tables = [t.to(table_dtype).contiguous() for t in split_weight_tables(W)]
+    dev = X_aug.device
+    table = W.index_select(0, _pair_row_map(dev)).to(table_dtype)
     E = B * L * K
-    out = torch.empty((E, H), dtype=torch.float32, device=X_aug.device)
+    order, counts = edge_tile_order(edge_list_codes_cuda(Mq, Mk, nbr, K))
+    out = torch.empty((E, H), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     fn = getattr(library("rbf_classed"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 6)
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), E, K, H,
-             *[ptr(t) for t in tables], ptr(out), stream_ptr(X_aug.device))
+    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), K, H, ptr(table),
+             ptr(order), ptr(counts), sms, ptr(out), stream_ptr(dev))
     raise_on_error(err, name)
     LAUNCHES[name] += 1
     return out.view(B, L, K, H)
@@ -304,8 +343,8 @@ def rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W, X_aug_k=None,
 
 def rbf_classed_bf16_cuda(X_aug, X_m_aug, E_idx, W, X_aug_k=None, X_m_k=None):
     """Launch the bf16 entry of ``csrc/rbf_classed.cu`` (the contract of
-    ``rbf_classed_bf16_plain``): the fold-scaled fp32 ``W`` is split into
-    the four group tables and rounded to bf16 here."""
+    ``rbf_classed_bf16_plain``): the fold-scaled fp32 ``W`` is permuted into
+    the four pair-major group tables and rounded to bf16 here."""
     return _forward_launch("rbf_classed_forward_bf16", X_aug, X_m_aug, E_idx, W,
                            X_aug_k, X_m_k, "rbf_classed_bf16", torch.bfloat16)
 

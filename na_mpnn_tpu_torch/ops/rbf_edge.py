@@ -24,6 +24,7 @@ key rows. The projection is a ``torch.autograd.Function`` with a gradient for
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -66,6 +67,13 @@ def rbf_edge_dw_bf16_plain(X_aug, X_m_aug, E_idx, g, X_aug_k=None, X_m_k=None):
     return rbf.T @ g.reshape(-1, g.shape[-1]).to(torch.bfloat16).float()
 
 
+@functools.cache
+def _perm_index(perm, device):
+    """The atom permutation as an index tensor on ``device``, made once: a
+    copy from host memory would wait for the device's queue to drain."""
+    return torch.as_tensor(perm, device=device)
+
+
 def edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k, perm):
     """Check the RBF kernels' operands and lay them out: query rows as
     ``[x-plane | y-plane | z-plane]`` ``[B*Lq, 54]`` with their masks
@@ -82,7 +90,7 @@ def edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k, perm):
     if A_ != A:
         raise ValueError(f"rbf kernel: needs the {A}-atom frame, got {A_}")
     check_operand(E_idx, "E_idx", torch.int64, (B, Lq, K))
-    idx = None if perm is None else torch.as_tensor(perm, device=X_aug.device)
+    idx = None if perm is None else _perm_index(tuple(perm), X_aug.device)
 
     def rows(X, M, name):
         L = X.shape[1]
