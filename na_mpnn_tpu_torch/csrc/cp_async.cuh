@@ -1,6 +1,6 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80+),
-// for the forward kernels that stream their operands through a ring:
-// message_table.cu and rbf_classed.cu. A copy lands when its group has been
+// for the kernels that stream their operands through a ring:
+// message_table.cu, message_table_bwd.cu and rbf_classed.cu. A copy lands when its group has been
 // waited for; a barrier then makes it visible to the other threads.
 #pragma once
 #include <cuda_runtime.h>

@@ -47,10 +47,11 @@
 // view at any offset of the flat parameter vector is copied first). The
 // tile's e_in rows and its gathered table rows come in by cp.async one tile
 // ahead: the next tile's e_in rows once this tile's e_in@Wb is done, its
-// table rows once this tile's last product is, so each load overlaps
-// products. The epilogues
-// work from the fp32 fragments; the K-sum stages the fp32 messages over the
-// free activation and table buffers.
+// table rows once this tile's x is (fp32) or its last product is (bf16, where
+// the K-sum's staging spills over the table buffer), so each load overlaps
+// products. The epilogues work from
+// the fp32 fragments; the K-sum stages the fp32 messages over the free
+// activation buffer (and, at bf16, the table buffer).
 #include "cp_async.cuh"
 #include "message_common.cuh"
 #include "mma.cuh"
@@ -61,11 +62,6 @@ constexpr int kTileRows = 64;
 constexpr int kTileThreads = 512;  // 16 warps: 4 row blocks x 4 column quarters
 constexpr int kMaxTileNodes = 16;
 
-// Row stride (elements) of an operand in shared memory: conflict-free
-// fragment loads for each type (mma.cuh).
-template <typename T>
-__host__ __device__ constexpr int lda(int W) { return sizeof(T) == 2 ? W + 8 : W + 4; }
-
 template <int H, typename T>
 __host__ __device__ constexpr size_t smem_bytes(int C) {
   constexpr bool kLow = sizeof(T) == 2;
@@ -74,7 +70,8 @@ __host__ __device__ constexpr size_t smem_bytes(int C) {
          + (size_t)kTileRows * lda<T>(C) * sizeof(T)                   // table rows
          + (size_t)kMaxTileNodes * (H + 4) * 4                         // h_V @ Wa
          + (size_t)kMaxTileNodes * lda<T>(H) * sizeof(T)               // h_V rows
-         + 3 * (size_t)H * 4;                                          // b1 | b2 | b3
+         + 3 * (size_t)H * 4                                           // b1 | b2 | b3
+         + 3 * (size_t)kTileRows * 4;                                  // row masks, table rows
 }
 
 template <typename T>
@@ -97,19 +94,6 @@ struct Params {
   int N, K, L, Lk, tn, tiles, C;
 };
 
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // Start the copies of tile `tile`'s e_in rows into Es (zero past its rows).
 template <int H, typename T>
 __device__ __forceinline__ void start_rows(const Params<T>& p, int tile, T* Es) {
@@ -124,20 +108,27 @@ __device__ __forceinline__ void start_rows(const Params<T>& p, int tile, T* Es) 
   }
 }
 
-// Start the copies of tile `tile`'s gathered table rows (C wide) into Tab.
+// Row r of tile `tile` reads table row (n / L) * Lk + eidx[e], n its node
+// and e its edge row (0 past the tile's rows).
 template <typename T>
-__device__ __forceinline__ void start_table(const Params<T>& p, int tile, T* Tab) {
-  constexpr int EPS = 16 / (int)sizeof(T);
-  const int SEG = p.C / EPS, LT = lda<T>(p.C);
+__device__ __forceinline__ int table_row(const Params<T>& p, int tile, int r) {
   const int n0 = tile * p.tn;
-  const int rows = min(p.tn, p.N - n0) * p.K;
-  const size_t e0 = (size_t)n0 * p.K;
-  for (int i = threadIdx.x; i < kTileRows * SEG; i += kTileThreads) {
-    const int r = i / SEG, h = (i % SEG) * EPS;
+  if (r >= min(p.tn, p.N - n0) * p.K) return 0;
+  return (n0 + r / p.K) / p.L * p.Lk + (int)p.eidx[(size_t)n0 * p.K + r];
+}
+
+// Start the copies of tile `tile`'s gathered table rows (C wide) into Tab,
+// trow[r] the table row of its row r (zero past its rows). A thread copies
+// one 16-byte segment of every (threads / segments)-th row.
+template <typename T>
+__device__ __forceinline__ void start_table(const Params<T>& p, int tile,
+                                            const int* trow, T* Tab) {
+  constexpr int EPS = 16 / (int)sizeof(T);
+  const int SEG = p.C / EPS, LT = lda<T>(p.C), h = (threadIdx.x % SEG) * EPS;
+  const int rows = min(p.tn, p.N - tile * p.tn) * p.K;
+  for (int r = threadIdx.x / SEG; r < kTileRows; r += kTileThreads / SEG) {
     const bool ok = r < rows;
-    size_t t = 0;
-    if (ok) t = (size_t)((n0 + r / p.K) / p.L) * p.Lk + p.eidx[e0 + r];
-    async_copy16(Tab + r * LT + h, p.table + t * p.C + h, ok);
+    async_copy16(Tab + r * LT + h, p.table + (size_t)trow[r] * p.C + h, ok);
   }
 }
 
@@ -152,52 +143,10 @@ __device__ __forceinline__ void stage_weight(const float* __restrict__ W, float*
 template <int H>
 __device__ __forceinline__ void stage_weight(const bf16*, bf16*) {}
 
-// acc[j] = A[16 rb .. +16, :] @ W[:, cb + 8j .. +8] for the warp's NT
-// n-tiles. bf16: W resident as Bs [n][k] (stride H + 8). fp32 (3xTF32): W as
-// staged, Bs [k][n] (stride H + 8).
-template <int H, int NT>
-__device__ __forceinline__ void product(const bf16* A, const bf16* Bs, int rb,
-                                        int cb, float (&acc)[NT][4]) {
-  constexpr int LA = lda<bf16>(H), LW = H + 8;
-  const int g = lane_g(), t = lane_t();
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 4
-  for (int k0 = 0; k0 < H; k0 += 16) {
-    uint32_t a[4];
-    frag_a_bf16(a, A, LA, 16 * rb, k0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* b = Bs + (cb + 8 * j + g) * LW + k0 + 2 * t;
-      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
-    }
-  }
-}
-
-template <int H, int NT>
-__device__ __forceinline__ void product(const float* A, const float* Wf, int rb,
-                                        int cb, float (&acc)[NT][4]) {
-  constexpr int LA = lda<float>(H), LW = H + 8;
-  const int g = lane_g(), t = lane_t();
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < H; k0 += 8) {
-    const float* pa = A + (16 * rb + g) * LA + k0 + t;
-    const float af[4] = {pa[0], pa[8 * LA], pa[4], pa[8 * LA + 4]};
-    SplitA a;
-    a.set(af);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float* b = Wf + (k0 + t) * LW + cb + 8 * j + g;
-      mma_3xtf32(acc[j], a, b[0], b[4 * LW]);
-    }
-  }
-}
-
 // The node term of 16 rows (the tile's nodes, zero-padded) for the 8
 // columns at n0: HV @ Wa. bf16: Wa resident [n][k]; fp32: Wa [k][n] read
-// from global memory (one n-tile per warp, once per tile).
+// from global memory (one n-tile per warp, once per tile; the loop is
+// unrolled whole, so that all its loads are in flight at once).
 template <int H>
 __device__ __forceinline__ void node_product(const bf16* HV, const bf16* Was,
                                              const bf16*, int n0, float (&acc)[4]) {
@@ -219,7 +168,7 @@ __device__ __forceinline__ void node_product(const float* HV, const float*,
   constexpr int LA = lda<float>(H);
   const int g = lane_g(), t = lane_t();
   acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-#pragma unroll 2
+#pragma unroll
   for (int k0 = 0; k0 < H; k0 += 8) {
     const float* pa = HV + g * LA + k0 + t;
     const float af[4] = {pa[0], pa[8 * LA], pa[4], pa[8 * LA + 4]};
@@ -243,7 +192,7 @@ message_table_kernel(Params<T> p, int mode) {
   T* Es = reinterpret_cast<T*>(q);  // [64][LA] e_in rows
   q += kTileRows * LA * sizeof(T);
   T* Us = reinterpret_cast<T*>(q);  // [64][LA] gelu(x), then gelu(y)
-  float* F = reinterpret_cast<float*>(q);  // [64][LF] messages, over Us and Tab
+  float* F = reinterpret_cast<float*>(q);  // [64][LF] messages, over Us (bf16: and Tab)
   q += kTileRows * LA * sizeof(T);
   T* Tab = reinterpret_cast<T*>(q);  // [64][LT] gathered table rows
   q += (size_t)kTileRows * LT * sizeof(T);
@@ -252,6 +201,8 @@ message_table_kernel(Params<T> p, int mode) {
   T* HV = reinterpret_cast<T*>(q);  // [16][LA] h_V rows
   q += kMaxTileNodes * LA * sizeof(T);
   float* bias = reinterpret_cast<float*>(q);  // b1 | b2 | b3
+  float* Mr = bias + 3 * H;  // [2][64] the tile's mask_att | mbw (0 past its rows)
+  int* Tn = reinterpret_cast<int*>(Mr + 2 * kTileRows);  // [64] next table rows
 
   const int tid = threadIdx.x, warp = tid >> 5, g = lane_g(), t = lane_t();
   const int rb = warp & 3, cb = (warp >> 2) * (H / 4);
@@ -274,7 +225,9 @@ message_table_kernel(Params<T> p, int mode) {
   int tile = blockIdx.x;
   if (tile < p.tiles) start_rows<H>(p, tile, Es);
   async_commit();
-  if (tile < p.tiles) start_table(p, tile, Tab);
+  if (tid < kTileRows) Tn[tid] = table_row(p, tile, tid);
+  __syncthreads();
+  if (tile < p.tiles) start_table(p, tile, Tn, Tab);
   async_commit();
   stage_weight<H>(p.wb, Ws);
   async_commit();
@@ -289,6 +242,10 @@ message_table_kernel(Params<T> p, int mode) {
     for (int idx = tid; idx < kMaxTileNodes * H; idx += kTileThreads) {
       const int r = idx / H, h = idx % H;
       HV[r * LA + h] = r < nodes ? p.h_V[(size_t)(n0 + r) * H + h] : from_f<T>(0.f);
+    }
+    if (mode != kEncEdge && tid < kTileRows) {
+      Mr[tid] = tid < rows ? to_f(p.m_att[e0 + tid]) : 0.f;
+      Mr[kTileRows + tid] = tid < rows ? to_f(p.mbw[e0 + tid]) : 0.f;
     }
     async_wait<2>();  // this tile's e_in rows
     __syncthreads();
@@ -305,7 +262,8 @@ message_table_kernel(Params<T> p, int mode) {
 
     // x = h_V@Wa + e_in@Wb + table + b1 (dec: with the masks); gelu(x) to Us
     float acc[NT][4];
-    product<H, NT>(Es, Wb_s, rb, cb, acc);
+    if constexpr (kLow) product<H, NT>(Es, Wb_s, rb, cb, acc);
+    else product<H, NT>(Es, Wb_s, false, rb, cb, acc);
     __syncthreads();  // Es and the fp32 weight buffer are free
     stage_weight<H>(p.w2, Ws);
     async_commit();
@@ -323,7 +281,7 @@ message_table_kernel(Params<T> p, int mode) {
           float x0 = AI[nd * LF + c] + bias[c], x1 = AI[nd * LF + c + 1] + bias[c + 1];
           const float2 tv = ld2(Tab + r * LT + c);
           if (mode == kDec) {
-            const float m1 = to_f(p.m_att[e]), mb = to_f(p.mbw[e]);
+            const float m1 = Mr[r], mb = Mr[kTileRows + r];
             const float2 bv = ld2(Tab + r * LT + H + c);
             x0 = x0 + m1 * acc[j][2 * hf];
             x1 = x1 + m1 * acc[j][2 * hf + 1];
@@ -341,11 +299,19 @@ message_table_kernel(Params<T> p, int mode) {
         }
         st2(Us + r * LA + c, u0, u1);
       }
+    if (tid < kTileRows) Tn[tid] = table_row(p, next, tid);  // read past the barrier
     async_wait<1>();  // at fp32 W2
     __syncthreads();
+    if constexpr (!kLow) {
+      // at fp32 the K-sum's messages fit in Us alone, so Tab is free from
+      // here: the next tile's table rows land during this tile's W2 and W3
+      if (next < p.tiles) start_table(p, next, Tn, Tab);
+      async_commit();
+    }
 
     // gelu(gelu(x)@W2 + b2) to Us
-    product<H, NT>(Us, W2_s, rb, cb, acc);
+    if constexpr (kLow) product<H, NT>(Us, W2_s, rb, cb, acc);
+    else product<H, NT>(Us, W2_s, false, rb, cb, acc);
     __syncthreads();
     stage_weight<H>(p.w3, Ws);
     async_commit();
@@ -357,12 +323,13 @@ message_table_kernel(Params<T> p, int mode) {
         st2(Us + r * LA + c, gelu(acc[j][2 * hf] + bias[H + c]),
             gelu(acc[j][2 * hf + 1] + bias[H + c + 1]));
       }
-    async_wait<0>();  // at fp32 W3; the next tile's e_in rows
+    async_wait<0>();  // at fp32 W3 and the next tile's table rows; its e_in rows
     __syncthreads();
 
     // m = u2@W3 + b3
-    product<H, NT>(Us, W3_s, rb, cb, acc);
-    __syncthreads();  // Us, Tab and the fp32 weight buffer are free
+    if constexpr (kLow) product<H, NT>(Us, W3_s, rb, cb, acc);
+    else product<H, NT>(Us, W3_s, false, rb, cb, acc);
+    __syncthreads();  // Us and the fp32 weight buffer are free (bf16: Tab too)
     if (mode == kEncEdge) {
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -377,7 +344,7 @@ message_table_kernel(Params<T> p, int mode) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int r = 16 * rb + g + 8 * hf;
-        const float w = r >= rows ? 0.f : (mode == kEncNode ? to_f(p.m_att[e0 + r]) : 1.f);
+        const float w = r >= rows ? 0.f : (mode == kEncNode ? Mr[r] : 1.f);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int c = cb + 8 * j + 2 * t;
@@ -392,10 +359,12 @@ message_table_kernel(Params<T> p, int mode) {
         for (int k = 0; k < p.K; ++k) s += F[(nd * p.K + k) * LF + h];
         p.out[(size_t)(n0 + nd) * H + h] = from_f<T>(s / 30.0f);
       }
-      __syncthreads();  // F is read before the next table rows land on it
+      __syncthreads();  // F and Mr are read before they are written again
     }
-    if (next < p.tiles) start_table(p, next, Tab);
-    async_commit();
+    if constexpr (kLow) {
+      if (next < p.tiles) start_table(p, next, Tn, Tab);
+      async_commit();
+    }
     stage_weight<H>(p.wb, Ws);
     async_commit();
   }

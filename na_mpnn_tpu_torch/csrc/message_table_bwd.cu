@@ -59,6 +59,7 @@
 // per-tile weight-gradient updates of the first version (about 1.2 GB of
 // L2 traffic per launch) became streamed split-K products, and the table
 // gradient's 25-50 M float atomics became one ordered pass.
+#include "cp_async.cuh"
 #include "message_common.cuh"
 #include "mma.cuh"
 
@@ -73,11 +74,6 @@ constexpr int kGradThreads = 512;
 // 139 KB at fp32, H = 128)
 template <typename T>
 __host__ __device__ constexpr int stages() { return sizeof(T) == 2 ? 3 : 2; }
-
-// Operand row stride in shared memory (elements): conflict-free fragment
-// loads for each type (mma.cuh).
-template <typename T>
-__host__ __device__ constexpr int lda(int H) { return sizeof(T) == 2 ? H + 8 : H + 4; }
 
 template <typename T>
 struct Params {
@@ -105,69 +101,12 @@ struct Params {
   int N, K, L, Lk, tn, tiles, C;
 };
 
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 __device__ __forceinline__ void st4(bf16* p, float4 v) {
   st2(p, v.x, v.y);
   st2(p + 2, v.z, v.w);
-}
-
-// acc[j] = A[16 rb .. +16, :] @ B[:, cb + 8j .. +8] for the warp's NT
-// n-tiles, A [rows][lda] and the weight in shared memory. bf16: Bs [n][k]
-// (stride H + 8). fp32 (3xTF32): W as stage_weight left it, B[k][n] =
-// W[k][n] (nk false, stride H + 8) or W[n][k] (nk true, stride H + 4).
-template <int H, int NT>
-__device__ __forceinline__ void product(const bf16* A, const bf16* Bs, int rb,
-                                        int cb, float (&acc)[NT][4]) {
-  constexpr int LA = lda<bf16>(H), LB = H + 8;
-  const int g = lane_g(), t = lane_t();
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < H; k0 += 16) {
-    uint32_t a[4];
-    frag_a_bf16(a, A, LA, 16 * rb, k0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* b = Bs + (cb + 8 * j + g) * LB + k0 + 2 * t;
-      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
-    }
-  }
-}
-
-template <int H, int NT>
-__device__ __forceinline__ void product(const float* A, const float* W, bool nk,
-                                        int rb, int cb, float (&acc)[NT][4]) {
-  constexpr int LA = lda<float>(H);
-  const int g = lane_g(), t = lane_t();
-  const int sk = nk ? 1 : H + 8, sn = nk ? H + 4 : 1;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < H; k0 += 8) {
-    const float* pa = A + (16 * rb + g) * LA + k0 + t;
-    const float af[4] = {pa[0], pa[8 * LA], pa[4], pa[8 * LA + 4]};
-    SplitA a;
-    a.set(af);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float* b = W + (k0 + t) * sk + (cb + 8 * j + g) * sn;
-      mma_3xtf32(acc[j], a, b[0], b[4 * sk]);
-    }
-  }
 }
 
 // An fp32 weight [H, H] copied row by row into shared memory for one
@@ -462,19 +401,6 @@ tile_kernel(Params<T> p, int mode) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Start the copies of rows [c0, c0 + kChunk) of weight gradient w's two
 // operands into Ps, Qs (rows from r_end on are zero-filled): 0 dWa (h_V, s),
 // 1 dWb (e_in, g_e), 2 dW2 (gelu(x), g_y), 3 dW3 (gelu(y), g_m).
@@ -494,7 +420,7 @@ __device__ __forceinline__ void issue_chunk(const Params<T>& p, int mode, int w,
       src = p.tcs + r * p.C + (p.C - H) + h;
     else
       src = (w == 0 ? p.ss : w == 2 ? p.gys : mode == kEncEdge ? p.g : p.gms) + r * H + h;
-    cp_async16((q ? Qs : Ps) + rr * LP + h, src, ok);
+    async_copy16((q ? Qs : Ps) + rr * LP + h, src, ok);
   }
 }
 
@@ -532,17 +458,17 @@ wgrad_kernel(Params<T> p, int mode, float* __restrict__ wpart) {
       T* Ps = ring + s * kStage;
       issue_chunk<H, T>(p, mode, w, (ch0 + s) * kChunk, R, Ps, Ps + kChunk * LP);
     }
-    cp_async_commit();
+    async_commit();
   }
   for (int c = ch0; c < ch1; ++c) {
-    cp_async_wait<kStages - 2>();
+    async_wait<kStages - 2>();
     __syncthreads();  // chunk c landed; chunk c - 1's stage is free
     const int cn = c + kStages - 1;
     if (cn < ch1) {
       T* Pn = ring + ((cn - ch0) % kStages) * kStage;
       issue_chunk<H, T>(p, mode, w, cn * kChunk, R, Pn, Pn + kChunk * LP);
     }
-    cp_async_commit();
+    async_commit();
     T* Ps = ring + ((c - ch0) % kStages) * kStage;
     T* Qs = Ps + kChunk * LP;
     if (active) {
@@ -575,7 +501,7 @@ wgrad_kernel(Params<T> p, int mode, float* __restrict__ wpart) {
       }
     }
   }
-  cp_async_wait<0>();
+  async_wait<0>();
   if (active) {
     float* out = wpart + ((size_t)blockIdx.x * 4 + w) * H * H;
 #pragma unroll

@@ -1,13 +1,17 @@
 // Warp-level tensor-core products for Hopper (sm_90a), shared by the
-// message-table backward (message_table_bwd.cu) and the classed RBF weight
-// gradient (rbf_classed_dw.cu).
+// message-table forward and backward (message_table.cu, message_table_bwd.cu)
+// and the classed RBF forward and weight gradient (rbf_classed.cu,
+// rbf_classed_dw.cu).
 //
 // bf16: mma.sync m16n8k16, bf16 operands, fp32 accumulators; what each
 // product of the bf16 trunk computes (bf16 operands summed in fp32).
-// fp32: 3xTF32 on mma.sync m16n8k8: each operand x splits into big =
-// tf32(x) (round to nearest) and small = tf32(x - big), and a product adds
+// fp32: 3xTF32 on mma.sync m16n8k8: each operand x splits into big = x
+// rounded to tf32 and small = x - big truncated to tf32, and a product adds
 // small*big + big*small + big*big in fp32 (the small*small term, below
-// 2^-22 of the product, is dropped): fp32 accuracy on the tensor cores.
+// 2^-22 of the product, is dropped; small's truncation, below 2^-21): fp32
+// accuracy on the tensor cores. The split is a few integer operations, not
+// two cvt.rna conversions, because every warp that reads a weight element
+// splits it again: its cost is paid once per product, not once per weight.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // ".m16n8k8"), with g = lane / 4 and t = lane % 4:
@@ -22,7 +26,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "precision.cuh"
+
 namespace {
+
+// Row stride (elements) of an operand W wide in shared memory: conflict-free
+// fragment loads for each type (ld/2 = 4 mod 32 words for bf16, ld = 4 mod
+// 32 for fp32).
+template <typename T>
+__host__ __device__ constexpr int lda(int W) { return sizeof(T) == 2 ? W + 8 : W + 4; }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
@@ -45,17 +57,12 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small (to about 2^-22 of x), both tf32.
+// x = big + small: big = x to 10 mantissa bits (ties away from zero), and
+// small = x - big (exact in fp32) truncated to tf32.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
 
 // An fp32 A fragment (a0..a3 in the tf32 layout) split once for every
@@ -133,6 +140,53 @@ __device__ __forceinline__ void frag_b2_bf16_trans(uint32_t (&b)[4],
   const int lane = threadIdx.x & 31, mat = lane >> 3, j = lane & 7;
   ldmatrix_x4_trans(b, S + (k0 + j + ((mat & 1) << 3)) * ld + n0 +
                            ((mat >> 1) << 3));
+}
+
+// acc[j] = A[16 rb .. +16, :] @ B[:, cb + 8j .. +8] for a warp's NT n-tiles,
+// with A [rows][lda<bf16>(H)] and the weight Bs [n][k] (row stride H + 8) in
+// shared memory.
+template <int H, int NT>
+__device__ __forceinline__ void product(const bf16* A, const bf16* Bs, int rb,
+                                        int cb, float (&acc)[NT][4]) {
+  constexpr int LA = lda<bf16>(H), LB = H + 8;
+  const int g = lane_g(), t = lane_t();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    uint32_t a[4];
+    frag_a_bf16(a, A, LA, 16 * rb, k0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* b = Bs + (cb + 8 * j + g) * LB + k0 + 2 * t;
+      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
+    }
+  }
+}
+
+// The same in 3xTF32 with A [rows][lda<float>(H)] and the weight W [H, H]
+// in shared memory read as B[k][n] = W[k][n] (nk false, row stride H + 8)
+// or W[n][k] (nk true, row stride H + 4).
+template <int H, int NT>
+__device__ __forceinline__ void product(const float* A, const float* W, bool nk,
+                                        int rb, int cb, float (&acc)[NT][4]) {
+  constexpr int LA = lda<float>(H);
+  const int g = lane_g(), t = lane_t();
+  const int sk = nk ? 1 : H + 8, sn = nk ? H + 4 : 1;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    const float* pa = A + (16 * rb + g) * LA + k0 + t;
+    const float af[4] = {pa[0], pa[8 * LA], pa[4], pa[8 * LA + 4]};
+    SplitA a;
+    a.set(af);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* b = W + (k0 + t) * sk + (cb + 8 * j + g) * sn;
+      mma_3xtf32(acc[j], a, b[0], b[4 * sk]);
+    }
+  }
 }
 
 }  // namespace

@@ -47,4 +47,19 @@ __device__ __forceinline__ float4 ld4(const bf16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// Two consecutive elements (8-byte aligned for fp32, 4-byte for bf16),
+// widened; and two stored, rounded to the type.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 }  // namespace

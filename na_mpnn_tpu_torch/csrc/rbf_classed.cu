@@ -81,14 +81,10 @@ template <typename T>
 __host__ __device__ constexpr int threads() { return sizeof(T) == 2 ? 256 : 512; }
 template <typename T>
 __host__ __device__ constexpr int blocks_per_sm() { return sizeof(T) == 2 ? 2 : 1; }
-// A row stride (elements) that keeps the fragment loads free of bank
-// conflicts (mma.cuh); B rows are H + 8.
-template <typename T>
-__host__ __device__ constexpr int lda() { return kR * kPC + (sizeof(T) == 2 ? 8 : 4); }
 
 template <int H, typename T>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return ((size_t)kTM * lda<T>() + 2 * (size_t)kR * kPC * (H + 8)) * sizeof(T);
+  return ((size_t)kTM * lda<T>(kR * kPC) + 2 * (size_t)kR * kPC * (H + 8)) * sizeof(T);
 }
 
 // Bit g set when an edge between a query residue with masks mq and a key
@@ -137,7 +133,7 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
                    const long long* __restrict__ counts, int K,
                    float* __restrict__ out) {
   constexpr bool kLow = sizeof(T) == 2;
-  constexpr int PC = kPC, KC = kR * PC, LA = lda<T>(), LB = H + 8;
+  constexpr int PC = kPC, KC = kR * PC, LA = lda<T>(KC), LB = H + 8;
   constexpr int NTH = threads<T>(), CG = NTH / 128;
   constexpr int NT = H / (8 * CG);  // n-tiles of a warp's H / CG columns
   extern __shared__ __align__(16) unsigned char smem[];
@@ -189,6 +185,11 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
         if (__syncthreads_or((bits >> g) & 1)) gmask |= 1 << g;
     }
     __syncthreads();
+    // the output rows of this thread's fragments, read now: past the chunk
+    // loop's last barrier the first warps already write the next tile's s_e
+    long long erow[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) erow[hf] = s_e[16 * rb + g8 + 8 * hf];
 
     float acc[NT][4];
 #pragma unroll
@@ -287,7 +288,7 @@ rbf_classed_kernel(const float* __restrict__ Xq, const float* __restrict__ Mq,
     for (int hf = 0; hf < 2; ++hf) {
       const int r = 16 * rb + g8 + 8 * hf;
       if (r >= n) continue;
-      float* dst = out + (size_t)s_e[r] * H + cb + 2 * t4;
+      float* dst = out + (size_t)erow[hf] * H + cb + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * hf], acc[j][2 * hf + 1]);

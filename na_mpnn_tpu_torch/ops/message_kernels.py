@@ -126,6 +126,17 @@ def table_tile_nodes(K):
     return min(TILE_ROWS // K, MAX_TILE_NODES)
 
 
+def aligned_weights(*ws):
+    """The weights as the forward kernel reads them, as 16-byte vectors:
+    the same tensors when each starts 16-byte aligned, else one aligned
+    copy of all of them (views at any offset of the flat parameter vector).
+    Each is ``[H, H]`` with H in (32, 64, 128), so every slice of the copy
+    starts a multiple of 2 KB after its aligned start."""
+    if all(w.data_ptr() % 16 == 0 for w in ws):
+        return ws
+    return torch.stack(ws).unbind(0)
+
+
 def _check_mode(mode, N, K, L, H):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: choose from {sorted(MODES)}")
@@ -174,10 +185,7 @@ def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
         check_operand(b, name, dt, (H,))
     for name, t in (("h_E2", h_E2), ("table2", table2)):
         check_aligned(t, name)
-    if any(w.data_ptr() % 16 for w in (wa, wb, w2, w3)):
-        # views at any offset of the flat parameter vector: one aligned copy
-        # of the four, so that the kernel copies them as 16-byte vectors
-        wa, wb, w2, w3 = torch.stack((wa, wb, w2, w3)).unbind(0)
+    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
     dev = h_V2.device
     out = torch.empty((N * K if mode == "enc_edge" else N, H), dtype=dt,
                       device=dev)

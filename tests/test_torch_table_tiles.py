@@ -1,22 +1,23 @@
-"""The tile map of the message-table forward kernel
-(``csrc/message_table.cu``; ``ops/message_kernels.py::table_tile_nodes``):
-tiles of whole nodes, at most 64 edge rows and 16 nodes each, for any K in
-1..64, not only those that divide 64. The kernel runs only on the card;
-this file holds, on the CPU, the map it is given and a plain model of the
-tiled computation: the node term ``h_V@Wa`` on each tile's nodes padded to
-one 16-row block, the table rows gathered by ``(n // L) * Lk + eidx``, and
-the K-sum of the summing modes inside the tile.
+"""What the message-table forward kernel (``csrc/message_table.cu``) takes
+from its wrapper (``ops/message_kernels.py::message_table_cuda``), held on
+the CPU, where the kernel itself does not run:
 
-Tolerance: the model computes the same terms as the plain forward, only
-tile by tile, so at float64 the two agree to 1e-12."""
+- the tile map ``table_tile_nodes(K)``: tiles of whole nodes, at most 64
+  edge rows and 16 nodes each, for any K in 1..64, not only those that
+  divide 64, with the wrapper's constants equal to the kernel's;
+- ``aligned_weights``: the four weights as the kernel copies them, as
+  16-byte vectors, whatever the offset of their views in the flat
+  parameter vector, with their values unchanged (compared exactly)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from na_mpnn_tpu_torch.models.modules import MESSAGE_SCALE, gelu
 from na_mpnn_tpu_torch.ops import message_kernels as mk
 
-H, B, L = 32, 2, 37
+SOURCE = Path(mk.__file__).resolve().parent.parent / "csrc" / "message_table.cu"
 
 
 def test_tile_nodes_fill_the_tile_with_whole_nodes():
@@ -26,62 +27,34 @@ def test_tile_nodes_fill_the_tile_with_whole_nodes():
         assert tn == mk.MAX_TILE_NODES or (tn + 1) * K > mk.TILE_ROWS
 
 
-def tiled_forward(mode, h_V2, h_E2, table2, eidx2, m_att2, mbw2, wa, wb, b1,
-                  w2, b2, w3, b3, *, K, Lq, Lk):
-    """The kernel's decomposition into tiles of ``table_tile_nodes(K)``
-    nodes (the last one short), each node written by exactly one tile."""
-    N = h_V2.shape[0]
-    tn = mk.table_tile_nodes(K)
-    out = torch.full((N * K if mode == "enc_edge" else N, H), float("nan"),
-                     dtype=h_V2.dtype)
-    for n0 in range(0, N, tn):
-        nodes = min(tn, N - n0)
-        hv = torch.zeros((mk.MAX_TILE_NODES, H), dtype=h_V2.dtype)
-        hv[:nodes] = h_V2[n0:n0 + nodes]
-        ai = hv @ wa                                  # one padded 16-row block
-        rows = slice(n0 * K, (n0 + nodes) * K)
-        node = torch.arange(n0, n0 + nodes).repeat_interleave(K)
-        g = table2[(node // Lq) * Lk + eidx2[rows]]
-        x = ai[node - n0] + b1
-        e = h_E2[rows] @ wb
-        if mode == "dec":
-            m1, mb = m_att2[rows, None], mbw2[rows, None]
-            x = x + m1 * e + mb * g[:, :H] + m1 * g[:, H:]
-        else:
-            x = x + e + g
-        m = gelu(gelu(x) @ w2 + b2) @ w3 + b3
-        if mode == "enc_edge":
-            assert torch.isnan(out[rows]).all()
-            out[rows] = m
-            continue
-        if mode == "enc_node":
-            m = m * m_att2[rows, None]
-        assert torch.isnan(out[n0:n0 + nodes]).all()
-        out[n0:n0 + nodes] = m.view(nodes, K, H).sum(dim=1) / MESSAGE_SCALE
-    assert not torch.isnan(out).any()
-    return out
+def test_tile_constants_are_the_kernels():
+    """The kernel refuses a tile map outside its own constants (K up to
+    kTileRows, tn up to kMaxTileNodes, tn * K up to kTileRows)."""
+    text = SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("kTileRows") == mk.TILE_ROWS == mk.MAX_K
+    assert const("kMaxTileNodes") == mk.MAX_TILE_NODES
 
 
-@pytest.mark.parametrize("Lk", [L, 2 * L + 3])
-@pytest.mark.parametrize("K", [5, 24, 30, 48])
-@pytest.mark.parametrize("mode", ["enc_node", "enc_edge", "dec"])
-def test_tiled_forward_equals_the_plain_forward_float64(mode, K, Lk):
-    """K that do not divide 64 (5, 24, 30, 48), N = 74 nodes not a multiple
-    of any tile, and a table of Lk != L rows per structure (a shard's L
-    rows against the all-gathered structure)."""
-    rng = np.random.RandomState(K + Lk)
-    N = B * L
-    C = 2 * H if mode == "dec" else H
-
-    def f(*shape, scale=0.5):
-        return torch.from_numpy(rng.randn(*shape) * scale)
-
-    m_att = torch.from_numpy((rng.rand(N * K) > 0.2).astype(np.float64))
-    mbw = m_att * torch.from_numpy((rng.rand(N * K) > 0.5).astype(np.float64))
-    args = (mode, f(N, H), f(N * K, H), f(B * Lk, C),
-            torch.from_numpy(rng.randint(0, Lk, N * K).astype(np.int64)),
-            m_att, mbw, f(H, H, scale=H ** -0.5), f(H, H, scale=H ** -0.5), f(H),
-            f(H, H, scale=H ** -0.5), f(H), f(H, H, scale=H ** -0.5), f(H))
-    got = tiled_forward(*args, K=K, Lq=L, Lk=Lk)
-    want = mk.message_table_plain(*args, K=K, L=L, Lk=Lk)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+@pytest.mark.parametrize("H", [32, 128])
+@pytest.mark.parametrize("offset", [0, 1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aligned_weights(dtype, offset, H):
+    """Four [H, H] views one after another from ``offset`` elements into a
+    flat vector: left as they are when each starts 16-byte aligned, else
+    copied once, all aligned, with the same values."""
+    rng = np.random.RandomState(offset + H)
+    flat = torch.from_numpy(rng.randn(4 * H * H + 16)).to(dtype)
+    assert flat.data_ptr() % 16 == 0
+    views = tuple(flat[offset + i * H * H:offset + (i + 1) * H * H].view(H, H)
+                  for i in range(4))
+    got = mk.aligned_weights(*views)
+    assert all(w.data_ptr() % 16 == 0 for w in got)
+    for w, v in zip(got, views):
+        assert w.shape == (H, H) and w.dtype == dtype
+        assert torch.equal(w, v)
+    aligned = offset * flat.element_size() % 16 == 0
+    assert all((w.data_ptr() == v.data_ptr()) == aligned for w, v in zip(got, views))
