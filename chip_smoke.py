@@ -13,9 +13,9 @@ CUDA toolkit. Phases, each of which raises on failure:
    path's shapes: kNN (E_idx exact, also with the masked rows of
    ``--pad_to_bucket 32``), class-specialised RBF, the message table in
    its three modes and the fused layer updates (encoder node, decoder node,
-   encoder edge; at design's, score's and a packed batch-design group's
-   shape) (relative error < 1e-5; random masks, m1d = 0 on some decoder
-   edges, masked nodes in the group);
+   encoder edge; fp32 and bf16 at design's, score's and a packed
+   batch-design group's shape and on key rows) (relative error < 1e-5;
+   random masks, m1d = 0 on some decoder edges, masked nodes in the group);
 4. main path: the port's CLI on a synthetic protein-DNA PDB of 389
    residues with random full-width weights (H=128, K=32, 3+3 layers) in
    design, specificity and score mode, in design mode with
@@ -107,6 +107,21 @@ L=768 classed step, fp32 and bf16, is bitwise equal across two passes
 from the same state and generator, naming any leaf that is not. The
 earlier scalar-FMA times of rows 3, 4, 9 and 10 are printed as text beside
 this run's (``SCALAR_MS``), never in the kernels JSON line.
+
+Rows 11 and 12 (the fused layer updates, on row 9's tile walk with
+epilogues of their own) are held at both dtypes at B=1 and B=10 of the
+design structure, a packed group with masked nodes and edges, a 100-row
+shard against the structure's 389 key rows and eval_step's B=8 x L=768
+(bf16, and fp32 on the same widened operands): every output, and the node
+update's fp32 dh between its two launches, bitwise equal across two
+launches, both bf16 variants passing ``_check_rounding``, the bf16 dh
+off the bf16 grid (unrounded); the kernels' dynamic shared memory
+printed, and ``ptxas``'s
+registers and spills of every kernel by name. ``torch.profiler`` traces
+one encode at B=1 and one score call at B=10 (fp32) and one bf16 eval
+step: device ms per operation, the busy share, and rows 11 and 12's
+share. Their earlier
+scalar-FMA times are printed as text (``FMA_FUSED_MS``).
 
 Outputs go to ``build/chip_smoke/`` in the checkout.
 """
@@ -352,79 +367,190 @@ def _random_layer(cfg, seed, dev):
     return out
 
 
+# Rows 11 and 12 in their earlier scalar-FMA form, from PERF.md's kernel
+# table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W; fp32 at the design,
+# score and group shapes, bf16 at eval_step's): printed beside this run's
+# times as text, never part of the kernels JSON line.
+FMA_FUSED_MS = {
+    "fused_node_update_enc": {"design": 0.1164, "score": 0.5540, "group": 0.1552},
+    "fused_node_update_dec": {"design": 0.1125, "score": 0.5635, "group": 0.1589},
+    "fused_edge_update": {"design": 0.0706, "score": 0.5201, "group": 0.1309},
+    "fused_node_update_enc_bf16": {"eval_step": 0.8323},
+    "fused_node_update_dec_bf16": {"eval_step": 0.8393},
+    "fused_edge_update_bf16": {"eval_step": 0.8069},
+}
+
+
+def _fused_cases(pe, pd, ops, eidx2, K, L, Lk):
+    """The three fused layer updates on one set of operands (``ops``: h_V2,
+    h_E2, the H- and 2H-wide tables, m_att, m1d, mbw and the node mask) ->
+    {name: (call, kernel, plain, kind, C, message)}: ``call(f)`` runs ``f``
+    (the kernel's wrapper or its plain version) on them; ``message(plain)``
+    gives the node update's message part: the kernel's fp32 dh, the scratch
+    its second launch reads, or the plain message sum (None for the edge
+    update)."""
+    from na_mpnn_tpu_torch.ops import fused_layers as fl
+    h_V2, h_E2, tab, tab2, m_att, m1d, mbw, mask2 = ops
+    H = h_V2.shape[1]
+    kw = dict(K=K, L=L, Lk=Lk)
+
+    def node(args):
+        def message(plain):
+            if plain:
+                return fl.fused_node_message_plain(*args[:8], **kw)
+            return fl.fused_node_update_launch(*args, **kw)[1]
+        return (lambda f: f(*args, **kw)), message
+
+    enc, enc_msg = node(("enc", pe, h_V2, h_E2, tab, eidx2, m_att, None, mask2))
+    dec, dec_msg = node(("dec", pd, h_V2, h_E2, tab2, eidx2, m1d, mbw, mask2))
+    return {
+        "fused_node_update_enc": (enc, fl.fused_node_update_cuda,
+                                  fl.fused_node_update_plain, "node", H, enc_msg),
+        "fused_node_update_dec": (dec, fl.fused_node_update_cuda,
+                                  fl.fused_node_update_plain, "node", 2 * H, dec_msg),
+        "fused_edge_update": (lambda f: f(pe, h_V2, h_E2, tab, eidx2, **kw),
+                              fl.fused_edge_update_cuda, fl.fused_edge_update_plain,
+                              "edge", H, None),
+    }
+
+
+def _check_fused(name, tag, case, tol, fp32=None):
+    """One fused update held on the card: its output within ``tol`` of its
+    plain version (relative to the plain output's largest magnitude) and
+    bitwise equal across two launches; the node update's message part (its
+    fp32 dh) within ``tol`` of the plain message sum and bitwise across two
+    launches; at bf16 (``fp32``: the same update of
+    fp32 parameters on the widened operands) nearer its plain bf16 version
+    than the fp32 kernel (``_check_rounding``). Returns (relative error,
+    note, largest absolute error)."""
+    import torch
+    call, kernel, plain, _, _, message = case
+    out_k = call(kernel)
+    if not torch.equal(out_k, call(kernel)):
+        raise AssertionError(f"{name} {tag}: two launches differ")
+    out_p = call(plain)
+    err = _rel_err(out_k.float(), out_p.float())
+    if not err < tol:
+        raise AssertionError(f"{name} {tag}: relative error {err:.3g} (tol {tol:.3g})")
+    note = ", bitwise across two launches"
+    if message is not None:
+        dh = message(False)
+        if not torch.equal(dh, message(False)):
+            raise AssertionError(f"{name} {tag}: two launches of the message part differ")
+        dh_err = _rel_err(dh, message(True).float())
+        if not dh_err < tol:
+            raise AssertionError(f"{name} {tag}: message part (fp32 dh) relative "
+                                 f"error {dh_err:.3g} (tol {tol:.3g})")
+        note += f"; message part (fp32 dh) rel err {dh_err:.3g}, bitwise"
+        if fp32 is not None:
+            # at bf16 dh must reach the tail unrounded, as JAX carries it
+            # into LN1: an fp32 value is its own bf16 rounding about once in
+            # 2^16, so a dh rounded on the way out would show here as 1.0
+            kept = float((dh != dh.to(torch.bfloat16).float()).float().mean())
+            if not (dh.dtype == torch.float32 and kept > 0.5):
+                raise AssertionError(f"{name} {tag}: dh {dh.dtype}, only {kept:.3f} "
+                                     f"of it off the bf16 grid (rounded?)")
+            note += f", {kept:.3f} of dh off the bf16 grid (unrounded)"
+    if fp32 is not None:
+        note += ("; rms {:.3g} from plain vs {:.3g} from the fp32 kernel"
+                 .format(*_check_rounding(name, out_k, out_p, fp32[0](fp32[1]))))
+    return err, note, float((out_k.float() - out_p.float()).abs().max())
+
+
 def fused_kernel_phase(pdb):
     """The fused layer updates (rows 11, 12) against their plain versions on
-    the card: the encoder node update, the decoder node update and the edge
-    update at design's shape (B=1, L=389), score's (N = 3890) and one packed
-    batch-design group (two copies of the structure padded to 400 rows, so
-    masked nodes and masked edges); random operands, decoder masks m1d and
-    mbw random with mbw <= m1d. Passes at a relative error < 1e-5 (of the
-    plain output's max |value|). Returns the rows of the kernels JSON line
-    (design's shape)."""
+    the card, fp32 and bf16: the encoder node update, the decoder node
+    update and the edge update at design's shape (B=1, L=389), score's (N =
+    3890), one packed batch-design group (two copies of the structure padded
+    to 400 rows, so masked nodes and masked edges) and a 100-row shard of
+    the design structure against its 389 key rows (the graph-parallel
+    route's table of Lk rows); random operands, decoder masks m1d and mbw
+    random with mbw <= m1d. Each output is held by ``_check_fused``: fp32
+    at a relative error < 1e-5, bf16 < 2^-6 and ``_check_rounding``, every
+    output (and the node update's fp32 dh) bitwise across two launches, the
+    bf16 dh off the bf16 grid. Prints the kernels' dynamic shared memory. Returns the rows of the
+    kernels JSON line (fp32, design's shape)."""
     import torch
     from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.models.modules import cast_tree
     from na_mpnn_tpu_torch.ops import fused_layers as fl
     from na_mpnn_tpu_torch.ops import knn
+    from na_mpnn_tpu_torch.ops._build import library
 
     dev = torch.device("cuda")
+    bf = torch.bfloat16
     cfg = ModelConfig()
     H, K = cfg.hidden_dim, cfg.k_neighbors
     pe, pd = _random_layer(cfg, 6, dev)
+    pe16, pd16 = cast_tree(pe, bf), cast_tree(pd, bf)
     gen = torch.Generator(device=dev).manual_seed(6)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
-    for tag, n_copies, pad_to in (("design", 1, 0), ("score", 10, 0),
-                                  ("group", 2, 400)):
+    for tag, n_copies, pad_to, shard in (("design", 1, 0, None), ("score", 10, 0, None),
+                                         ("group", 2, 400, None),
+                                         ("key rows", 1, 0, (100, 200))):
         _, _, _, X_ref, mask = _structure(pdb, dev, n_copies, pad_to)
-        B, L = mask.shape
-        N = B * L
+        B, Lk = mask.shape
         _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
+        nb_mask = torch.gather(mask, 1, E_idx.reshape(B, -1)).reshape(B, Lk, K)
+        qmask = mask
+        if shard is not None:
+            E_idx, nb_mask, qmask = (t[:, shard[0]:shard[1]].contiguous()
+                                     for t in (E_idx, nb_mask, mask))
+        L = E_idx.shape[1]
+        N = B * L
         eidx2 = E_idx.reshape(-1).contiguous()
-        mask2 = mask.reshape(-1).contiguous()
-        nb_mask = torch.gather(mask, 1, E_idx.reshape(B, -1)).reshape(-1)
-        m_att = (mask2.repeat_interleave(K) * nb_mask).contiguous()
+        mask2 = qmask.reshape(-1).contiguous()
+        m_att = (mask2.repeat_interleave(K) * nb_mask.reshape(-1)).contiguous()
         m1d = mask2.repeat_interleave(K).contiguous()
         mbw = (m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5)).contiguous()
         if pad_to and not (float(mask2.min()) == 0.0 and float(m_att.min()) == 0.0):
             raise AssertionError("fused group case: no masked rows to check")
-        h_V2 = torch.randn((N, H), generator=gen, device=dev)
-        h_E2 = torch.randn((N * K, H), generator=gen, device=dev)
-        tab = torch.randn((N, H), generator=gen, device=dev)
-        tab2 = torch.randn((N, 2 * H), generator=gen, device=dev)
-        cases = {
-            "fused_node_update_enc": (
-                lambda f: f("enc", pe, h_V2, h_E2, tab, eidx2, m_att, None,
-                            mask2, K=K, L=L),
-                fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", H),
-            "fused_node_update_dec": (
-                lambda f: f("dec", pd, h_V2, h_E2, tab2, eidx2, m1d, mbw,
-                            mask2, K=K, L=L),
-                fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", 2 * H),
-            "fused_edge_update": (
-                lambda f: f(pe, h_V2, h_E2, tab, eidx2, K=K, L=L),
-                fl.fused_edge_update_cuda, fl.fused_edge_update_plain, "edge", H),
-        }
-        for name, (call, cuda, plain, kind, C) in cases.items():
-            out_k = call(cuda)
-            out_p = call(plain)
-            rel = _rel_err(out_k, out_p)
-            if not rel < REL_TOL:
-                raise AssertionError(f"{name} {tag} N={N}: rel err {rel:.3g}")
-            ms = _sync_time(lambda: call(cuda), 20)
-            plain_ms = _sync_time(lambda: call(plain), 5)
-            bound = _fused_bound(kind, N, K, H, C)
-            extra = ""
-            if kind == "node":
-                tile = fl.node_tile(N, torch.cuda.get_device_properties(dev)
-                                    .multi_processor_count)
-                extra = f", tile {tile}"
-            print(f"{name} {tag} N={N} K={K} H={H}: rel err {rel:.3g} (< {REL_TOL}), "
-                  f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by "
-                  f"{bound[1]}, {ms / bound[0]:.1f}x the bound){extra}", flush=True)
-            if tag == "design":
-                rows[name] = dict(max_abs_err=float((out_k - out_p).abs().max()),
-                                  ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                                  bound_by=bound[1])
-            del out_k, out_p
+        ops = [torch.randn((N, H), generator=gen, device=dev),
+               torch.randn((N * K, H), generator=gen, device=dev),
+               torch.randn((B * Lk, H), generator=gen, device=dev),
+               torch.randn((B * Lk, 2 * H), generator=gen, device=dev),
+               m_att, m1d, mbw, mask2]
+        ops16 = [t.to(bf) for t in ops]
+        cases = _fused_cases(pe, pd, ops, eidx2, K, L, Lk)
+        cases16 = _fused_cases(pe16, pd16, ops16, eidx2, K, L, Lk)
+        wide = _fused_cases(pe, pd, [t.float() for t in ops16], eidx2, K, L, Lk)
+        shape = f"B={B} L={L}" + (f" of Lk={Lk}" if shard else "") + f" N={N} K={K} H={H}"
+        for name, case in cases.items():
+            for low in (False, True):
+                c = cases16[name] if low else case
+                call, kernel, plain, kind, C, _ = c
+                err, note, max_err = _check_fused(
+                    name + ("_bf16" if low else ""), tag, c, BF16_TOL if low else REL_TOL,
+                    fp32=(wide[name][0], wide[name][1]) if low else None)
+                ms = _sync_time(lambda: call(kernel), 20)
+                plain_ms = _sync_time(lambda: call(plain), 5)
+                bound = (_fused_bound(kind, N, K, H, C, esize=2, peak=PEAK_BF16_FLOPS)
+                         if low else _fused_bound(kind, N, K, H, C))
+                if kind == "node":
+                    note += f"; tail tiles of {fl.tail_tile_rows(N, H, n_sm)} nodes"
+                earlier = FMA_FUSED_MS.get(name + ("_bf16" if low else ""), {}).get(tag)
+                if earlier is not None:
+                    note += f" (scalar-FMA form, PERF.md: {earlier} ms)"
+                print(f"{name}{'_bf16' if low else ''} {tag} {shape}: rel err {err:.3g} "
+                      f"(< {BF16_TOL if low else REL_TOL:.3g}){note}; {ms:.4f} ms "
+                      f"(plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}"
+                      f"{' at the bf16 peak' if low else ''}, {ms / bound[0]:.1f}x the "
+                      f"bound)", flush=True)
+                if tag == "design" and not low:
+                    rows[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound[0], bound_by=bound[1])
+    mt, fz = library("message_table"), library("fused_layers")
+    tail = {low: " / ".join(str(fz.fused_node_tail_smem(H, r, low)) for r in (16, 32, 64))
+            for low in (0, 1)}
+    print(f"fused layer updates, dynamic shared memory per block (H = {H}): the "
+          f"message walk (message_tile.cuh, as row 9's) fp32 "
+          f"{mt.message_table_forward_smem(H, H, 0)} B (dec "
+          f"{mt.message_table_forward_smem(H, 2 * H, 0)} B), bf16 "
+          f"{mt.message_table_forward_smem(H, H, 1)} B (dec "
+          f"{mt.message_table_forward_smem(H, 2 * H, 1)} B); the node update's tail "
+          f"at 16 / 32 / 64 nodes per tile fp32 {tail[0]} B, bf16 {tail[1]} B",
+          flush=True)
     return rows
 
 
@@ -449,9 +575,33 @@ def build_phase():
           flush=True)
     for name in _build.SOURCES:
         log = (out / f"{name}.log").read_text(errors="replace")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, regs, spill in _ptxas_kernels(log):
+            print(f"  ptxas {name} {kernel}: {regs}; {spill}")
+
+
+def _ptxas_kernels(log):
+    """(kernel, registers, spills) of every entry function in an ``nvcc
+    -Xptxas -v`` log, the names demangled by ``c++filt`` where the machine
+    has it."""
+    import re
+    found, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name is not None:
+            found.append([name, line.split(":", 1)[-1].strip(), spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(f[0] for f in found),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        for f, n in zip(found, names):
+            f[0] = n.replace("(anonymous namespace)::", "")
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return found
 
 
 def _structure(pdb, device, n_copies=1, pad_to=0):
@@ -789,6 +939,59 @@ def breakdown_phase(pdb):
           + f"; sampler {step:.3f} ms per decode step at B=1", flush=True)
 
 
+def _fused_profile_keys(H):
+    """The fused layer updates' kernels by their names in a profile, at
+    width H: row 11's two launches (the message walk with its fp32 K-sum
+    epilogue, the tail) and row 12's walk (the LayerNorm epilogue), the
+    walk's template arguments read from ``csrc/message_tile.cuh``."""
+    import re
+    src = open(os.path.join(ROOT, "na_mpnn_tpu_torch", "csrc", "message_tile.cuh")).read()
+    epi = {}
+    for name in ("kEpiSumF32", "kEpiEdgeLN"):
+        m = re.search(rf"\b{name} = (\d+)", src)
+        if m is None:
+            raise AssertionError(f"message_tile.cuh: no epilogue constant {name}")
+        epi[name] = int(m.group(1))
+    return {"row 11 message sum": f"fused_message_kernel<{H}, {epi['kEpiSumF32']},",
+            "row 11 tail": f"node_tail_kernel<{H},",
+            "row 12": f"fused_message_kernel<{H}, {epi['kEpiEdgeLN']},"}
+
+
+def _profile_call(fn, name, tag):
+    """One call of ``fn``, which runs the fused route at H = 128, under
+    ``torch.profiler`` (CPU and CUDA activity, after a warm-up call, ending
+    in a synchronise), its Chrome trace written to
+    ``build/chip_smoke/<name>.json``: prints the window, the device-busy
+    time and share, the top device operations, and the device ms and share
+    of busy time of rows 11 and 12 (``_fused_profile_keys``), failing when
+    one of them has no launch in the trace. Returns the device ms of each
+    of those groups."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT, f"{name}.json")
+    prof.export_chrome_trace(path)
+    window, busy, by_name = _trace_summary(path, 1)
+    print(f"{tag} profile (torch.profiler, one call): window {window:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / window:.1f}%), idle "
+          f"{100 * (1 - busy / window):.1f}%; top device operations:", flush=True)
+    for op, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"  {us / 1e3:8.3f} ms  {n:4d}x  {op[:90]}", flush=True)
+    groups = {}
+    for group, key in _fused_profile_keys(128).items():
+        hits = [(n, us) for op, (n, us) in by_name.items() if key in op]
+        if not hits:
+            raise AssertionError(f"{tag} profile: no {group} kernel ({key!r}) in the trace")
+        groups[group] = sum(us for _, us in hits) / 1e3
+        print(f"  {tag} {group}: {groups[group]:.3f} ms over {sum(n for n, _ in hits)} "
+              f"launches, {100 * groups[group] / busy:.1f}% of device busy", flush=True)
+    return groups
+
+
 def fused_vs_table_phase(pdb):
     """Encode at B=1 and score at B=10 (host clock, synchronised) on the
     fused route, and in turns the same calls with every layer sent to the
@@ -856,6 +1059,10 @@ def fused_vs_table_phase(pdb):
           f"{f_ms[1][1]:.3f} ms vs table {t_ms[0][1]:.3f}, {t_ms[1][1]:.3f} ms; "
           f"score log-probs of the two routes max |d| {d:.3g} (< 1e-4)",
           flush=True)
+    _profile_call(lambda: encode(params, cfg, batch), "encode_profile",
+                  f"encode B=1 L={L} fp32 (fused route)")
+    _profile_call(lambda: score(params, cfg, tiled, decoding_order=order),
+                  "score_profile", f"score B=10 L={L} fp32 (fused route)")
     return res[0][1]
 
 
@@ -1540,33 +1747,39 @@ def bf16_kernel_phase(nb):
             ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
         del got, again, want, g32, out_k, out_p, x_k, x_p
 
-    # rows 11 and 12 at eval_step's shape, bf16 parameters as the model casts them
-    pe, pd = (cast_tree(p, bf) for p in _random_layer(cfg, 6, dev))
+    # rows 11 and 12 at eval_step's shape, bf16 parameters as the model casts
+    # them; and the fp32 kernels on the same (widened) operands
+    pe, pd = _random_layer(cfg, 6, dev)
     mask2 = mask.reshape(-1).contiguous()
     nb_mask = torch.gather(mask, 1, E_idx.reshape(B, -1)).reshape(-1)
     m_att = (mask2.repeat_interleave(K) * nb_mask).to(bf).contiguous()
     m1d = mask2.repeat_interleave(K).to(bf).contiguous()
     mbw = (m1d * (torch.rand((N * K,), generator=gen, device=dev) > 0.5).to(bf))
-    mask2 = mask2.to(bf)
-    tab = torch.randn((N, H), generator=gen, device=dev).to(bf)
-    tab2 = torch.randn((N, 2 * H), generator=gen, device=dev).to(bf)
-    cases = {
-        "fused_node_update_enc_bf16": (
-            lambda f: f("enc", pe, h_V2, h_E2, tab, eidx2, m_att, None, mask2,
-                        K=K, L=L),
-            fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", H),
-        "fused_node_update_dec_bf16": (
-            lambda f: f("dec", pd, h_V2, h_E2, tab2, eidx2, m1d, mbw, mask2,
-                        K=K, L=L),
-            fl.fused_node_update_cuda, fl.fused_node_update_plain, "node", 2 * H),
-        "fused_edge_update_bf16": (
-            lambda f: f(pe, h_V2, h_E2, tab, eidx2, K=K, L=L),
-            fl.fused_edge_update_cuda, fl.fused_edge_update_plain, "edge", H),
-    }
-    for name, (call, cuda, plain, kind, C) in cases.items():
-        row(name, call(cuda), call(plain), BF16_TOL, lambda: call(cuda),
+    ops16 = [h_V2, h_E2, torch.randn((N, H), generator=gen, device=dev).to(bf),
+             torch.randn((N, 2 * H), generator=gen, device=dev).to(bf),
+             m_att, m1d, mbw, mask2.to(bf)]
+    cases16 = _fused_cases(cast_tree(pe, bf), cast_tree(pd, bf), ops16, eidx2, K, L, L)
+    wide = _fused_cases(pe, pd, [t.float() for t in ops16], eidx2, K, L, L)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, case in cases16.items():
+        call, kernel, plain, kind, C, _ = case
+        _, note, _ = _check_fused(name + "_bf16", "eval_step", case, BF16_TOL,
+                                  fp32=(wide[name][0], wide[name][1]))
+        extra = ("" if kind == "edge"
+                 else f"; tail tiles of {fl.tail_tile_rows(N, H, n_sm)} nodes")
+        row(name + "_bf16", call(kernel), call(plain), BF16_TOL, lambda: call(kernel),
             lambda: call(plain),
-            _fused_bound(kind, N, K, H, C, esize=2, peak=PEAK_BF16_FLOPS), 10)
+            _fused_bound(kind, N, K, H, C, esize=2, peak=PEAK_BF16_FLOPS), 10,
+            f"{note}{extra} (scalar-FMA form, PERF.md: "
+            f"{FMA_FUSED_MS[name + '_bf16']['eval_step']} ms)")
+        call, kernel, plain, kind, C, _ = wide[name]
+        err, note, _ = _check_fused(name, "eval_step fp32", wide[name], REL_TOL)
+        ms = _sync_time(lambda: call(kernel), 10)
+        plain_ms = _sync_time(lambda: call(plain), 2)
+        bound = _fused_bound(kind, N, K, H, C)
+        print(f"{name} (fp32) B={B} L={L} K={K} H={H}: rel err {err:.3g} (< {REL_TOL})"
+              f"{note}; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.5f} ms by {bound[1]}, {ms / bound[0]:.1f}x)", flush=True)
     return rows
 
 
@@ -1957,6 +2170,8 @@ def bf16_training_phase(nb, fp32_ms, fp32_peak):
     if eval_counts != eval_want:
         raise AssertionError(f"bf16 eval step launches {eval_counts}, want {eval_want}")
     total = dict(LAUNCHES)
+    _profile_call(lambda: trainer.eval_step(nb), "eval_bf16_profile",
+                  "bf16 eval step B=8 L=768")
     median = float(np.median(step_ms[1:]))
     print(f"bf16 training B=8 L=768 K=32 H=128: {median:.2f} ms per train step "
           f"(median of steps 2-5, host clock, synchronised; all: "

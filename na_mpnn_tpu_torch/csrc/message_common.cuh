@@ -1,10 +1,12 @@
 // What the message kernels share: the exact erf GELU and its derivative
-// and the mode codes (the message-table forward and backward,
-// message_table.cu and message_table_bwd.cu: the backward resumes from the
-// forward's pre-GELU x, so both must compute GELU alike), and the tiling
-// and tile-by-weight product of the message MLP kernels and the fused layer
-// updates (message_mlp*.cu, fused_layers.cu).
-// The weights of a product are fp32 or bf16 (precision.cuh); the tile's
+// and the mode codes (the message-table forward and backward and the fused
+// layer updates, message_tile.cuh, message_table_bwd.cu, fused_layers.cu:
+// the backward resumes from the forward's pre-GELU x, so all must compute
+// GELU alike), and the tiling and scalar-FMA tile-by-weight product gemm<H>
+// of the pre-gathered message MLP kernels (message_mlp.cu,
+// message_mlp_bwd.cu, rows 7 and 8), its only users: every other message
+// kernel runs its products on the tensor cores (mma.cuh).
+// The weights of gemm<H> are fp32 or bf16 (precision.cuh); the tile's
 // activations are fp32 in shared memory, already rounded to bf16 where the
 // bf16 trunk feeds them to a product.
 #pragma once

@@ -1,6 +1,7 @@
 // Warp-level tensor-core products for Hopper (sm_90a), shared by the
-// message-table forward and backward (message_table.cu, message_table_bwd.cu)
-// and the classed RBF forward and weight gradient (rbf_classed.cu,
+// message-table forward and backward (message_tile.cuh, message_table.cu,
+// message_table_bwd.cu), the fused layer updates (fused_layers.cu) and the
+// classed RBF forward and weight gradient (rbf_classed.cu,
 // rbf_classed_dw.cu).
 //
 // bf16: mma.sync m16n8k16, bf16 operands, fp32 accumulators; what each
@@ -98,6 +99,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 // Two bf16 elements at p (4-byte aligned) as one register.
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -142,6 +151,15 @@ __device__ __forceinline__ void frag_b2_bf16_trans(uint32_t (&b)[4],
                            ((mat >> 1) << 3));
 }
 
+// bf16 B fragment of the n-tile n0 at k0 from S [k][n] row-major in shared
+// memory (row stride ld, 16-byte aligned rows).
+__device__ __forceinline__ void frag_b_bf16_trans(uint32_t (&b)[2],
+                                                  const __nv_bfloat16* S,
+                                                  int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31, mat = (lane >> 3) & 1, j = lane & 7;
+  ldmatrix_x2_trans(b, S + (k0 + j + (mat << 3)) * ld + n0);
+}
+
 // acc[j] = A[16 rb .. +16, :] @ B[:, cb + 8j .. +8] for a warp's NT n-tiles,
 // with A [rows][lda<bf16>(H)] and the weight Bs [n][k] (row stride H + 8) in
 // shared memory.
@@ -160,6 +178,27 @@ __device__ __forceinline__ void product(const bf16* A, const bf16* Bs, int rb,
     for (int j = 0; j < NT; ++j) {
       const bf16* b = Bs + (cb + 8 * j + g) * LB + k0 + 2 * t;
       mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
+    }
+  }
+}
+
+// The same with the weight B [k][n] (row stride H + 8) in shared memory, as
+// cp.async copies it from a row-major [in, out] weight.
+template <int H, int NT>
+__device__ __forceinline__ void product_kn(const bf16* A, const bf16* B, int rb,
+                                           int cb, float (&acc)[NT][4]) {
+  constexpr int LA = lda<bf16>(H), LB = H + 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    uint32_t a[4];
+    frag_a_bf16(a, A, LA, 16 * rb, k0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t b[2];
+      frag_b_bf16_trans(b, B, LB, cb + 8 * j, k0);
+      mma_bf16(acc[j], a, b[0], b[1]);
     }
   }
 }

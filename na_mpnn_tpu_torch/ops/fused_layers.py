@@ -24,20 +24,35 @@ as the layer's dict (``W1..W3``, ``norm1``, ``dense``, ``norm2``; ``W11..W13``,
 ``norm3``). No gradient flows through the kernels: the model takes them
 only for layers without dropout under no gradient (``models/mpnn.py``).
 
+Both kernels run the message-table forward's tile walk
+(``csrc/message_tile.cuh``: a persistent grid over 64-row tiles of
+``table_tile_nodes(K)`` whole nodes, the products on the tensor cores, bf16
+``mma.sync`` or 3xTF32 at fp32) with epilogues of their own; ``h_E2`` and
+``table2`` must start 16-byte aligned. The edge update normalises from the
+products' fragments. The node update is two launches in one call, split as
+its plain version is: the message sum (``fused_node_message_plain``) into
+an fp32 ``dh [N,H]`` scratch, then the tail (``fused_node_tail_plain``:
+LN1, the feed-forward block on the tensor cores, LN2, the mask) over tiles
+of ``tail_tile_rows`` nodes; it counts as one launch. Every output is the
+same on every launch.
+
 bf16 operands (the bf16 trunk's ``Trainer.eval_step``) select the TPU
 kernels' bf16 branch: every product on bf16 operands summed in fp32, the
-message sum, both LayerNorms (statistics included) and the feed-forward
-activations in fp32, bf16 outputs (``fused_layers.py:47-59``, ``:170``,
-``:212``); the kernels' ``*_bf16`` entries, counted under ``<name>_bf16``.
+message sum (``dh``), both LayerNorms (statistics included) and the
+feed-forward activations in fp32, bf16 outputs (``fused_layers.py:47-59``,
+``:170``, ``:212``); the kernels' ``*_bf16`` entries, counted under
+``<name>_bf16``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from . import LAUNCHES, check_operand, raise_on_error
-from .message_kernels import _check_mode, _dtype_of, _weights, message_table_acc
+from . import LAUNCHES, check_aligned, check_operand, raise_on_error
+from .message_kernels import (_check_mode, _dtype_of, _weights, aligned_weights,
+                              message_table_acc, table_tile_nodes)
 from ..models.modules import layer_norm, pff_acc, widen
 
 NODE_MODES = {"enc": ("enc_node", 0), "dec": ("dec", 2)}
@@ -49,19 +64,36 @@ def _node_mode(mode):
     return NODE_MODES[mode]
 
 
-def fused_node_update_plain(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
-                            mbw2, mask2, *, K, L, Lk=None):
-    """Plain version of the node-update kernel (same arguments, same
-    output)."""
+def fused_node_message_plain(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
+                             mbw2, *, K, L, Lk=None):
+    """Plain version of the node update's message part (the kernel's first
+    launch): ``dh [N,H]`` in the accumulation type (fp32 for bf16
+    operands), unrounded, as the JAX kernel carries it into LN1."""
     msg_mode, _ = _node_mode(mode)
     mbw2 = mask_att2 if mbw2 is None else mbw2
-    low = h_V2.dtype == torch.bfloat16
     dh, _ = message_table_acc(msg_mode, h_V2, h_E2, table2, eidx2, mask_att2,
                               mbw2, *_weights(p, h_V2.shape[1], "W1", "W2", "W3"),
                               K=K, L=L, Lk=Lk)
+    return dh
+
+
+def fused_node_tail_plain(p, h_V2, dh, mask2):
+    """Plain version of the node update's tail (the kernel's second
+    launch): ``LN1(h_V + dh)``, the feed-forward block, ``LN2`` of the
+    residual, times the node mask; ``[N,H]`` in ``h_V2``'s type."""
+    low = h_V2.dtype == torch.bfloat16
     h = layer_norm(p["norm1"], widen(h_V2) + dh)
     h = layer_norm(p["norm2"], h + pff_acc(p["dense"], h, low))
     return (widen(mask2)[:, None] * h).to(h_V2.dtype)
+
+
+def fused_node_update_plain(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
+                            mbw2, mask2, *, K, L, Lk=None):
+    """Plain version of the node-update kernel (same arguments, same
+    output): the tail applied to the message part's dh."""
+    dh = fused_node_message_plain(mode, p, h_V2, h_E2, table2, eidx2,
+                                  mask_att2, mbw2, K=K, L=L, Lk=Lk)
+    return fused_node_tail_plain(p, h_V2, dh, mask2)
 
 
 def fused_edge_update_plain(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None):
@@ -74,10 +106,37 @@ def fused_edge_update_plain(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None):
     return layer_norm(p["norm3"], widen(h_E2) + m).to(h_E2.dtype)
 
 
-def node_tile(N, n_sm):
-    """Nodes per block of the node-update kernel: 4 where that still gives
-    each of the card's ``n_sm`` SMs a block, else 2."""
-    return 4 if -(-N // 4) >= n_sm else 2
+# Nodes per tile of the node update's tail (csrc/fused_layers.cu:
+# node_tail_kernel<H, RB>, 16 * RB rows for RB in 4, 2, 1).
+TAIL_ROWS = (64, 32, 16)
+
+
+def tail_tile_rows(N, H, n_sm):
+    """Nodes per tile of the node update's tail for N nodes on ``n_sm``
+    SMs: of ``TAIL_ROWS`` those of at least ``2048 // H`` rows (each of the
+    kernel's 16 warps owns 8 columns or more), the one whose persistent
+    grid takes the fewest rounds, each round costed as ``rows + 16`` (a
+    tile's fixed cost, the weights it streams, counted as 16 rows); a tie
+    goes to the larger tile, which streams the weights fewer times."""
+    best, best_cost = None, None
+    for rows in TAIL_ROWS:
+        if rows * H < 2048:
+            continue
+        cost = -(-N // (rows * n_sm)) * (rows + 16)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = rows, cost
+    return best
+
+
+@functools.cache
+def _entry(name, argtypes):
+    """A kernel entry of ``csrc/fused_layers.cu`` with its ctypes
+    signature (set once)."""
+    from ._build import library
+    fn = getattr(library("fused_layers"), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk, C, H):
@@ -86,6 +145,8 @@ def _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk, C, H):
     check_operand(h_E2, "h_E2", dt, (N * K, H))
     check_operand(table2, "table2", dt, (N // L * Lk, C))
     check_operand(eidx2, "eidx2", torch.int64, (N * K,))
+    check_aligned(h_E2, "h_E2")
+    check_aligned(table2, "table2")
     return dt, sfx
 
 
@@ -101,18 +162,25 @@ def _check_weights(p, H, names, norms, dt):
             check_operand(p[name][k], f"{name}.{k}", dt, (H,))
 
 
-def fused_node_update_cuda(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
-                           mbw2, mask2, *, K, L, Lk=None):
-    """Launch the node-update kernel on CUDA tensors, all fp32 or all bf16
-    (parameters included)."""
-    from ._build import library, ptr, stream_ptr
+_NODE_ARGS = ((ctypes.c_int,) + (ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 8
+              + (ctypes.c_void_p,))
+_EDGE_ARGS = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+
+
+def fused_node_update_launch(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
+                             mbw2, mask2, *, K, L, Lk=None):
+    """The node-update kernel's two launches on CUDA tensors, all fp32 or
+    all bf16 (parameters included) -> ``(out, dh)``, ``dh`` the fp32
+    scratch between them (the message sum); counted once under
+    ``fused_node_update_<mode>[_bf16]``. ``h_E2`` and ``table2`` must start
+    16-byte aligned; weights that do not are copied here."""
+    from ._build import ptr, stream_ptr
 
     msg_mode, code = _node_mode(mode)
     N, H = h_V2.shape
     Lk = L if Lk is None else Lk
     _check_mode(msg_mode, N, K, L, H)
     dev = h_V2.device
-    tile = node_tile(N, torch.cuda.get_device_properties(dev).multi_processor_count)
     mbw2 = mask_att2 if mbw2 is None else mbw2
     dt, sfx = _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk,
                                       2 * H if mode == "dec" else H, H)
@@ -126,26 +194,35 @@ def fused_node_update_cuda(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
     check_operand(d["W_out"]["w"], "dense.W_out.w", dt, (4 * H, H))
     check_operand(d["W_out"]["b"], "dense.W_out.b", dt, (H,))
     wa, wb, b1, w2, b2, w3, b3 = _weights(p, H, "W1", "W2", "W3")
+    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+    w_in, = aligned_weights(d["W_in"]["w"])
+    w_out, = aligned_weights(d["W_out"]["w"])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    dh = torch.empty((N, H), dtype=torch.float32, device=dev)
     out = torch.empty((N, H), dtype=dt, device=dev)
-    fn = getattr(library("fused_layers"), "fused_node_update" + sfx)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 23
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, mask2, wa, wb, b1,
                w2, b2, w3, b3, p["norm1"]["scale"], p["norm1"]["bias"],
-               d["W_in"]["w"], d["W_in"]["b"], d["W_out"]["w"], d["W_out"]["b"],
-               p["norm2"]["scale"], p["norm2"]["bias"], out)
-    err = fn(code, *[ptr(t) for t in tensors], N, K, L, Lk, H, tile,
-             stream_ptr(dev))
+               w_in, d["W_in"]["b"], w_out, d["W_out"]["b"], p["norm2"]["scale"], p["norm2"]["bias"], dh, out)
+    fn = _entry("fused_node_update" + sfx, _NODE_ARGS)
+    err = fn(code, *[ptr(t) for t in tensors], N, K, L, Lk, H,
+             table_tile_nodes(K), n_sm, tail_tile_rows(N, H, n_sm), stream_ptr(dev))
     raise_on_error(err, "fused_node_update" + sfx)
     LAUNCHES[f"fused_node_update_{mode}{sfx}"] += 1
+    return out, dh
+
+
+def fused_node_update_cuda(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
+                           mbw2, mask2, *, K, L, Lk=None):
+    """Launch the node-update kernel on CUDA tensors (both of its launches,
+    ``fused_node_update_launch``) -> ``[N,H]``."""
+    out, _ = fused_node_update_launch(mode, p, h_V2, h_E2, table2, eidx2,
+                                      mask_att2, mbw2, mask2, K=K, L=L, Lk=Lk)
     return out
 
 
 def fused_edge_update_cuda(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None):
-    """Launch the edge-update kernel on CUDA tensors, all fp32 or all
-    bf16."""
-    from ._build import library, ptr, stream_ptr
+    """Launch the edge-update kernel on CUDA tensors, all fp32 or all bf16."""
+    from ._build import ptr, stream_ptr
 
     N, H = h_V2.shape
     Lk = L if Lk is None else Lk
@@ -154,13 +231,15 @@ def fused_edge_update_cuda(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None):
                                       H, H)
     _check_weights(p, H, ("W11", "W12", "W13"), ("norm3",), dt)
     wa, wb, b1, w2, b2, w3, b3 = _weights(p, H, "W11", "W12", "W13")
-    out = torch.empty((N * K, H), dtype=dt, device=h_V2.device)
-    fn = getattr(library("fused_layers"), "fused_edge_update" + sfx)
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+    dev = h_V2.device
+    out = torch.empty((N * K, H), dtype=dt, device=dev)
     tensors = (h_V2, h_E2, table2, eidx2, wa, wb, b1, w2, b2, w3, b3,
                p["norm3"]["scale"], p["norm3"]["bias"], out)
-    err = fn(*[ptr(t) for t in tensors], N, K, L, Lk, H, stream_ptr(h_V2.device))
+    fn = _entry("fused_edge_update" + sfx, _EDGE_ARGS)
+    err = fn(*[ptr(t) for t in tensors], N, K, L, Lk, H, table_tile_nodes(K),
+             torch.cuda.get_device_properties(dev).multi_processor_count,
+             stream_ptr(dev))
     raise_on_error(err, "fused_edge_update" + sfx)
     LAUNCHES["fused_edge_update" + sfx] += 1
     return out

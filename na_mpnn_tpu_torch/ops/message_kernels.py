@@ -127,11 +127,12 @@ def table_tile_nodes(K):
 
 
 def aligned_weights(*ws):
-    """The weights as the forward kernel reads them, as 16-byte vectors:
+    """The weights as the forward kernels read them, as 16-byte vectors:
     the same tensors when each starts 16-byte aligned, else one aligned
     copy of all of them (views at any offset of the flat parameter vector).
-    Each is ``[H, H]`` with H in (32, 64, 128), so every slice of the copy
-    starts a multiple of 2 KB after its aligned start."""
+    They share one shape, ``[H, H]`` with H in (32, 64, 128) when there are
+    several, so every slice of the copy starts a multiple of 2 KB after its
+    aligned start."""
     if all(w.data_ptr() % 16 == 0 for w in ws):
         return ws
     return torch.stack(ws).unbind(0)

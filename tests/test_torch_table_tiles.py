@@ -1,5 +1,6 @@
-"""What the message-table forward kernel (``csrc/message_table.cu``) takes
-from its wrapper (``ops/message_kernels.py::message_table_cuda``), held on
+"""What the message-table forward kernel (``csrc/message_table.cu``, its
+tile walk ``csrc/message_tile.cuh``) takes from its wrapper
+(``ops/message_kernels.py::message_table_cuda``), held on
 the CPU, where the kernel itself does not run:
 
 - the tile map ``table_tile_nodes(K)``: tiles of whole nodes, at most 64
@@ -17,7 +18,7 @@ import torch
 
 from na_mpnn_tpu_torch.ops import message_kernels as mk
 
-SOURCE = Path(mk.__file__).resolve().parent.parent / "csrc" / "message_table.cu"
+SOURCE = Path(mk.__file__).resolve().parent.parent / "csrc" / "message_tile.cuh"
 
 
 def test_tile_nodes_fill_the_tile_with_whole_nodes():
