@@ -10,8 +10,11 @@ CUDA toolkit. Phases, each of which raises on failure:
 2. build: compiles ``na_mpnn_tpu_torch/csrc/*.cu`` (one nvcc per source, in
    parallel) and prints the seconds;
 3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes: kNN (E_idx exact, also with the masked rows of
-   ``--pad_to_bucket 32``), class-specialised RBF, the message table in
+   path's shapes: kNN (E_idx and D exact, also with the masked rows of
+   ``--pad_to_bucket 32``, and on ``_knn_cases``: exact ties, masked rows
+   and interleaved masked keys, Lk < k, Lk = k, k = 48, 200 and Lk = 150,
+   9000 keys streamed in tiles, fractional masks; non-finite coordinates
+   against the rule the kernel's header states), class-specialised RBF, the message table in
    its three modes and the fused layer updates (encoder node, decoder node,
    encoder edge; fp32 and bf16 at design's, score's and a packed
    batch-design group's shape and on key rows) (relative error < 1e-5;
@@ -34,7 +37,9 @@ CUDA toolkit. Phases, each of which raises on failure:
 5. training: 8 synthetic protein-DNA structures of 600-768 residues through
    ``parse_pdb`` and ``collate_batch`` (B=8, L=768, K=32: 196,608 edges);
    at that shape, the kernels of the training step against their plain
-   versions (kNN's E_idx exact; the RBF projection, the message table with
+   versions (kNN's E_idx and D exact, and ``torch.topk`` on the prebuilt
+   masked distance matrix timed beside it as the selection alone by a
+   library call; the RBF projection, the message table with
    its saved ``x``, its backward in three modes, the RBF weight gradient;
    relative error < 1e-5 on rows and nodes, < 1e-4 on sums over
    all edges; every output of the two backward kernels bitwise equal
@@ -102,9 +107,11 @@ equal to its output with x, both bf16 variants pass ``_check_rounding``
 ``edge_list_codes``, and the new kernels' dynamic shared memory is
 printed beside ``ptxas``'s registers and spills. The token embedding's
 gradient (a one-hot product) is held bitwise equal across two backward
-passes, and the run prints whether the whole flat gradient of one B=8 x
-L=768 classed step, fp32 and bf16, is bitwise equal across two passes
-from the same state and generator, naming any leaf that is not. The
+passes, and the whole flat gradient of one step is held bitwise equal
+across two passes from the same state and generator (``_grads_twice``,
+which raises naming the leaves that differ) on the classed B=8 x L=768
+step and the unbucketed B=8 x L=750 step (the gathered decoder, whose
+context gather sums its gradient in a fixed order), each at fp32 and bf16. The
 earlier scalar-FMA times of rows 3, 4, 9 and 10 are printed as text beside
 this run's (``SCALAR_MS``), never in the kernels JSON line.
 
@@ -120,7 +127,8 @@ printed, and ``ptxas``'s
 registers and spills of every kernel by name. ``torch.profiler`` traces
 one encode at B=1 and one score call at B=10 (fp32) and one bf16 eval
 step: device ms per operation, the busy share, and rows 11 and 12's
-share. Their earlier
+share and the kNN's. The query/key kNN (row 2) meets ``_knn_cases`` too,
+for a shard of query rows a third of the way into each structure. Their earlier
 scalar-FMA times are printed as text (``FMA_FUSED_MS``).
 
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -620,6 +628,120 @@ def _structure(pdb, device, n_copies=1, pad_to=0):
     return batch, X_aug, X_m_aug, X_ref, batch["mask"].float()
 
 
+def _walk(B, L, seed, step=3.8):
+    """``[B, L, 3]`` float32 random walks of ``step`` A (a chain's residue
+    centres)."""
+    rng = np.random.RandomState(seed)
+    d = rng.randn(B, L, 3)
+    return np.cumsum(step * d / np.linalg.norm(d, axis=-1, keepdims=True),
+                     1).astype(np.float32)
+
+
+def _knn_cases():
+    """The kNN's tie-heavy and edge cases, (tag, X [B,L,3], mask [B,L], K)
+    in numpy float32: duplicated coordinates on an integer grid (exact ties)
+    with masked query rows (padding of B=3 structures of 300, 257 and 100
+    residues) and every fifth key masked; Lk < k and Lk = k; k = 48 (four
+    slots a lane), k = 200 and k = Lk = 150 (rounds of 128); Lk = 9000
+    (keys streamed in tiles); fractional masks (the general form)."""
+    rng = np.random.RandomState(11)
+    grid = rng.randint(0, 4, (3, 300, 3)).astype(np.float32)
+    m = np.zeros((3, 300), np.float32)
+    for b, n in enumerate((300, 257, 100)):
+        m[b, :n] = 1
+    m[:, ::5] = 0
+    cases = [("ties, masked rows and keys, B=3", grid, m, 32)]
+    short = _walk(2, 20, 1)
+    ms = np.ones((2, 20), np.float32)
+    ms[1, 13:] = 0
+    cases.append(("Lk < k (L=20)", short, ms, 32))
+    cases.append(("Lk = k (L=32)", _walk(1, 32, 2), np.ones((1, 32), np.float32), 32))
+    walk = _walk(2, 389, 3)
+    mw = np.ones((2, 389), np.float32)
+    mw[0, 300:] = 0
+    mw[1, 7::11] = 0
+    cases.append(("k=48", walk, mw, 48))
+    cases.append(("k=200", walk, mw, 200))
+    cases.append(("k = Lk = 150", walk[:, :150].copy(), mw[:, :150].copy(), 150))
+    big = _walk(1, 9000, 4)
+    mb = np.ones((1, 9000), np.float32)
+    mb[0, 8500:] = 0
+    mb[0, 100::97] = 0
+    cases.append(("tiled keys (Lk=9000)", big, mb, 32))
+    cases.append(("fractional masks", walk, rng.rand(2, 389).astype(np.float32), 32))
+    return cases
+
+
+def knn_hard_cases(qk=False):
+    """The kNN kernel against its plain version on the card on
+    ``_knn_cases``: ``knn_forward``, or with ``qk`` ``knn_qk_forward`` for a
+    shard of query rows a third of the way into each structure (a shard
+    that starts mid-structure); ``E_idx`` and ``D`` equal exactly."""
+    import torch
+    from na_mpnn_tpu_torch.ops import knn
+    dev = torch.device("cuda")
+    name = "knn_qk" if qk else "knn"
+    for tag, X, mask, K in _knn_cases():
+        X, mask = torch.from_numpy(X).to(dev), torch.from_numpy(mask).to(dev)
+        B, L = mask.shape
+        if qk:
+            s0, n = L // 3, max(1, L // 3)
+            Xq, mq = X[:, s0:s0 + n].contiguous(), mask[:, s0:s0 + n].contiguous()
+        else:
+            Xq, mq = X, mask
+        D_k, E_k = knn.knn_graph_qk_cuda(Xq, X, mq, mask, K) if qk else \
+            knn.knn_graph_cuda(X, mask, K)
+        D_p, E_p = knn.knn_graph_qk_plain(Xq, X, mq, mask, K)
+        if not (torch.equal(E_k, E_p) and torch.equal(D_k, D_p)):
+            raise AssertionError(f"{name} {tag}: E_idx or D differs from the plain version")
+        print(f"{name} {tag}: B={B} Lq={Xq.shape[1]} Lk={L} K={K} (k={E_k.shape[-1]}): "
+              f"E_idx and D exact", flush=True)
+
+
+def _knn_rule(X, mask, k, eps=1e-6):
+    """What the kNN kernel's header states for non-finite values: the
+    finite adjusted values ascending (ties to the lower key), then (+inf,
+    j*) for every slot left, j* the lowest key whose value is not NaN."""
+    import torch
+    inf = float("inf")
+    m2 = mask[:, :, None] * mask[:, None, :]
+    dX = X[:, :, None, :] - X[:, None, :, :]
+    d2 = dX[..., 0] * dX[..., 0] + dX[..., 1] * dX[..., 1]
+    d2 = d2 + dX[..., 2] * dX[..., 2]
+    D = m2 * torch.sqrt(d2 + eps)
+    D_max = torch.where(torch.isnan(D), -inf, D).amax(-1, keepdim=True)
+    v = D + (1.0 - m2) * D_max
+    finite = v < inf
+    vals, idx = torch.sort(torch.where(finite, v, inf), dim=-1, stable=True)
+    L = X.shape[1]
+    keys = torch.arange(L, device=X.device)
+    jstar = torch.where(torch.isnan(v), L, keys).amin(-1, keepdim=True)
+    slot = torch.arange(k, device=X.device)
+    fill = slot < finite.sum(-1, keepdim=True)
+    return (torch.where(fill, vals[..., :k], inf),
+            torch.where(fill, idx[..., :k], jstar))
+
+
+def knn_nonfinite_check():
+    """The kNN kernel on coordinates with NaN and inf (rows with fewer
+    finite values than k among them) against ``_knn_rule``, exactly."""
+    import torch
+    from na_mpnn_tpu_torch.ops import knn
+    X = torch.from_numpy(_walk(2, 64, 5)).cuda()
+    mask = torch.ones((2, 64), device="cuda")
+    X[0, 3, 0] = float("nan")
+    X[0, 17, 1] = float("inf")
+    X[1, :50, 2] = float("nan")
+    mask[1, 60] = 0
+    for K in (8, 40):
+        D_k, E_k = knn.knn_graph_cuda(X, mask, K)
+        D_r, E_r = _knn_rule(X, mask, K)
+        if not (torch.equal(E_k, E_r) and torch.equal(D_k, D_r)):
+            raise AssertionError(f"knn non-finite K={K}: differs from the stated rule")
+        print(f"knn non-finite coordinates B=2 L=64 K={K}: E_idx and D as the "
+              "kernel's header states", flush=True)
+
+
 def kernel_phase(pdb):
     """Each kernel against its plain version on the card; returns the
     measured numbers of each kernel at the design shape (B=1)."""
@@ -647,18 +769,20 @@ def kernel_phase(pdb):
             raise AssertionError(f"knn {tag}: no masked rows to check")
         D_k, E_k = knn.knn_graph_cuda(X_ref, mask, K)
         D_p, E_p = knn.knn_graph_plain(X_ref, mask, K)
-        if not torch.equal(E_k, E_p):
-            raise AssertionError(f"knn {tag}: E_idx differs from the plain version")
+        if not (torch.equal(E_k, E_p) and torch.equal(D_k, D_p)):
+            raise AssertionError(f"knn {tag}: E_idx or D differs from the plain version")
         err = float((D_k - D_p).abs().max())
         ms = _sync_time(lambda: knn.knn_graph_cuda(X_ref, mask, K), 20)
         plain_ms = _sync_time(lambda: knn.knn_graph_plain(X_ref, mask, K), 5)
         bound = _knn_bound(B, L, K)
-        print(f"knn {tag} B={B} L={L} K={K}: E_idx exact, max|dD|={err:.3g}, "
+        print(f"knn {tag} B={B} L={L} K={K}: E_idx and D exact, max|dD|={err:.3g}, "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms)",
               flush=True)
         if tag == "design":
             rows["knn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound[0], bound_by=bound[1])
+    knn_hard_cases()
+    knn_nonfinite_check()
 
     # RBF at the design shape (B=1) and the score shape (B=10); its bf16
     # variant (the fold-scaled weight) beside it, both bitwise across two
@@ -964,18 +1088,13 @@ def _profile_call(fn, name, tag):
     ``build/chip_smoke/<name>.json``: prints the window, the device-busy
     time and share, the top device operations, and the device ms and share
     of busy time of rows 11 and 12 (``_fused_profile_keys``), failing when
-    one of them has no launch in the trace. Returns the device ms of each
+    one of them has no launch in the trace, and the kNN's device ms (which
+    must be there too). Returns the device ms of each
     of those groups."""
     import torch
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    path = os.path.join(OUT, f"{name}.json")
-    prof.export_chrome_trace(path)
-    window, busy, by_name = _trace_summary(path, 1)
+    window, busy, by_name = _traced(fn, name, 1)
     print(f"{tag} profile (torch.profiler, one call): window {window:.3f} ms, device "
           f"busy {busy:.3f} ms ({100 * busy / window:.1f}%), idle "
           f"{100 * (1 - busy / window):.1f}%; top device operations:", flush=True)
@@ -989,6 +1108,12 @@ def _profile_call(fn, name, tag):
         groups[group] = sum(us for _, us in hits) / 1e3
         print(f"  {tag} {group}: {groups[group]:.3f} ms over {sum(n for n, _ in hits)} "
               f"launches, {100 * groups[group] / busy:.1f}% of device busy", flush=True)
+    hits = [(n, us) for op, (n, us) in by_name.items() if "knn_kernel" in op]
+    if not hits:
+        raise AssertionError(f"{tag} profile: no knn_kernel in the trace")
+    knn_ms = sum(us for _, us in hits) / 1e3
+    print(f"  {tag} kNN: {knn_ms:.4f} ms over {sum(n for n, _ in hits)} launches, "
+          f"{100 * knn_ms / busy:.1f}% of device busy", flush=True)
     return groups
 
 
@@ -1335,9 +1460,10 @@ def train_kernel_phase(nb):
     mask = batch["mask"].float()
     B, L = mask.shape
     N = B * L
-    _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
-    if not torch.equal(E_idx, knn.knn_graph_plain(X_ref, mask, K)[1]):
-        raise AssertionError("knn at the training shape: E_idx differs")
+    D_k, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
+    D_p, E_p = knn.knn_graph_plain(X_ref, mask, K)
+    if not (torch.equal(E_idx, E_p) and torch.equal(D_k, D_p)):
+        raise AssertionError("knn at the training shape: E_idx or D differs")
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, fwd_ms = {}, {}
 
@@ -1350,7 +1476,14 @@ def train_kernel_phase(nb):
 
     forward_row("knn", lambda: knn.knn_graph_cuda(X_ref, mask, K),
                 lambda: knn.knn_graph_plain(X_ref, mask, K),
-                _knn_bound(B, L, K), 10, "E_idx exact")
+                _knn_bound(B, L, K), 10, "E_idx and D exact")
+    D_adj = knn.masked_distances(X_ref, X_ref, mask, mask)
+    topk_ms = _sync_time(lambda: torch.topk(D_adj, K, dim=-1, largest=False), 10)
+    print(f"knn selection alone by a library call at the training shape: "
+          f"torch.topk(D_adjust, {K}, largest=False) on the prebuilt [{B}, {L}, {L}] "
+          f"matrix {topk_ms:.4f} ms (the distances built beforehand: not a "
+          f"one-call counterpart of the kernel)", flush=True)
+    del D_adj
     params = init_params(1, cfg, device=dev)
     W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
     out_k = rbf_classed.rbf_edge_features_classed_cuda(X_aug, X_m_aug, E_idx, W)
@@ -1999,9 +2132,9 @@ def _leaf_paths(tree, prefix=""):
 
 
 def _grads_twice(tag, trainer, batch, seed):
-    """Whether one step's whole flat gradient is bitwise the same in two
-    passes from the same parameters and generator seed; prints the leaves
-    that differ (no step is taken)."""
+    """One step's whole flat gradient bitwise the same in two passes from
+    the same parameters and generator seed (no step is taken); raises,
+    naming the leaves that differ, if it is not."""
     import torch
     grads = [trainer.loss_and_grads(batch, torch.Generator(device="cuda").manual_seed(seed))[1]
              for _ in range(2)]
@@ -2010,10 +2143,13 @@ def _grads_twice(tag, trainer, batch, seed):
         if not torch.equal(grads[0][off:off + p.numel()], grads[1][off:off + p.numel()]):
             differ.append(path)
         off += p.numel()
-    print(f"{tag}: the flat gradient ({off} entries) of one B=8 x L=768 step "
-          f"{'is' if not differ else 'is NOT'} bitwise equal across two passes "
-          f"from the same state and generator"
-          + (f"; leaves that differ: {differ}" if differ else ""), flush=True)
+    B, L = batch["S"].shape
+    if differ:
+        raise AssertionError(f"{tag}: the flat gradient of one B={B} x L={L} step "
+                             f"differs across two passes in the leaves {differ}")
+    print(f"{tag}: the flat gradient ({off} entries) of one B={B} x L={L} step is "
+          "bitwise equal across two passes from the same state and generator",
+          flush=True)
 
 
 def _embedding_grads_twice(tag, trainer, batch):
@@ -2047,20 +2183,38 @@ def _embedding_grads_twice(tag, trainer, batch):
           f"through PyTorch's index backward (torch.profiler, 5 passes)", flush=True)
 
 
+def _traced(fn, name, n):
+    """``n`` calls of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activity, ending in a synchronise), the Chrome trace written to
+    ``build/chip_smoke/<name>.json``; returns ``_trace_summary`` of it. A
+    trace that holds no device operation (the profiler missed the card's
+    activity, seen once in a run of this script) is taken again, three
+    times in all, before ``_trace_summary``'s error stands."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(OUT, f"{name}.json")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        try:
+            return _trace_summary(path, n)
+        except AssertionError:
+            if attempt == 2:
+                raise
+            print(f"{name}: the trace holds no device operation; tracing again",
+                  flush=True)
+
+
 def _device_ms(fn, tag, n=5):
     """Device-busy ms per call of ``fn`` (the union of its device intervals
     in a ``torch.profiler`` trace of ``n`` calls, after one warm-up)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    path = os.path.join(OUT, f"{tag}.json")
-    prof.export_chrome_trace(path)
-    return _trace_summary(path, n)[1]
+    return _traced(fn, tag, n)[1]
 
 
 def training_phase(nb, fwd_ms, rows):
@@ -2260,6 +2414,7 @@ def unbucketed_training_phase(nb, low=False):
     tols = dict(loss_tol=1e-3, grad_tol=3e-2) if low else {}
     _grads_against_plain(f"{tag} training", trainer, plain, to_device(nb, dev), 7,
                          want, **tols)
+    _grads_twice(f"{tag} training", trainer, to_device(nb, dev), 7)
     return counts, median, peak
 
 
@@ -2476,19 +2631,21 @@ def mesh_kernel_phase(nb):
         mq = mask[:, s0:s0 + Lq].contiguous()
         D_k, E_k = knn.knn_graph_qk_cuda(Xq, X_ref, mq, mask, K)
         D_p, E_p = knn.knn_graph_qk_plain(Xq, X_ref, mq, mask, K)
-        if not (torch.equal(E_k, E_p) and torch.equal(E_k, E_all[:, s0:s0 + Lq])):
-            raise AssertionError(f"knn_qk Lq={Lq}: E_idx differs from the plain "
-                                 "version or the structure's rows")
+        if not (torch.equal(E_k, E_p) and torch.equal(E_k, E_all[:, s0:s0 + Lq])
+                and torch.equal(D_k, D_p)):
+            raise AssertionError(f"knn_qk Lq={Lq}: E_idx or D differs from the plain "
+                                 "version, or E_idx from the structure's rows")
         err = float((D_k - D_p).abs().max())
         ms = _sync_time(lambda: knn.knn_graph_qk_cuda(Xq, X_ref, mq, mask, K), 10)
         plain_ms = _sync_time(lambda: knn.knn_graph_qk_plain(Xq, X_ref, mq, mask, K), 3)
         bound = _knn_bound(B, Lq, K, Lk=L)
-        print(f"knn_qk B={B} Lq={Lq} Lk={L} K={K}: E_idx exact (also against the "
-              f"structure's rows), max|dD|={err:.3g}, {ms:.4f} ms (plain "
+        print(f"knn_qk B={B} Lq={Lq} Lk={L} K={K}: E_idx and D exact (E_idx also "
+              f"against the structure's rows), max|dD|={err:.3g}, {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]})", flush=True)
         if Lq == L:
             rows["knn_qk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound[0], bound_by=bound[1])
+    knn_hard_cases(qk=True)
 
     # rows 5 and 6 on the dense Trainer's operands
     params = init_params(1, cfg, device=dev)

@@ -133,6 +133,47 @@ class _EmbedTokens(torch.autograd.Function):
         return (one_hot.T @ g.reshape(-1, g.shape[-1]).to(acc)).to(ctx.dtype), None
 
 
+def gather_order(E_idx):
+    """The edges of ``E_idx [B,L,K]`` grouped by the node they read, for
+    ``_GatherNodes``'s backward: (``order [B*L*K]``, the flat edges sorted
+    stably by that node, as ``mk.table_order`` sorts them for the
+    message-table backward; ``lengths [B*L]``, each node's in-degree)."""
+    B, L, K = E_idx.shape
+    order, offsets = mk.table_order(E_idx.reshape(-1), K, L, L, B * L)
+    return order, offsets[1:] - offsets[:-1]
+
+
+class _GatherNodes(torch.autograd.Function):
+    """``gather_nodes(x, E_idx)``, whose gradient sums each node's incoming
+    rows in a fixed order: the cotangent's rows in ``gather_order``,
+    widened to fp32 (float64 for float64), then one segment sum a node
+    (``torch.segment_reduce``, a pass over each segment with no atomics),
+    a third of the columns at a time (the widened copy stays small). It
+    equals the gradient of JAX's gather and is the same on every launch;
+    PyTorch's own backward of the gather adds the rows with atomics on the
+    card, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, E_idx, order, lengths):
+        ctx.save_for_backward(order, lengths)
+        ctx.shape = x.shape
+        return gather_nodes(x, E_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, lengths = ctx.saved_tensors
+        B, L, C = ctx.shape
+        acc = torch.promote_types(g.dtype, torch.float32)
+        g2 = g.reshape(-1, C)
+        out = torch.empty((B * L, C), dtype=acc, device=g.device)
+        cols = [C * i // 3 for i in range(4)]
+        for a, b in zip(cols, cols[1:]):
+            out[:, a:b] = torch.segment_reduce(
+                g2[:, a:b][order].to(acc), "sum", lengths=lengths, axis=0,
+                unsafe=True)
+        return out.to(g.dtype).view(B, L, C), None, None, None
+
+
 def embed_tokens(p, S):
     """The token embedding ``W_s.emb[S]``; through ``_EmbedTokens`` when a
     gradient is wanted."""
@@ -289,8 +330,10 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
     dropout or a gradient at ``L % 32 != 0`` takes the gathered route
     instead: the ``[B,L,K,H]`` causal context and edge term gathered in
     PyTorch into the pre-gathered message MLP (``mk.message_agg_batched``),
-    as the JAX training decoder does at such L. ``drop``, ``gather`` and
-    ``order`` as in ``enc_layer`` (slots 0 and 1)."""
+    as the JAX training decoder does at such L; there ``order`` is the
+    stack's ``gather_order`` (the context gather's backward through
+    ``_GatherNodes``) or None (a plain gather). ``drop``, ``gather`` and
+    ``order`` otherwise as in ``enc_layer`` (slots 0 and 1)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
@@ -303,8 +346,9 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
         # bf16 the context and the edge term are bf16 tensors, as JAX's.
         E_idx = eidx2.reshape(B, L, K)
         mbw, m1d = mbw2.reshape(B, L, K, 1), m1d2.reshape(B, L, K, 1)
-        g = gather_nodes(torch.cat([h_S @ ws, h_V @ wv, h_V_enc @ wv], dim=-1),
-                         E_idx)
+        nodes = torch.cat([h_S @ ws, h_V @ wv, h_V_enc @ wv], dim=-1)
+        g = (gather_nodes(nodes, E_idx) if order is None
+             else _GatherNodes.apply(nodes, E_idx, *order))
         ctx = mbw * (g[..., :H] + g[..., H:2 * H]) + (m1d - mbw) * g[..., 2 * H:]
         e_term = m1d * (h_E2.view(B, L, K, H) @ wb)
         dh = mk.message_agg_batched(p, h_V, ctx, e_term,
@@ -395,9 +439,14 @@ def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
     m1d2 = mask[:, :, None].expand(B, L, K).reshape(-1)
     mbw2 = mask_bw.reshape(-1)
     drop = generator_dropout(cfg.dropout, generator)
-    # at L % 32 != 0 a layer with a gradient takes the gathered route
-    order = None if not mk.table_gather_ok(L) else table_order(
-        eidx2, K, L, L, plain, layers, h_V, h_E2, h_S)
+    # at L % 32 != 0 a layer with a gradient takes the gathered route, whose
+    # context gather sums its gradient in the order of gather_order
+    if mk.table_gather_ok(L):
+        order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2, h_S)
+    elif layers and _wants_grad(layers[0], h_V, h_E2, h_S):
+        order = gather_order(E_idx)
+    else:
+        order = None
     h_V_enc = h_V
     for p in layers:
         h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,

@@ -346,7 +346,7 @@ class Trainer:
         if os.path.isdir(path):
             raise NotImplementedError(
                 f"{path}: orbax directory checkpoints are not ported "
-                "(ROADMAP Queue 1, 'Multi-GPU')")
+                "(ROADMAP Queue 1 item 5, 'Checkpoint interchange')")
         tree, meta, opt_flat = load_checkpoint_npz(path)
         with torch.no_grad():
             for view, arr in zip(self.leaves, tree_leaves(tree)):

