@@ -81,7 +81,7 @@ CUDA toolkit. Phases, each of which raises on failure:
    loop's;
 9. the rest of the bf16 trunk: the bf16 variants of rows 5-8 against their
    plain bf16 versions (the dense RBF and its weight gradient at the
-   training shape, < 2^-8; rows 3-6 at bf16 also for a 192-row shard
+   training shape, < 1e-3; rows 3-6 at bf16 also for a 192-row shard
    against the structure's 768 key rows, the graph-parallel route's
    operands; the message MLP and its backward at N = 6000 in all four
    variants, < 2^-6; the weight gradients of rows 4, 6, 8 bitwise equal
@@ -130,6 +130,20 @@ step: device ms per operation, the busy share, and rows 11 and 12's
 share and the kNN's. The query/key kNN (row 2) meets ``_knn_cases`` too,
 for a shard of query rows a third of the way into each structure. Their earlier
 scalar-FMA times are printed as text (``FMA_FUSED_MS``).
+
+Rows 5 and 6 (the dense RBF projection and its weight gradient) run rows 3
+and 4's tensor-core walks over each edge's atom-pair groups
+(``csrc/rbf_tile.cuh``), at fp32 the same instantiations: their fp32
+outputs are held bitwise equal to rows 3 and 4's on the training operands
+and on the 192-row shard, and row 5's to row 3's at B=1 and B=10 of the
+design structure, where row 5 is timed at both dtypes (the dense inference
+path's shapes), and held to their plain versions at B=1 at every width
+their walks are built for. Every output of rows 5 and 6 at both dtypes is
+bitwise equal across two launches, the forward's too. A ``torch.profiler`` trace of
+3 dense steps at fp32 and at bf16 gives rows 5 and 6's device ms per step,
+and the dense step's ms and peak memory are printed beside the classed
+step's of the same run at both dtypes. Their earlier scalar-FMA times are
+printed as text (``SCALAR_MS``).
 
 Outputs go to ``build/chip_smoke/`` in the checkout.
 """
@@ -748,7 +762,7 @@ def kernel_phase(pdb):
     import torch
     from na_mpnn_tpu_torch.models import init_params
     from na_mpnn_tpu_torch.models.config import ModelConfig
-    from na_mpnn_tpu_torch.ops import knn, message_kernels, rbf_classed
+    from na_mpnn_tpu_torch.ops import knn, message_kernels, rbf_classed, rbf_edge
 
     dev = torch.device("cuda")
     cfg = ModelConfig()
@@ -829,6 +843,52 @@ def kernel_phase(pdb):
                                        ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound[0], bound_by=bound[1])
         del out_p
+        # row 5 (the dense forward) at the dense inference path's shapes: at
+        # fp32 the classed walk's instantiation, so row 3's bits
+        for name, fn, plain, w, tol in (
+                ("rbf_edge", rbf_edge.rbf_edge_cuda, rbf_edge.rbf_edge_features_plain,
+                 W, REL_TOL),
+                ("rbf_edge_bf16", rbf_edge.rbf_edge_bf16_cuda,
+                 rbf_edge.rbf_edge_bf16_plain, W, RBF_EDGE_BF16_TOL)):
+            d_k = fn(X_aug, X_m_aug, E_idx, w)
+            d_rel = _rel_err(d_k, plain(X_aug, X_m_aug, E_idx, w))
+            if not (d_rel < tol and torch.equal(d_k, fn(X_aug, X_m_aug, E_idx, w))):
+                raise AssertionError(f"{name} B={n_copies}: relative error {d_rel:.3g}, "
+                                     "or two launches differ")
+            if name == "rbf_edge" and not torch.equal(d_k, out_k):
+                raise AssertionError(f"rbf_edge B={n_copies}: differs from rbf_classed "
+                                     "(one instantiation, the same operands)")
+            d_ms = _sync_time(lambda: fn(X_aug, X_m_aug, E_idx, w), 20)
+            print(f"{name} (dense) B={B} L={L} K={K}: rel err {d_rel:.3g} (< {tol:.3g}), "
+                  f"two launches bitwise equal"
+                  + (", bitwise rbf_classed's output" if name == "rbf_edge" else "")
+                  + f", {d_ms:.4f} ms", flush=True)
+            del d_k
+
+    # rows 5 and 6 at every width their walks are built for (B=1): a random
+    # weight and cotangent of that width, each against its plain version
+    _, X_aug, X_m_aug, X_ref, mask = _structure(pdb, dev)
+    _, E_idx = knn.knn_graph_cuda(X_ref, mask, K)
+    checked = []
+    for Hw in rbf_edge.FORWARD_WIDTHS:
+        Ww = 0.05 * torch.randn((18 * 18 * 16, Hw), generator=gen, device=dev)
+        gw = torch.randn(E_idx.shape + (Hw,), generator=gen, device=dev)
+        cases = [(rbf_edge.rbf_edge_cuda, rbf_edge.rbf_edge_features_plain, Ww, REL_TOL),
+                 (rbf_edge.rbf_edge_bf16_cuda, rbf_edge.rbf_edge_bf16_plain, Ww,
+                  RBF_EDGE_BF16_TOL)]
+        if Hw in rbf_edge.DW_WIDTHS:
+            cases += [(rbf_edge.rbf_edge_dw_cuda, rbf_edge.rbf_edge_dw_plain, gw, 1e-4),
+                      (rbf_edge.rbf_edge_dw_bf16_cuda, rbf_edge.rbf_edge_dw_bf16_plain, gw,
+                       RBF_EDGE_BF16_TOL)]
+        for fn, plain, arg, tol in cases:
+            got = fn(X_aug, X_m_aug, E_idx, arg)
+            rel = _rel_err(got, plain(X_aug, X_m_aug, E_idx, arg))
+            if not (rel < tol and torch.equal(got, fn(X_aug, X_m_aug, E_idx, arg))):
+                raise AssertionError(f"{fn.__name__} H={Hw}: relative error {rel:.3g} "
+                                     f"(tol {tol:.3g}), or two launches differ")
+            checked.append(f"{fn.__name__} H={Hw} {rel:.2g}")
+    print(f"rows 5 and 6 at every width (B=1, relative error against the plain "
+          f"version, two launches bitwise equal): {', '.join(checked)}", flush=True)
 
     # Message table, three modes, at N = 389 and N = 10*389.
     p = params["encoder"][0]
@@ -1350,11 +1410,15 @@ def _bwd_bound(mode, N, K, H, C, g_rows, esize=4, peak=PEAK_FP32_FLOPS):
     return _bound_ms(ops, nbytes, peak)
 
 
-# The times of rows 3, 4, 9 and 10 in their earlier scalar-FMA form, from
+# The times of rows 3-6, 9 and 10 in their earlier scalar-FMA form, from
 # PERF.md's kernel table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W; at
-# the training shape, row 3 also at B=1 x L=389, row 9 with x): reference
-# values printed beside this run's times, never part of the kernels JSON line.
-SCALAR_MS = {"rbf_classed_dw": 8.8538, "rbf_classed_dw_bf16": 11.9795,
+# the training shape, row 3 also at B=1 x L=389, row 9 with x, rows 5 and 6
+# bf16 also for the 192-row shard): reference values printed beside this
+# run's times, never part of the kernels JSON line.
+SCALAR_MS = {"rbf_edge": 14.9462, "rbf_edge_bf16": 14.9361, "rbf_edge_dw": 18.1993,
+             "rbf_edge_dw_bf16": 18.9127, "rbf_edge_bf16_shard": 3.7499,
+             "rbf_edge_dw_bf16_shard": 4.8752,
+             "rbf_classed_dw": 8.8538, "rbf_classed_dw_bf16": 11.9795,
              "message_table_bwd_enc_node": 3.7350, "message_table_bwd_enc_edge": 3.6429,
              "message_table_bwd_dec": 3.8073, "message_table_bwd_enc_node_bf16": 3.8616,
              "message_table_bwd_enc_edge_bf16": 3.8230,
@@ -1384,16 +1448,14 @@ def _print_edge_groups(X_aug, X_m_aug, E_idx):
     per group (PP, PN, NP, NN), those with a residue in both blocks, and the
     rows x edges the kernel multiplies against all four tables for all."""
     import torch
-    from na_mpnn_tpu_torch.ops import rbf_classed
-    from na_mpnn_tpu_torch.ops.rbf_edge import edge_operands
-    _, Mq, _, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, None, None,
-                                      rbf_classed.PERM)
+    from na_mpnn_tpu_torch.ops import rbf_common
+    _, Mq, _, Mk, nbr = rbf_common.edge_operands(X_aug, X_m_aug, E_idx, None, None)
     K = E_idx.shape[2]
-    counts = rbf_classed.edge_groups(Mq, Mk, nbr, K).sum(1).tolist()
+    counts = rbf_common.edge_groups(Mq, Mk, nbr, K).sum(1).tolist()
     edge_node = torch.arange(nbr.shape[0], device=nbr.device) // K
-    sq = rbf_classed.residue_sides(Mq)[edge_node]
-    mixed = int(((sq == 2) | (rbf_classed.residue_sides(Mk)[nbr] == 2)).sum())
-    rows = [16 * len(q) * len(n) for q, n in rbf_classed.GROUP_SELS]
+    sq = rbf_common.residue_sides(Mq)[edge_node]
+    mixed = int(((sq == 2) | (rbf_common.residue_sides(Mk)[nbr] == 2)).sum())
+    rows = [16 * len(q) * len(n) for q, n in rbf_common.GROUP_SELS]
     work = sum(c * r for c, r in zip(counts, rows))
     print(f"rbf_classed_dw edge groups (E={nbr.shape[0]}): PP {counts[0]}, PN "
           f"{counts[1]}, NP {counts[2]}, NN {counts[3]}, with a residue in both "
@@ -1418,14 +1480,12 @@ def _check_edge_codes(X_aug, X_m_aug, E_idx):
     kernel's code of every edge equal to the plain ``edge_list_codes``;
     prints the edges of each list and the kernels' shared memory."""
     import torch
-    from na_mpnn_tpu_torch.ops import rbf_classed
+    from na_mpnn_tpu_torch.ops import rbf_common
     from na_mpnn_tpu_torch.ops._build import library
-    from na_mpnn_tpu_torch.ops.rbf_edge import edge_operands
-    _, Mq, _, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, None, None,
-                                      rbf_classed.PERM)
+    _, Mq, _, Mk, nbr = rbf_common.edge_operands(X_aug, X_m_aug, E_idx, None, None)
     K = E_idx.shape[2]
-    code = rbf_classed.edge_list_codes_cuda(Mq, Mk, nbr, K)
-    if not torch.equal(code, rbf_classed.edge_list_codes(Mq, Mk, nbr, K)):
+    code = rbf_common.edge_list_codes_cuda(Mq, Mk, nbr, K)
+    if not torch.equal(code, rbf_common.edge_list_codes(Mq, Mk, nbr, K)):
         raise AssertionError("rbf_classed classify: codes differ from edge_list_codes")
     counts = torch.bincount(code, minlength=5).tolist()
     rc, mt = library("rbf_classed"), library("message_table")
@@ -1734,12 +1794,16 @@ def bf16_kernel_phase(nb):
     # rows 5 and 6: the dense RBF on the reference-order weight
     W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
     rbf_args = (X_aug, X_m_aug, E_idx, W)
-    row("rbf_edge_bf16", rbf_edge.rbf_edge_bf16_cuda(*rbf_args),
-        rbf_edge.rbf_edge_bf16_plain(*rbf_args), RBF_EDGE_BF16_TOL,
-        lambda: rbf_edge.rbf_edge_bf16_cuda(*rbf_args),
+    rbf_k = rbf_edge.rbf_edge_bf16_cuda(*rbf_args)
+    if not torch.equal(rbf_k, rbf_edge.rbf_edge_bf16_cuda(*rbf_args)):
+        raise AssertionError("rbf_edge_bf16: two launches differ")
+    row("rbf_edge_bf16", rbf_k, rbf_edge.rbf_edge_bf16_plain(*rbf_args),
+        RBF_EDGE_BF16_TOL, lambda: rbf_edge.rbf_edge_bf16_cuda(*rbf_args),
         lambda: rbf_edge.rbf_edge_bf16_plain(*rbf_args),
         _rbf_bound(X_aug, X_m_aug, E_idx, H, w_bytes=2, peak=PEAK_BF16_FLOPS), 5,
-        fp32=rbf_edge.rbf_edge_cuda(*rbf_args))
+        f", two launches bitwise equal (scalar-FMA form, PERF.md: "
+        f"{SCALAR_MS['rbf_edge_bf16']} ms)", fp32=rbf_edge.rbf_edge_cuda(*rbf_args))
+    del rbf_k
     dw_k = rbf_edge.rbf_edge_dw_bf16_cuda(*dw_args)
     if not torch.equal(dw_k, rbf_edge.rbf_edge_dw_bf16_cuda(*dw_args)):
         raise AssertionError("rbf_edge_dw_bf16: two launches differ")
@@ -1747,7 +1811,8 @@ def bf16_kernel_phase(nb):
         RBF_EDGE_BF16_TOL, lambda: rbf_edge.rbf_edge_dw_bf16_cuda(*dw_args),
         lambda: rbf_edge.rbf_edge_dw_bf16_plain(*dw_args),
         _rbf_bound(X_aug, X_m_aug, E_idx, H, peak=PEAK_BF16_FLOPS), 5,
-        ", two launches bitwise equal", fp32=rbf_edge.rbf_edge_dw_cuda(*dw_args))
+        f", two launches bitwise equal (scalar-FMA form, PERF.md: "
+        f"{SCALAR_MS['rbf_edge_dw_bf16']} ms)", fp32=rbf_edge.rbf_edge_dw_cuda(*dw_args))
     del dw_k
 
     # rows 3-6 with key rows of their own: the second of four 192-row shards
@@ -1757,27 +1822,42 @@ def bf16_kernel_phase(nb):
     Eq = E_idx[:, s0:s0 + Lq].contiguous()
     gq = g[:, s0:s0 + Lq].contiguous()
     W_fold = rbf_classed.fold_scaled(W)
-    for name, fwd, fwd_plain, dw, dw_plain, w, tol in (
+    keys = (X_aug, X_m_aug)
+    row34 = None
+    for name, fwd, fwd_plain, dw, dw_plain, w, tol, fwd32, dw32 in (
             ("rbf_classed", rbf_classed.rbf_classed_bf16_cuda,
              rbf_classed.rbf_classed_bf16_plain, rbf_classed.rbf_classed_dw_bf16_cuda,
-             rbf_classed.rbf_classed_dw_bf16_plain, W_fold, RBF_BF16_TOL),
+             rbf_classed.rbf_classed_dw_bf16_plain, W_fold, RBF_BF16_TOL,
+             rbf_classed.rbf_edge_features_classed_cuda, rbf_classed.rbf_classed_dw_cuda),
             ("rbf_edge", rbf_edge.rbf_edge_bf16_cuda, rbf_edge.rbf_edge_bf16_plain,
              rbf_edge.rbf_edge_dw_bf16_cuda, rbf_edge.rbf_edge_dw_bf16_plain, W,
-             RBF_EDGE_BF16_TOL)):
-        out_k = fwd(Xq, Mq, Eq, w, X_aug, X_m_aug)
-        if not torch.equal(out_k, fwd(Xq, Mq, Eq, w, X_aug, X_m_aug)):
+             RBF_EDGE_BF16_TOL, rbf_edge.rbf_edge_cuda, rbf_edge.rbf_edge_dw_cuda)):
+        out_k = fwd(Xq, Mq, Eq, w, *keys)
+        if not torch.equal(out_k, fwd(Xq, Mq, Eq, w, *keys)):
             raise AssertionError(f"{name}_bf16 key rows: two launches differ")
-        if name == "rbf_classed":   # row 3 at fp32 on the same shard
-            f32 = rbf_classed.rbf_edge_features_classed_cuda(Xq, Mq, Eq, W, X_aug, X_m_aug)
-            f32_err = _rel_err(f32, rbf_classed.rbf_edge_features_classed_plain(
-                Xq, Mq, Eq, W, X_aug, X_m_aug))
-            if not (f32_err < REL_TOL and torch.equal(f32, rbf_classed.rbf_edge_features_classed_cuda(
-                    Xq, Mq, Eq, W, X_aug, X_m_aug))):
-                raise AssertionError(f"rbf_classed key rows: rel err {f32_err:.3g}, "
-                                     "or two launches differ")
-            print(f"rbf_classed with key rows (B={B} Lq={Lq} of Lk={L}): rel err "
-                  f"{f32_err:.3g} (< {REL_TOL}), two launches bitwise equal", flush=True)
-            del f32
+        # the fp32 forward and weight gradient on the same shard (rows 3, 4
+        # then rows 5, 6, which must give rows 3 and 4's bits)
+        f32, d32 = fwd32(Xq, Mq, Eq, W, *keys), dw32(Xq, Mq, Eq, gq, *keys)
+        f32_err = _rel_err(f32, rbf_edge.rbf_edge_features_plain(Xq, Mq, Eq, W, *keys))
+        d32_err = _rel_err(d32, rbf_edge.rbf_edge_dw_plain(Xq, Mq, Eq, gq, *keys))
+        if not (f32_err < REL_TOL and d32_err < 1e-4
+                and torch.equal(f32, fwd32(Xq, Mq, Eq, W, *keys))
+                and torch.equal(d32, dw32(Xq, Mq, Eq, gq, *keys))):
+            raise AssertionError(f"{name} fp32 key rows: rel err {f32_err:.3g}, dW "
+                                 f"{d32_err:.3g}, or two launches differ")
+        if row34 is None:
+            row34 = (f32, d32)
+        elif not (torch.equal(f32, row34[0]) and torch.equal(d32, row34[1])):
+            raise AssertionError("rbf_edge / rbf_edge_dw fp32 key rows: not the bits "
+                                 "of rbf_classed / rbf_classed_dw")
+        f32_ms = _sync_time(lambda: fwd32(Xq, Mq, Eq, W, *keys), 5)
+        d32_ms = _sync_time(lambda: dw32(Xq, Mq, Eq, gq, *keys), 5)
+        print(f"{name} / {name}_dw (fp32) with key rows (B={B} Lq={Lq} of Lk={L}): "
+              f"rel err {f32_err:.3g} (< {REL_TOL}) / {d32_err:.3g} (< 1e-4), two "
+              f"launches bitwise equal"
+              + (", bitwise rows 3 and 4's" if name == "rbf_edge" else "")
+              + f"; {f32_ms:.4f} / {d32_ms:.4f} ms", flush=True)
+        del f32, d32
         err = _rel_err(out_k, fwd_plain(Xq, Mq, Eq, w, X_aug, X_m_aug))
         # the same bins and products as the structure's own rows
         same = _rel_err(out_k, fwd(*rbf_args[:3], w)[:, s0:s0 + Lq])
@@ -1792,10 +1872,13 @@ def bf16_kernel_phase(nb):
         dms = _sync_time(lambda: dw(Xq, Mq, Eq, gq, X_aug, X_m_aug), 5)
         print(f"{name}_bf16 / {name}_dw_bf16 with key rows (B={B} Lq={Lq} of Lk={L}): "
               f"rel err {err:.3g} / {dw_err:.3g} (< {tol:.3g}), against "
-              f"the structure's own rows {same:.3g}, dW two launches bitwise "
-              f"equal; {ms:.4f} / {dms:.4f} ms", flush=True)
+              f"the structure's own rows {same:.3g}, forward and dW two launches "
+              f"bitwise equal; {ms:.4f} / {dms:.4f} ms"
+              + (f" (scalar-FMA form, PERF.md: {SCALAR_MS['rbf_edge_bf16_shard']} / "
+                 f"{SCALAR_MS['rbf_edge_dw_bf16_shard']} ms)" if name == "rbf_edge"
+                 else ""), flush=True)
         del out_k, dw_k
-    del g, gq, params
+    del g, gq, params, row34
 
     # rows 9 and 10: every operand bf16
     eidx2 = E_idx.reshape(-1).contiguous()
@@ -2345,7 +2428,7 @@ def bf16_training_phase(nb, fp32_ms, fp32_peak):
     _grads_against_plain("bf16 training", trainer, plain, to_device(nb, dev), 7, want,
                          loss_tol=1e-3, grad_tol=3e-2)
     _grads_twice("bf16 training", trainer, to_device(nb, dev), 7)
-    return total
+    return total, median, peak
 
 
 UNBUCKETED_L = 750
@@ -2458,7 +2541,7 @@ def _print_profile(profile, tag):
           f"top device operations per step:", flush=True)
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3 / 3:8.3f} ms  {n / 3:5.1f}x  {name[:90]}", flush=True)
-    for key in ("rbf_classed_kernel", "message_table_kernel"):
+    for key in ("rbf_fwd_groups", "message_table_kernel"):
         for name, (n, us) in by_name.items():
             if key in name:
                 print(f"  {tag} {key}: {us / 1e3 / 3:.3f} ms per step, {n / 3:.1f}x "
@@ -2604,14 +2687,16 @@ def mesh_kernel_phase(nb):
     query/key kNN (row 2) for a quarter shard (Lq = 192) and the whole
     structure (Lq = 768) against Lk = 768, E_idx exact; the dense RBF
     projection (row 5, relative error < 1e-5) and its weight gradient (row
-    6, < 1e-4 of its max, two launches bitwise equal); the message table
-    and its backward (rows 9, 10) for a 192-row shard against the 768-row
-    table. Returns the JSON rows of rows 2, 5 and 6."""
+    6, < 1e-4 of its max), each bitwise across two launches and bitwise
+    rows 3 and 4's results on the same operands (one instantiation of the
+    group walks at fp32); the message table and its backward (rows 9, 10)
+    for a 192-row shard against the 768-row table. Returns the JSON rows of
+    rows 2, 5 and 6."""
     import torch
     from na_mpnn_tpu_torch.models import init_params
     from na_mpnn_tpu_torch.models.config import ModelConfig
     from na_mpnn_tpu_torch.models.features import build_augmented_atoms
-    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_edge
+    from na_mpnn_tpu_torch.ops import knn, message_kernels as mk, rbf_classed, rbf_edge
     from na_mpnn_tpu_torch.train.trainer import to_device
 
     dev = torch.device("cuda")
@@ -2647,7 +2732,8 @@ def mesh_kernel_phase(nb):
                                   bound_ms=bound[0], bound_by=bound[1])
     knn_hard_cases(qk=True)
 
-    # rows 5 and 6 on the dense Trainer's operands
+    # rows 5 and 6 on the dense Trainer's operands: at fp32 the classed
+    # walks' instantiations, so rows 3 and 4's bits on the same operands
     params = init_params(1, cfg, device=dev)
     W = params["features"]["edge_embedding"]["w"][cfg.num_positional_embeddings:]
     E_idx = E_all
@@ -2659,15 +2745,21 @@ def mesh_kernel_phase(nb):
     rel = _rel_err(out_k, out_p)
     if not rel < REL_TOL:
         raise AssertionError(f"rbf_edge: relative error {rel:.3g}")
+    if not torch.equal(out_k, rbf_edge.rbf_edge_cuda(X_aug, X_m_aug, E_idx, W)):
+        raise AssertionError("rbf_edge: two identical launches differ")
+    if not torch.equal(out_k, rbf_classed.rbf_edge_features_classed_cuda(
+            X_aug, X_m_aug, E_idx, W)):
+        raise AssertionError("rbf_edge: not the bits of rbf_classed on the same operands")
     err = float((out_k - out_p).abs().max())
     del out_k, out_p
     ms = _sync_time(lambda: rbf_edge.rbf_edge_cuda(X_aug, X_m_aug, E_idx, W), 5)
     plain_ms = _sync_time(lambda: rbf_edge.rbf_edge_features_plain(
         X_aug, X_m_aug, E_idx, W), 2)
     print(f"rbf_edge (dense) B={B} L={L} K={K} H={H}: rel err {rel:.3g} "
-          f"(< {REL_TOL}), {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{bound[0]:.5f} ms by {bound[1]}; the full 18x18x16 grid "
-          f"{grid_ms:.4f} ms at 67 TFLOP/s)", flush=True)
+          f"(< {REL_TOL}), two launches bitwise equal, bitwise rbf_classed's "
+          f"output, {ms:.4f} ms (scalar-FMA form, PERF.md: {SCALAR_MS['rbf_edge']} "
+          f"ms; plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}; the "
+          f"full 18x18x16 grid {grid_ms:.4f} ms at 67 TFLOP/s)", flush=True)
     rows["rbf_edge"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound[0], bound_by=bound[1])
     g = torch.randn((B, L, K, H), generator=gen, device=dev)
@@ -2679,12 +2771,17 @@ def mesh_kernel_phase(nb):
         raise AssertionError(f"rbf_edge_dw: relative error {rel:.3g}")
     if not torch.equal(dw_k, dw_k2):
         raise AssertionError("rbf_edge_dw: two identical launches differ")
+    if not torch.equal(dw_k, rbf_classed.rbf_classed_dw_cuda(X_aug, X_m_aug, E_idx, g)):
+        raise AssertionError("rbf_edge_dw: not the bits of rbf_classed_dw on the "
+                             "same operands")
     ms = _sync_time(lambda: rbf_edge.rbf_edge_dw_cuda(X_aug, X_m_aug, E_idx, g), 5)
     plain_ms = _sync_time(lambda: rbf_edge.rbf_edge_dw_plain(X_aug, X_m_aug, E_idx, g), 2)
     print(f"rbf_edge_dw (dense) B={B} L={L} K={K} H={H}: rel err {rel:.3g} "
-          f"(< 1e-4), two launches bitwise equal, {ms:.4f} ms (plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}; the full "
-          f"grid {grid_ms:.4f} ms)", flush=True)
+          f"(< 1e-4), two launches bitwise equal, bitwise rbf_classed_dw's "
+          f"result, {ms:.4f} ms (scalar-FMA form, PERF.md: "
+          f"{SCALAR_MS['rbf_edge_dw']} ms; plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms by {bound[1]}; the full grid {grid_ms:.4f} ms)",
+          flush=True)
     rows["rbf_edge_dw"] = dict(max_abs_err=float((dw_k - dw_p).abs().max()),
                                ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                                bound_by=bound[1])
@@ -2833,8 +2930,9 @@ def dense_training_phase(nb, low=False):
     step: kNN 1, dense RBF 1, its weight gradient 1, message table 9, its
     backward 9; with ``low`` the bf16 trunk, every one but the kNN a bf16
     variant, and then one step with the kernels against ``kernels="torch"``
-    at bf16: loss < 1e-3, leaves < 3e-2); returns the launches, the median
-    step ms and the peak bytes."""
+    at bf16: loss < 1e-3, leaves < 3e-2); then a ``torch.profiler`` trace of
+    3 more steps for rows 5 and 6's device ms per step. Returns the
+    launches, the median step ms and the peak bytes."""
     import dataclasses
 
     import torch
@@ -2866,6 +2964,23 @@ def dense_training_phase(nb, low=False):
         _grads_against_plain(f"{tag} training", trainer, plain,
                              to_device(nb, "cuda"), 7, want, loss_tol=1e-3,
                              grad_tol=3e-2)
+    # rows 5 and 6 on the device in 3 more steps, after the check above
+    # (which starts from the timed steps' state): the forward walk and the
+    # classify kernel that lists its edges; the weight-gradient walk and its
+    # ordered reduction
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    window, busy, by_name = _traced(lambda: trainer.train_step(nb, gen),
+                                    tag.replace(" ", "_") + "_steps", 3)
+    parts = {"row 5": ("rbf_fwd_groups", "classify_kernel"),
+             "row 6": ("rbf_dw_groups", "dw_reduce")}
+    ms = {r: sum(us for n, (_, us) in by_name.items() if n.split("<")[0].split("(")[0]
+                 .endswith(keys)) / 3e3 for r, keys in parts.items()}
+    if not all(ms.values()):
+        raise AssertionError(f"{tag} profile: rows 5 and 6 not found ({ms})")
+    print(f"{tag} profile of 3 train steps (torch.profiler): {window:.2f} ms per "
+          f"step, device busy {busy:.2f} ms ({100 * busy / window:.1f}%); row 5 "
+          f"{ms['row 5']:.3f} ms and row 6 {ms['row 6']:.3f} ms of device time per "
+          f"step", flush=True)
     return counts, median, peak
 
 
@@ -3066,7 +3181,9 @@ def main():
     rows.update(mesh_kernel_phase(nb))
     counts, classed_ms, classed_peak = training_phase(nb, fwd_ms, rows)
     add(counts)
-    add(bf16_training_phase(nb, classed_ms, classed_peak))
+    counts, classed16_ms, classed16_peak = bf16_training_phase(nb, classed_ms,
+                                                               classed_peak)
+    add(counts)
     ub = unbucketed_batch()
     counts, unbucketed_ms, unbucketed_peak = unbucketed_training_phase(ub)
     add(counts)
@@ -3078,8 +3195,12 @@ def main():
     add(counts)
     counts, dense16_ms, dense16_peak = dense_training_phase(nb, low=True)
     add(counts)
-    print(f"dense against classed training step: {dense_ms:.2f} ms vs "
-          f"{classed_ms:.2f} ms ({dense_ms / classed_ms:.3f}x)", flush=True)
+    for what, d_ms, c_ms, d_pk, c_pk in (
+            ("fp32", dense_ms, classed_ms, dense_peak, classed_peak),
+            ("bf16", dense16_ms, classed16_ms, dense16_peak, classed16_peak)):
+        print(f"dense against classed training step ({what}): {d_ms:.2f} ms vs "
+              f"{c_ms:.2f} ms ({d_ms - c_ms:+.2f} ms); peak memory "
+              f"{d_pk / 2**30:.3f} GiB vs {c_pk / 2**30:.3f} GiB", flush=True)
     for what, ms16, ms32, pk16, pk32 in (
             ("dense", dense16_ms, dense_ms, dense16_peak, dense_peak),
             ("unbucketed", ub16_ms, unbucketed_ms, ub16_peak, unbucketed_peak)):

@@ -1,7 +1,8 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80+),
 // for the kernels that stream their operands through a ring:
-// message_table.cu, message_table_bwd.cu and rbf_classed.cu. A copy lands when its group has been
-// waited for; a barrier then makes it visible to the other threads.
+// message_table.cu, message_table_bwd.cu and rbf_tile.cuh's forward walk. A
+// copy lands when its group has been waited for; a barrier then makes it
+// visible to the other threads.
 #pragma once
 #include <cuda_runtime.h>
 

@@ -1,8 +1,8 @@
 // Warp-level tensor-core products for Hopper (sm_90a), shared by the
 // message-table forward and backward (message_tile.cuh, message_table.cu,
 // message_table_bwd.cu), the fused layer updates (fused_layers.cu) and the
-// classed RBF forward and weight gradient (rbf_classed.cu,
-// rbf_classed_dw.cu).
+// RBF projections' walks (rbf_tile.cuh: the classed and the dense forward
+// and their weight gradients).
 //
 // bf16: mma.sync m16n8k16, bf16 operands, fp32 accumulators; what each
 // product of the bf16 trunk computes (bf16 operands summed in fp32).

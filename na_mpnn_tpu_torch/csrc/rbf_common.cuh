@@ -1,6 +1,8 @@
-// What the four RBF projection kernels share: the class-specialised forward
-// (rbf_classed.cu) and its weight gradient (rbf_classed_dw.cu), the dense
-// forward (rbf_edge.cu) and its weight gradient (rbf_edge_dw.cu).
+// The per-pair bins of the four RBF projection kernels: the classed forward
+// (rbf_classed.cu, row 3) and the dense one (rbf_edge.cu, row 5), their
+// weight gradients (rbf_classed_dw.cu, row 4; rbf_edge_dw.cu, row 6). All
+// four run the tensor-core walks of rbf_tile.cuh and differ only in the kind
+// of bin (BinKind) and in the caller's weight.
 //
 // Operands, in every one of them: query rows Xq [Nq, 3*18] (x|y|z planes)
 // with atom masks Mq [Nq, 18], key rows Xk [Nk, 3*18] with masks Mk [Nk, 18],
@@ -9,16 +11,24 @@
 // route the queries are a shard's rows and the keys the all-gathered
 // structure, so nothing here assumes the two come from one array.
 //
-// The bins are those of the plain version (models/features.py::all_pair_rbf):
-// 16 Gaussians, mu = 2..22 A, sigma = 1.25, of the distance between query
-// atom qa and key atom na, exactly 0 where either atom is absent. The sum of
-// a dense and a class-split projection then agree, and every kernel computes
-// a bin alike, so a backward recomputes what its forward used.
+// The exact bins are those of the plain version
+// (models/features.py::all_pair_rbf): 16 Gaussians, mu = 2..22 A,
+// sigma = 1.25, of the distance between query atom qa and key atom na,
+// exactly 0 where either atom is absent. A dense and a class-split
+// projection then agree, and every kernel computes a bin alike, so a
+// backward recomputes what its forward used.
 //
-// The bf16 trunk's classed projection takes the TPU kernels' bf16 bins
-// instead (rbf_bin_damped, JAX rbf_classed.py:259-303): bin r of a pair is
-// max(u_r, d_{R-1-r}), the damped two-sided geometric walk, whose missing
-// factor e^{c r (R-1-r)} the weight rows carry (the fold scales).
+// The kinds:
+//   kExact      the exact fp32 Gaussians (rows 3-6 at fp32);
+//   kDamped     the classed bf16 branch's bins (rows 3, 4 at bf16; JAX
+//               rbf_classed.py:259-303): bin r of a pair is
+//               max(u_r, d_{R-1-r}), the damped two-sided geometric walk,
+//               rounded to bf16, whose missing factor e^{c r (R-1-r)} the
+//               weight rows carry (the fold scales);
+//   kExactBf16  the dense bf16 branch's bins (rows 5, 6 at bf16; JAX
+//               rbf_edge.py:63-78, :179-186): the exact Gaussian rounded to
+//               bf16 (expf, not __expf: a bin within an fp32 ulp of a bf16
+//               boundary must round as the plain version's does).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -28,38 +38,8 @@ namespace {
 
 constexpr int kA = 18;   // augmented atom slots
 constexpr int kR = 16;   // RBF bins
-constexpr int kTE = 32;  // edges per tile
 
-// Gather the query and key rows of the tile's edges [e0, e0 + kTE) into
-// shared memory: qx, nx [kTE][3*kA]; qm, nm [kTE][kA]; zeros past E.
-__device__ __forceinline__ void load_edge_tile(
-    const float* __restrict__ Xq, const float* __restrict__ Mq,
-    const float* __restrict__ Xk, const float* __restrict__ Mk,
-    const long long* __restrict__ nbr, int E, int K, int e0, float* qx,
-    float* nx, float* qm, float* nm) {
-  for (int idx = threadIdx.x; idx < kTE * 3 * kA; idx += blockDim.x) {
-    const int e = idx / (3 * kA), c = idx % (3 * kA);
-    const int ge = e0 + e;
-    float q = 0.f, n = 0.f;
-    if (ge < E) {
-      q = Xq[(size_t)(ge / K) * 3 * kA + c];
-      n = Xk[(size_t)nbr[ge] * 3 * kA + c];
-    }
-    qx[idx] = q;
-    nx[idx] = n;
-  }
-  for (int idx = threadIdx.x; idx < kTE * kA; idx += blockDim.x) {
-    const int e = idx / kA, c = idx % kA;
-    const int ge = e0 + e;
-    float q = 0.f, n = 0.f;
-    if (ge < E) {
-      q = Mq[(size_t)(ge / K) * kA + c];
-      n = Mk[(size_t)nbr[ge] * kA + c];
-    }
-    qm[idx] = q;
-    nm[idx] = n;
-  }
-}
+enum BinKind : int { kExact = 0, kDamped = 1, kExactBf16 = 2 };
 
 __device__ __forceinline__ float bin_mu(int r) {
   return (float)(2.0 + r * (20.0 / (kR - 1)));
@@ -80,15 +60,6 @@ __device__ __forceinline__ float pair_distance(const float* xq,
 __device__ __forceinline__ float gauss_bin(float D, float mu) {
   const float z = (D - mu) / 1.25f;
   return expf(-z * z);
-}
-
-// Bin r (centre mu) of the distance between query atom qa and key atom na of
-// tile edge e; 0 where either atom is absent.
-__device__ __forceinline__ float rbf_bin(const float* qx, const float* nx,
-                                         const float* qm, const float* nm,
-                                         int e, int qa, int na, float mu) {
-  if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
-  return gauss_bin(pair_distance(qx + e * 3 * kA, nx + e * 3 * kA, qa, na), mu);
 }
 
 // fp32 constants of the recursion, as the JAX package rounds them
@@ -135,32 +106,19 @@ __device__ __forceinline__ DampedWalk damped_walk(const float* xq,
   return w;
 }
 
-// Damped bin r of the pair (query atom qa, key atom na) of tile edge e, 0
-// where either atom is absent; R - 1 multiplications after the walk.
-__device__ __forceinline__ float rbf_bin_damped(const float* qx,
-                                                const float* nx,
-                                                const float* qm,
-                                                const float* nm, int e,
-                                                int qa, int na, int r) {
-  if (qm[e * kA + qa] == 0.f || nm[e * kA + na] == 0.f) return 0.f;
-  const DampedWalk w = damped_walk(qx + e * 3 * kA, nx + e * 3 * kA, qa, na);
-  float up = w.f_lo, down = w.f_hi;
-  for (int i = 0; i < r; ++i) up = __fmul_rn(up, w.up);
-  for (int i = 0; i < kR - 1 - r; ++i) down = __fmul_rn(down, w.down);
-  return fmaxf(up, down);
-}
-
-// All 16 bins of the pair (query atom qa of row xq, key atom na of row xn),
-// the distance or walk taken once: fp32 the exact Gaussians of rbf_bin,
-// bf16 (kLow) the damped bins of rbf_bin_damped rounded to bf16. The caller
-// handles absent atoms.
-template <bool kLow>
+// All 16 bins of the pair (query atom qa of row xq, key atom na of row xn)
+// of kind KIND, the distance or walk taken once. The caller handles absent
+// atoms.
+template <BinKind KIND>
 __device__ __forceinline__ void pair_bins(const float* xq, const float* xn,
                                           int qa, int na, float (&b)[kR]) {
-  if constexpr (!kLow) {
+  if constexpr (KIND != kDamped) {
     const float D = pair_distance(xq, xn, qa, na);
 #pragma unroll
-    for (int r = 0; r < kR; ++r) b[r] = gauss_bin(D, bin_mu(r));
+    for (int r = 0; r < kR; ++r) {
+      const float v = gauss_bin(D, bin_mu(r));
+      b[r] = KIND == kExactBf16 ? rnd<bf16>(v) : v;
+    }
   } else {
     const DampedWalk w = damped_walk(xq, xn, qa, na);
     float up = w.f_lo, down[kR];
@@ -175,37 +133,8 @@ __device__ __forceinline__ void pair_bins(const float* xq, const float* xn,
   }
 }
 
-// The weight-gradient tile product: acc[i][c] += sum_e bins[ty + 8i][e] *
-// gs[e][tx + 32c] over the tile's kTE edges, for a block of 256 threads
-// (8 x 32) that owns 8 * NI weight rows; bins [8*NI][kTE], gs [kTE][H].
-template <int H, int NI>
-__device__ __forceinline__ void dw_tile_product(const float* bins,
-                                                const float* gs,
-                                                float (&acc)[NI][H / 32]) {
-  constexpr int CPT = H / 32;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  for (int e4 = 0; e4 < kTE; e4 += 4) {
-    float4 bv[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-      bv[i] = *reinterpret_cast<const float4*>(bins + (ty + 8 * i) * kTE + e4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float gv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) gv[c] = gs[(e4 + j) * H + tx + 32 * c];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const float b = j == 0 ? bv[i].x : j == 1 ? bv[i].y : j == 2 ? bv[i].z : bv[i].w;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(b, gv[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-// dW[rowmap ? rowmap[row] : row][h] = sum_s part[s][row][h], s in order
-// (deterministic: no atomics anywhere in a weight gradient).
+// dW[rowmap[row]][h] = sum_s part[s][row][h], s in order (deterministic:
+// no atomics anywhere in a weight gradient).
 __global__ void dw_reduce(const float* __restrict__ part, int splits,
                           const long long* __restrict__ rowmap, int rows,
                           int H, float* __restrict__ dW) {
@@ -215,7 +144,7 @@ __global__ void dw_reduce(const float* __restrict__ part, int splits,
   float s = 0.f;
   for (int c = 0; c < splits; ++c) s += part[c * n + j];
   const size_t row = j / H, h = j % H;
-  dW[(size_t)(rowmap ? rowmap[row] : (long long)row) * H + h] = s;
+  dW[(size_t)rowmap[row] * H + h] = s;
 }
 
 }  // namespace

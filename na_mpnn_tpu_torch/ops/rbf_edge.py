@@ -10,10 +10,19 @@ bin rounded to bf16, times ``bf16(W)``, summed in fp32 into an fp32
 ``*_bf16`` entries of the same sources, launches counted as
 ``rbf_edge_bf16`` / ``rbf_edge_dw_bf16``). The function is
 ``all_pair_rbf(...) @ W`` over the full 18×18 atom-pair × 16-bin grid, the
-same function as the class-specialised kernel of ``ops/rbf_classed.py``,
-which computes only the populated class blocks. ``W`` stays in the reference
-row order ``(a*18 + b)*16 + r``: the TPU kernel's bin-major permutation of
-the weight serves its one-hot expansion matmuls and is not carried over.
+same function as the class-specialised projection of ``ops/rbf_classed.py``
+at fp32: every pair outside the atom-pair groups an edge feeds has an
+absent atom. So both run the same tensor-core walks over each edge's
+groups (``csrc/rbf_tile.cuh``, launched by ``ops/rbf_common.py``'s
+``group_forward`` and ``group_dw``), the fp32 ones the same instantiation;
+at bf16 the dense kernels take the exact bins rounded to bf16 where the
+classed ones take the damped bins. ``W`` stays in the reference row order
+``(a*18 + b)*16 + r`` at this module's functions and is permuted into the
+walks' pair-major group tables per call, with no fold scale; the weight
+gradient comes back in the reference order. The forward takes every width
+in ``FORWARD_WIDTHS`` (the old scalar kernel took any H up to 256; the walk
+takes multiples of 32), the weight gradient those in ``DW_WIDTHS``; any
+other raises ``ValueError``.
 
 Each function takes query rows and, optionally, key rows (the graph-parallel
 forward's shard against the all-gathered structure); ``E_idx`` indexes the
@@ -23,16 +32,14 @@ key rows. The projection is a ``torch.autograd.Function`` with a gradient for
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from . import LAUNCHES, check_operand, raise_on_error
+from .rbf_common import NUM_RBF, ROWS, group_dw, group_forward
 
-A = 18                   # augmented atom slots
-NUM_RBF = 16
-ROWS = A * A * NUM_RBF   # 5184
+# The widths each kernel is built for (``csrc/rbf_edge.cu``'s
+# ``RBF_EDGE_WIDTHS``, ``csrc/rbf_edge_dw.cu``'s instantiations).
+FORWARD_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
+DW_WIDTHS = (32, 64, 128)
 
 
 def rbf_edge_features_plain(X_aug, X_m_aug, E_idx, W, X_aug_k=None,
@@ -67,123 +74,35 @@ def rbf_edge_dw_bf16_plain(X_aug, X_m_aug, E_idx, g, X_aug_k=None, X_m_k=None):
     return rbf.T @ g.reshape(-1, g.shape[-1]).to(torch.bfloat16).float()
 
 
-@functools.cache
-def _perm_index(perm, device):
-    """The atom permutation as an index tensor on ``device``, made once: a
-    copy from host memory would wait for the device's queue to drain."""
-    return torch.as_tensor(perm, device=device)
-
-
-def edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k, perm):
-    """Check the RBF kernels' operands and lay them out: query rows as
-    ``[x-plane | y-plane | z-plane]`` ``[B*Lq, 54]`` with their masks
-    ``[B*Lq, 18]``, the same of the key rows ``[B*Lk, ...]``, and the flat
-    key row of every edge ``[E]``; atom slots in ``perm`` order (None: the
-    reference order). Without key rows (None) the keys are the queries, and
-    keys that are the query tensors are laid out once."""
-    from ..models.modules import flat_rows
-
-    if X_aug_k is None:
-        X_aug_k, X_m_k = X_aug, X_m_aug
-    B, Lq, A_, _ = X_aug.shape
-    K = E_idx.shape[2]
-    if A_ != A:
-        raise ValueError(f"rbf kernel: needs the {A}-atom frame, got {A_}")
-    check_operand(E_idx, "E_idx", torch.int64, (B, Lq, K))
-    idx = None if perm is None else _perm_index(tuple(perm), X_aug.device)
-
-    def rows(X, M, name):
-        L = X.shape[1]
-        check_operand(X, f"X_aug{name}", torch.float32, (B, L, A, 3))
-        check_operand(M, f"X_m{name}", torch.float32, (B, L, A))
-        if idx is not None:
-            X, M = X[:, :, idx, :], M[:, :, idx]
-        return (X.permute(0, 1, 3, 2).reshape(B * L, 3 * A).contiguous(),
-                M.reshape(B * L, A).contiguous())
-
-    Xq, Mq = rows(X_aug, X_m_aug, "")
-    Xk, Mk = ((Xq, Mq) if X_aug_k is X_aug and X_m_k is X_m_aug
-              else rows(X_aug_k, X_m_k, "_k"))
-    nbr = flat_rows(E_idx, X_aug_k.shape[1]).reshape(-1).contiguous()
-    return Xq, Mq, Xk, Mk, nbr
-
-
-def _forward_launch(symbol, X_aug, X_m_aug, E_idx, W, X_aug_k, X_m_k, name,
-                    w_dtype):
-    from ._build import library, ptr, stream_ptr
-
-    B, L, K = E_idx.shape
-    H = W.shape[1]
-    Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k,
-                                        None)
-    check_operand(W, "W", torch.float32, (ROWS, H))
-    W = W.to(w_dtype).contiguous()
-    E = B * L * K
-    out = torch.empty((E, H), dtype=torch.float32, device=X_aug.device)
-    fn = getattr(library("rbf_edge"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), E, K, H, ptr(W),
-             ptr(out), stream_ptr(X_aug.device))
-    raise_on_error(err, name)
-    LAUNCHES[name] += 1
-    return out.view(B, L, K, H)
-
-
 def rbf_edge_cuda(X_aug, X_m_aug, E_idx, W, X_aug_k=None, X_m_k=None):
     """Launch ``csrc/rbf_edge.cu`` on fp32 CUDA tensors (the contract of
     ``rbf_edge_features_plain``)."""
-    return _forward_launch("rbf_edge_forward", X_aug, X_m_aug, E_idx, W,
-                           X_aug_k, X_m_k, "rbf_edge", torch.float32)
+    return group_forward("rbf_edge", "rbf_edge_forward", "rbf_edge",
+                         FORWARD_WIDTHS, torch.float32, X_aug, X_m_aug, E_idx,
+                         W, X_aug_k, X_m_k)
 
 
 def rbf_edge_bf16_cuda(X_aug, X_m_aug, E_idx, W, X_aug_k=None, X_m_k=None):
     """Launch the bf16 entry of ``csrc/rbf_edge.cu`` (the contract of
-    ``rbf_edge_bf16_plain``): the fp32 ``W`` is rounded to bf16 here."""
-    return _forward_launch("rbf_edge_forward_bf16", X_aug, X_m_aug, E_idx, W,
-                           X_aug_k, X_m_k, "rbf_edge_bf16", torch.bfloat16)
-
-
-def _dw_launch(symbol, X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k, name):
-    from ._build import library, ptr, stream_ptr
-
-    B, L, K = E_idx.shape
-    H = g.shape[-1]
-    E = B * L * K
-    Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k,
-                                        None)
-    g = g.reshape(E, H)
-    check_operand(g, "g", torch.float32, (E, H))
-    lib = library("rbf_edge_dw")
-    lib.rbf_edge_dw_splits.restype = ctypes.c_int
-    dev = X_aug.device
-    part = torch.empty((lib.rbf_edge_dw_splits(), ROWS, H), dtype=torch.float32,
-                       device=dev)
-    dW = torch.empty((ROWS, H), dtype=torch.float32, device=dev)
-    fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), ptr(g), E, K, H,
-             ptr(part), ptr(dW), stream_ptr(dev))
-    raise_on_error(err, name)
-    LAUNCHES[name] += 1
-    return dW
+    ``rbf_edge_bf16_plain``): the fp32 ``W`` is permuted into the four
+    pair-major group tables and rounded to bf16 here."""
+    return group_forward("rbf_edge", "rbf_edge_forward_bf16", "rbf_edge_bf16",
+                         FORWARD_WIDTHS, torch.bfloat16, X_aug, X_m_aug, E_idx,
+                         W, X_aug_k, X_m_k)
 
 
 def rbf_edge_dw_cuda(X_aug, X_m_aug, E_idx, g, X_aug_k=None, X_m_k=None):
     """Launch ``csrc/rbf_edge_dw.cu`` on fp32 CUDA tensors (the contract of
     ``rbf_edge_dw_plain``)."""
-    return _dw_launch("rbf_edge_dw", X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k,
-                      "rbf_edge_dw")
+    return group_dw("rbf_edge_dw", "rbf_edge_dw", "rbf_edge_dw", DW_WIDTHS,
+                    X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k)
 
 
 def rbf_edge_dw_bf16_cuda(X_aug, X_m_aug, E_idx, g, X_aug_k=None, X_m_k=None):
     """Launch the bf16 entry of ``csrc/rbf_edge_dw.cu`` (the contract of
     ``rbf_edge_dw_bf16_plain``; fp32 ``g`` and result)."""
-    return _dw_launch("rbf_edge_dw_bf16", X_aug, X_m_aug, E_idx, g, X_aug_k,
-                      X_m_k, "rbf_edge_dw_bf16")
+    return group_dw("rbf_edge_dw", "rbf_edge_dw_bf16", "rbf_edge_dw_bf16",
+                    DW_WIDTHS, X_aug, X_m_aug, E_idx, g, X_aug_k, X_m_k)
 
 
 class RbfProjection(torch.autograd.Function):

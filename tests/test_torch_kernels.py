@@ -21,7 +21,7 @@ from na_mpnn_tpu.ops import message_kernels as jmk
 from na_mpnn_tpu.ops.knn import knn_graph_pallas
 from na_mpnn_tpu.ops.rbf_classed import rbf_edge_features_classed as jax_rbf
 
-from na_mpnn_tpu_torch.ops import knn, message_kernels, rbf_classed
+from na_mpnn_tpu_torch.ops import knn, message_kernels, rbf_classed, rbf_common
 from na_mpnn_tpu_torch.params import from_jax_params
 
 
@@ -89,11 +89,11 @@ def test_rbf_classed_matches_pallas_and_dense(rbf_case):
 
 
 def test_rbf_group_tables_cover_the_weight_once():
-    rows = np.concatenate(rbf_classed.group_rows())
+    rows = np.concatenate(rbf_common.group_rows())
     assert len(rows) == len(set(rows.tolist()))
-    sizes = [len(r) for r in rbf_classed.group_rows()]
+    sizes = [len(r) for r in rbf_common.group_rows()]
     assert sizes == [400, 1040, 1040, 2704]
-    assert sorted(rbf_classed.PERM) == list(range(18))
+    assert sorted(rbf_common.PERM) == list(range(18))
 
 
 @pytest.fixture

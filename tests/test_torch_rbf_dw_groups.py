@@ -1,5 +1,5 @@
 """The per-edge group lists and the pair-major row order behind the classed
-RBF weight-gradient kernel (``ops/rbf_classed.py``: ``edge_groups``,
+RBF weight-gradient kernel (``ops/rbf_common.py``: ``edge_groups``,
 ``edge_group_lists``, ``_pair_row_map``). The kernel runs only on the card;
 this file holds, on the CPU, the glue it is given and the decomposition it
 computes: each group table's rows summed over that group's edge list only.
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from na_mpnn_tpu.ops import rbf_classed as jrbf
 
-from na_mpnn_tpu_torch.ops import rbf_classed
+from na_mpnn_tpu_torch.ops import rbf_classed, rbf_common
 
 H = 64
 
@@ -46,18 +46,18 @@ def case():
 
 def _lists(X, Xm, E_idx):
     # the masks and neighbour rows as the wrapper lays them out for the
-    # kernel (ops/rbf_edge.py::edge_operands, which takes CUDA tensors only)
+    # kernel (ops/rbf_common.py::edge_operands, which takes CUDA tensors only)
     B, L, K = E_idx.shape
-    M = Xm[:, :, rbf_classed.PERM].reshape(B * L, 18)
+    M = Xm[:, :, rbf_common.PERM].reshape(B * L, 18)
     nbr = (E_idx + L * torch.arange(B)[:, None, None]).reshape(-1)
-    member = rbf_classed.edge_groups(M, M, nbr, K)
-    lists, counts = rbf_classed.edge_group_lists(member)
+    member = rbf_common.edge_groups(M, M, nbr, K)
+    lists, counts = rbf_common.edge_group_lists(member)
     return member, lists, counts
 
 
 def _group_slices():
     """(start, stop) of each group's rows in the kernel's row order."""
-    sizes = [16 * len(q) * len(n) for q, n in rbf_classed.GROUP_SELS]
+    sizes = [16 * len(q) * len(n) for q, n in rbf_common.GROUP_SELS]
     ends = np.cumsum(sizes)
     return [(int(e - s), int(e)) for s, e in zip(sizes, ends)]
 
@@ -66,7 +66,7 @@ def _by_groups(dw_fn, X, Xm, E_idx, G, lists, counts):
     """The kernel's decomposition: each group's rows from the plain weight
     gradient over that group's listed edges alone (the cotangent of every
     other edge set to 0), written through the pair-major row map."""
-    rowmap = rbf_classed._pair_row_map(torch.device("cpu"))
+    rowmap = rbf_common._pair_row_map(torch.device("cpu"))
     out = torch.zeros((rowmap.shape[0], G.shape[-1]), dtype=G.dtype)
     flat = G.reshape(-1, G.shape[-1])
     for grp, (lo, hi) in enumerate(_group_slices()):
@@ -97,7 +97,7 @@ def test_group_lists_follow_the_sides_of_both_residues(case):
     # an interface: protein queries with nucleic neighbours and the reverse
     assert int(counts[1]) > 0 and int(counts[2]) > 0
     # residue sides: protein 0, nucleic 1, both blocks 2
-    sides = rbf_classed.residue_sides(Xm.reshape(-1, 18)[:, rbf_classed.PERM])
+    sides = rbf_common.residue_sides(Xm.reshape(-1, 18)[:, rbf_common.PERM])
     assert int(sides[5]) == 2 and int(sides[0]) == 0 and int(sides[25]) == 1
 
 
@@ -105,9 +105,9 @@ def test_pair_row_map_is_a_permutation_onto_the_reference_order():
     """Each group's rows in the kernel's pair-major order map onto the
     reference rows of that group's table (``group_rows``, the forward
     kernel's bin-major order), and all of them onto the whole weight."""
-    rowmap = rbf_classed._pair_row_map(torch.device("cpu"))
+    rowmap = rbf_common._pair_row_map(torch.device("cpu"))
     assert torch.equal(torch.sort(rowmap).values, torch.arange(18 * 18 * 16))
-    for (lo, hi), want in zip(_group_slices(), rbf_classed.group_rows()):
+    for (lo, hi), want in zip(_group_slices(), rbf_common.group_rows()):
         assert sorted(rowmap[lo:hi].tolist()) == sorted(want.tolist())
         # pair-major: 16 consecutive kernel rows are one pair's 16 bins
         blk = rowmap[lo:hi].view(-1, 16)

@@ -1,5 +1,5 @@
 """The per-edge classification behind the classed RBF forward kernel
-(``csrc/rbf_classed.cu``; ``ops/rbf_classed.py``: ``edge_list_codes``,
+(``csrc/rbf_classed.cu``; ``ops/rbf_common.py``: ``edge_list_codes``,
 ``edge_tile_order``, ``_pair_row_map``). The kernel runs only on the card;
 this file holds, on the CPU, the glue it is given and a plain model of what
 it computes from it: the four group tables in the pair-major row order, the
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 from na_mpnn_tpu.ops import rbf_classed as jrbf
 
 from na_mpnn_tpu_torch.models.features import all_pair_rbf
-from na_mpnn_tpu_torch.ops import rbf_classed
+from na_mpnn_tpu_torch.ops import rbf_classed, rbf_common
 
 H, B, LK, K, TILE = 32, 2, 48, 8, 64
 
@@ -65,25 +65,25 @@ def _operands(X, Xm, E_idx, keys):
 
 def _member(Mq_ref, Mk_ref, E_idx):
     """The per-edge groups and list codes on CPU tensors: masks in PERM
-    order, flat key rows (``ops/rbf_edge.py::edge_operands`` takes CUDA
+    order, flat key rows (``ops/rbf_common.py::edge_operands`` takes CUDA
     tensors only)."""
     Lq, Lk = Mq_ref.shape[1], Mk_ref.shape[1]
-    Mq = Mq_ref[:, :, rbf_classed.PERM].reshape(B * Lq, 18)
-    Mk = Mk_ref[:, :, rbf_classed.PERM].reshape(B * Lk, 18)
+    Mq = Mq_ref[:, :, rbf_common.PERM].reshape(B * Lq, 18)
+    Mk = Mk_ref[:, :, rbf_common.PERM].reshape(B * Lk, 18)
     nbr = (E_idx + Lk * torch.arange(B)[:, None, None]).reshape(-1)
-    return (rbf_classed.edge_groups(Mq, Mk, nbr, K),
-            rbf_classed.edge_list_codes(Mq, Mk, nbr, K))
+    return (rbf_common.edge_groups(Mq, Mk, nbr, K),
+            rbf_common.edge_list_codes(Mq, Mk, nbr, K))
 
 
 def _lists(code):
     """The kernel's five lists from the sorted order and the counts."""
-    order, counts = rbf_classed.edge_tile_order(code)
+    order, counts = rbf_common.edge_tile_order(code)
     ends = torch.cumsum(counts, 0)
     return [order[int(e - c):int(e)] for e, c in zip(ends, counts)]
 
 
 def _group_slices():
-    sizes = [16 * len(q) * len(n) for q, n in rbf_classed.GROUP_SELS]
+    sizes = [16 * len(q) * len(n) for q, n in rbf_common.GROUP_SELS]
     ends = np.cumsum(sizes)
     return [(int(e - s), int(e)) for s, e in zip(sizes, ends)]
 
@@ -92,7 +92,7 @@ def per_group_forward(bins, member, code, W):
     """The kernel's decomposition: ``bins [E, 5184]`` and ``W [5184, H]`` in
     the reference order -> ``[E, H]``, tile by tile of each list, each
     group's pair-major rows in turn."""
-    rowmap = rbf_classed._pair_row_map(torch.device("cpu"))
+    rowmap = rbf_common._pair_row_map(torch.device("cpu"))
     bins_k, table = bins[:, rowmap], W[rowmap]
     out = torch.full((bins.shape[0], W.shape[1]), float("nan"), dtype=bins.dtype)
     slices = _group_slices()
