@@ -51,13 +51,18 @@ CUDA toolkit. Phases, each of which raises on failure:
    and one step's loss and gradients with the kernels against
    ``kernels="torch"`` on the card;
 6. the pre-gathered message MLP (rows 7, 8: ``csrc/message_mlp.cu``,
-   ``csrc/message_mlp_bwd.cu``) against its plain versions at N = 6000,
-   K = 32, H = 128 in all four (contract_e, aggregate) variants, the
-   backward bitwise equal across two launches; 5 full-width Trainer steps
+   ``csrc/message_mlp_bwd.cu``, on rows 9 and 10's tile walks) against its
+   plain versions in all four (contract_e, aggregate) variants, at N = 203
+   for K = 1, 30, 48, 64 (H = 128) and H = 32, 64 (K = 32), then timed at
+   N = 6000, K = 32, H = 128, every output of both bitwise equal across two
+   launches; 5 full-width Trainer steps
    on a batch collated with ``use_buckets=False`` (B=8, L=750), where the
    decoder takes the gathered route (launches per step: kNN 1, RBF 1, RBF
    dW 1, message table 6 and its backward 6, ``message_mlp`` 3 and its
-   backward 3), and one such step against ``kernels="torch"``;
+   backward 3), one such step against ``kernels="torch"``, and a
+   ``torch.profiler`` trace of 3 more steps (rows 7 and 8's device ms per
+   step, the busy share), each at fp32 and bf16, the step's ms and peak
+   memory beside the classed L=768 step's;
 7. the training loop: 16 synthetic PDBs through the port's
    ``cli/preprocess``, then ``run_training`` for 2 epochs (2 loader
    workers, 6000-token batches, a ``torch.profiler`` capture of 3 steps)
@@ -1410,11 +1415,12 @@ def _bwd_bound(mode, N, K, H, C, g_rows, esize=4, peak=PEAK_FP32_FLOPS):
     return _bound_ms(ops, nbytes, peak)
 
 
-# The times of rows 3-6, 9 and 10 in their earlier scalar-FMA form, from
-# PERF.md's kernel table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W; at
-# the training shape, row 3 also at B=1 x L=389, row 9 with x, rows 5 and 6
-# bf16 also for the 192-row shard): reference values printed beside this
-# run's times, never part of the kernels JSON line.
+# The times of rows 3-10 in their earlier scalar-FMA form, from PERF.md's
+# kernel table (chip_smoke on an NVIDIA H100 80GB HBM3, 700 W; at the
+# training shape, row 3 also at B=1 x L=389, row 9 with x, rows 5 and 6
+# bf16 also for the 192-row shard, rows 7 and 8 at N = 6000 in the
+# decoder's variant): reference values printed beside this run's times,
+# never part of the kernels JSON line.
 SCALAR_MS = {"rbf_edge": 14.9462, "rbf_edge_bf16": 14.9361, "rbf_edge_dw": 18.1993,
              "rbf_edge_dw_bf16": 18.9127, "rbf_edge_bf16_shard": 3.7499,
              "rbf_edge_dw_bf16_shard": 4.8752,
@@ -1426,7 +1432,9 @@ SCALAR_MS = {"rbf_edge": 14.9462, "rbf_edge_bf16": 14.9361, "rbf_edge_dw": 18.19
              "rbf_classed": 4.1096, "rbf_classed_bf16": 5.1675, "rbf_classed_B1": 1.3518,
              "message_table_enc_node": 0.7693, "message_table_enc_edge": 0.8056,
              "message_table_dec": 0.7934, "message_table_enc_node_bf16": 0.7605,
-             "message_table_enc_edge_bf16": 0.7961, "message_table_dec_bf16": 0.7793}
+             "message_table_enc_edge_bf16": 0.7961, "message_table_dec_bf16": 0.7793,
+             # rows 7 / 8 at N = 6000 by (contract_e, aggregate), forward / backward
+             "message_mlp_01": (0.5043, 2.8953), "message_mlp_bf16_01": (0.5076, 2.5890)}
 
 
 def _launch_bytes(fn):
@@ -2029,27 +2037,22 @@ def _message_mlp_bound(N, K, H, contract_e, aggregate, backward=False, esize=4,
     return _bound_ms(ops, nbytes, peak)
 
 
-def message_mlp_phase(low=False):
-    """Rows 7 and 8 (``csrc/message_mlp.cu``, ``csrc/message_mlp_bwd.cu``)
-    against their plain versions on the card at N = 6000 nodes, K = 32, H =
-    128, in all four (contract_e, aggregate) variants: at fp32 relative error
-    < 1e-5 on outputs and per-node / per-edge gradients, < 1e-4 on the weight
-    and bias gradients (sums over all edges); with ``low`` the bf16 variants
-    (every operand bf16) against their plain bf16 versions, < 2^-6 on every
-    bf16 output, and every output nearer its plain version than the fp32
-    kernel's on the widened inputs (``_check_rounding``), bounds at the bf16
-    peak with bf16 bytes. The backward
-    bitwise equal across two launches. Returns the JSON rows of the
-    decoder's variant (False, True), the one on the training path."""
-    import torch
-    from na_mpnn_tpu_torch.ops import message_kernels as mk
+# Rows 7 and 8 beside the training shape: K over 1..64 and the narrower
+# widths at N = 203 nodes, a multiple of neither walk's nodes per tile
+# (table_tile_nodes, bwd_tile_nodes) where a tile holds more than one node.
+MLP_SMALL = ((1, 128), (30, 128), (48, 128), (64, 128), (32, 32), (32, 64))
+MLP_SMALL_N = 203
+MLP_N = 6000       # the training shape's nodes (B=8 x L=750)
+MLP_NAMES = ("g_hV", "g_ein", "g_G", "dwa", "dwb", "db1", "dw2", "db2", "dw3", "db3")
 
+
+def _mlp_operands(N, K, H, dt, seed):
+    """Random operands of rows 7 and 8 on the card: (args, gen) with args
+    ``(h_V, e_in, G, mask, wa, wb, b1, w2, b2, w3, b3)`` of type ``dt``, a
+    0/1 mask with a fifth of the edges off."""
+    import torch
     dev = torch.device("cuda")
-    N, K, H = 6000, 32, 128
-    dt = torch.bfloat16 if low else torch.float32
-    sfx = "_bf16" if low else ""
-    peak, esize = (PEAK_BF16_FLOPS, 2) if low else (PEAK_FP32_FLOPS, 4)
-    gen = torch.Generator(device=dev).manual_seed(8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     h_V = torch.randn((N, H), generator=gen, device=dev).to(dt)
     e_in = torch.randn((N * K, H), generator=gen, device=dev).to(dt)
     G = torch.randn((N * K, H), generator=gen, device=dev).to(dt)
@@ -2057,30 +2060,93 @@ def message_mlp_phase(low=False):
     wa, wb, w2, w3 = ((torch.randn((H, H), generator=gen, device=dev) / H ** 0.5).to(dt)
                       for _ in range(4))
     b1, b2, b3 = (torch.randn((H,), generator=gen, device=dev).to(dt) for _ in range(3))
-    args = (h_V, e_in, G, mask, wa, wb, b1, w2, b2, w3, b3)
-    names = ("g_hV", "g_ein", "g_G", "dwa", "dwb", "db1", "dw2", "db2", "dw3", "db3")
+    return (h_V, e_in, G, mask, wa, wb, b1, w2, b2, w3, b3), gen
+
+
+def _mlp_check(args, g, flags, low, tag):
+    """Rows 7 and 8 of one launch against their plain versions (fp32: < 1e-5
+    of the max on the output and the per-node and per-edge gradients, < 1e-4
+    on the weight and bias sums; bf16: < 2^-6 on every output), each output
+    bitwise equal across two launches. Returns (out_k, out_p, got, want,
+    errs, rel)."""
+    import torch
+    from na_mpnn_tpu_torch.ops import message_kernels as mk
+    dt = args[0].dtype
     out_tol = BF16_TOL if low else REL_TOL
+    out_k = mk.message_mlp_cuda(*args, **flags)
+    out_again = mk.message_mlp_cuda(*args, **flags)
+    out_p = mk.message_mlp_plain(*args, **flags)
+    rel = _rel_err(out_k.float(), out_p.float())
+    if out_k.dtype != dt or not rel < out_tol:
+        raise AssertionError(f"message_mlp {tag}: {out_k.dtype}, rel err {rel:.3g}")
+    if not torch.equal(out_k, out_again):
+        raise AssertionError(f"message_mlp {tag}: two launches differ")
+    got = [t.clone() for t in mk.message_mlp_bwd_cuda(*args, g, **flags)]
+    again = mk.message_mlp_bwd_cuda(*args, g, **flags)
+    want = mk.message_mlp_bwd_plain(*args, g, **flags)
+    errs = {n: _rel_err(a.float(), b.float()) for n, a, b in zip(MLP_NAMES, got, want)}
+    if not flags["contract_e"]:     # dwb: zero, as the JAX VJP returns it
+        if bool(got[4].any()):
+            raise AssertionError(f"message_mlp_bwd {tag}: dwb is not zero")
+        errs["dwb"] = 0.0
+    for n, e in errs.items():
+        tol = (BF16_TOL if low else
+               REL_TOL if n in ("g_hV", "g_ein", "g_G") else 1e-4)
+        if not e < tol:
+            raise AssertionError(f"message_mlp_bwd {tag} {n}: rel err {e:.3g} (tol {tol})")
+    if not all(a.dtype == dt and torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"message_mlp_bwd {tag}: two launches differ (or an "
+                             f"output is not {dt})")
+    return out_k, out_p, got, want, errs, rel
+
+
+def message_mlp_phase(low=False):
+    """Rows 7 and 8 (``csrc/message_mlp.cu``, ``csrc/message_mlp_bwd.cu``)
+    against their plain versions on the card (``_mlp_check``: at fp32
+    relative error < 1e-5 on outputs and per-node / per-edge gradients,
+    < 1e-4 on the weight and bias gradients, sums over all edges; with
+    ``low`` the bf16 variants, every operand bf16, < 2^-6 on every bf16
+    output; every output, the forward's too, bitwise equal across two
+    launches) in all four (contract_e, aggregate) variants: first at N = 203
+    for K in 1, 30, 48, 64 at H = 128 and K = 32 at H = 32 and 64
+    (``MLP_SMALL``), then at the training shape N = 6000, K = 32, H = 128,
+    where at bf16 every output is also nearer its plain version than the
+    fp32 kernel's on the widened inputs (``_check_rounding``), and each
+    variant is timed (bounds at the bf16 peak with bf16 bytes for ``low``).
+    Returns the JSON rows of the decoder's variant (False, True), the one on
+    the training path."""
+    import torch
+    from na_mpnn_tpu_torch.ops import message_kernels as mk
+
+    dt = torch.bfloat16 if low else torch.float32
+    sfx = "_bf16" if low else ""
+    peak, esize = (PEAK_BF16_FLOPS, 2) if low else (PEAK_FP32_FLOPS, 4)
+    worst = {}
+    for K, H in MLP_SMALL:
+        args, gen = _mlp_operands(MLP_SMALL_N, K, H, dt, 9 + K + H)
+        for ce, agg in MLP_FLAGS:
+            flags = dict(K=K, contract_e=ce, aggregate=agg)
+            g = torch.randn((MLP_SMALL_N if agg else MLP_SMALL_N * K, H), generator=gen,
+                            device="cuda").to(dt)
+            *_, errs, rel = _mlp_check(args, g, flags, low, f"{sfx} K={K} H={H} {ce, agg}")
+            for n, e in (("out", rel), *errs.items()):
+                if n not in worst or e > worst[n][0]:
+                    worst[n] = (e, f"K={K} H={H} {int(ce)}{int(agg)}")
+    print(f"message_mlp{sfx} and its backward at N={MLP_SMALL_N}, (K, H) in "
+          f"{list(MLP_SMALL)}, all four (contract_e, aggregate): within the bars, "
+          f"every output bitwise equal across two launches; worst rel err per "
+          f"output: " + ", ".join(f"{n} {e:.3g} ({at})" for n, (e, at) in worst.items()),
+          flush=True)
+
+    N, K, H = MLP_N, 32, 128
+    args, gen = _mlp_operands(N, K, H, dt, 8)
     args32 = tuple(t.float() for t in args)
     rows = {}
     for ce, agg in MLP_FLAGS:
         flags = dict(K=K, contract_e=ce, aggregate=agg)
-        out_k = mk.message_mlp_cuda(*args, **flags)
-        out_p = mk.message_mlp_plain(*args, **flags)
-        rel = _rel_err(out_k.float(), out_p.float())
-        if out_k.dtype != dt or not rel < out_tol:
-            raise AssertionError(f"message_mlp{sfx} {ce, agg}: {out_k.dtype}, "
-                                 f"rel err {rel:.3g}")
-        g = torch.randn((N if agg else N * K, H), generator=gen, device=dev).to(dt)
-        got = [t.clone() for t in mk.message_mlp_bwd_cuda(*args, g, **flags)]
-        again = mk.message_mlp_bwd_cuda(*args, g, **flags)
-        want = mk.message_mlp_bwd_plain(*args, g, **flags)
-        errs = {n: _rel_err(a.float(), b.float()) for n, a, b in zip(names, got, want)}
-        for n, e in errs.items():
-            tol = (BF16_TOL if low else
-                   REL_TOL if n in ("g_hV", "g_ein", "g_G") else 1e-4)
-            if not e < tol:
-                raise AssertionError(f"message_mlp_bwd{sfx} {ce, agg} {n}: rel err "
-                                     f"{e:.3g} (tol {tol})")
+        g = torch.randn((N if agg else N * K, H), generator=gen, device="cuda").to(dt)
+        out_k, out_p, got, want, errs, rel = _mlp_check(args, g, flags, low,
+                                                        f"{sfx} {ce, agg}")
         rounding = ""
         if low:     # every output against the fp32 kernel's (dwb is zero
             # without contract_e)
@@ -2088,14 +2154,11 @@ def message_mlp_phase(low=False):
                                            mk.message_mlp_cuda(*args32, **flags))}
             g32 = mk.message_mlp_bwd_cuda(*args32, g.float(), **flags)
             seps.update((n, _check_rounding(f"message_mlp_bwd_bf16 {ce, agg} {n}", a, b, c))
-                        for n, a, b, c in zip(names, got, want, g32) if n != "dwb" or ce)
+                        for n, a, b, c in zip(MLP_NAMES, got, want, g32) if n != "dwb" or ce)
             n = min(seps, key=lambda n: seps[n][1] / (seps[n][0] + 1e-30))
             rounding = (f"; nearest the fp32 kernel: {n}, rms {seps[n][0]:.3g} from "
                         f"plain vs {seps[n][1]:.3g} from fp32")
             del g32
-        if not all(a.dtype == dt and torch.equal(a, c) for a, c in zip(got, again)):
-            raise AssertionError(f"message_mlp_bwd{sfx} {ce, agg}: two launches "
-                                 f"differ (or an output is not {dt})")
         ms = _sync_time(lambda: mk.message_mlp_cuda(*args, **flags), 10)
         plain_ms = _sync_time(lambda: mk.message_mlp_plain(*args, **flags), 3)
         bms = _sync_time(lambda: mk.message_mlp_bwd_cuda(*args, g, **flags), 10)
@@ -2104,13 +2167,17 @@ def message_mlp_phase(low=False):
         bb = _message_mlp_bound(N, K, H, ce, agg, backward=True, esize=esize,
                                 peak=peak)
         worst = max(errs, key=errs.get)
+        earlier = SCALAR_MS.get(f"message_mlp{sfx}_{int(ce)}{int(agg)}")
+        note = (f" (scalar-FMA form, PERF.md: {earlier[0]} / {earlier[1]} ms)"
+                if earlier else "")
         print(f"message_mlp{sfx} contract_e={ce} aggregate={agg} N={N} K={K} H={H}: "
-              f"rel err {rel:.3g} (< {out_tol:.3g}), {ms:.4f} ms (plain {plain_ms:.4f} "
-              f"ms, bound {fb[0]:.5f} ms by {fb[1]}, {ms / fb[0]:.1f}x); backward "
-              f"worst rel err {errs[worst]:.3g} ({worst}), g_hV {errs['g_hV']:.3g}, "
-              f"g_G {errs['g_G']:.3g}, two launches bitwise equal{rounding}, {bms:.4f} ms "
+              f"rel err {rel:.3g} (< {BF16_TOL if low else REL_TOL:.3g}), two launches "
+              f"bitwise equal, {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {fb[0]:.5f} "
+              f"ms by {fb[1]}, {ms / fb[0]:.1f}x); backward worst rel err "
+              f"{errs[worst]:.3g} ({worst}), g_hV {errs['g_hV']:.3g}, g_G "
+              f"{errs['g_G']:.3g}, two launches bitwise equal{rounding}, {bms:.4f} ms "
               f"(plain {bplain_ms:.4f} ms, bound {bb[0]:.5f} ms by {bb[1]}, "
-              f"{bms / bb[0]:.1f}x)", flush=True)
+              f"{bms / bb[0]:.1f}x){note}", flush=True)
         if (ce, agg) == (False, True):
             rows["message_mlp" + sfx] = dict(
                 max_abs_err=float((out_k.float() - out_p.float()).abs().max()), ms=ms,
@@ -2119,7 +2186,7 @@ def message_mlp_phase(low=False):
                 max_abs_err=max(float((a.float() - b.float()).abs().max())
                                 for a, b in zip(got, want)),
                 ms=bms, plain_ms=bplain_ms, bound_ms=bb[0], bound_by=bb[1])
-        del out_k, out_p, got, again, want, g
+        del out_k, out_p, got, want, g
     return rows
 
 
@@ -2455,6 +2522,14 @@ def unbucketed_batch():
     return batch
 
 
+# Rows 7 and 8's kernels by name in a profile (``csrc/message_mlp.cu``;
+# ``csrc/message_mlp_bwd.cu``: the tile walk, the weight gradients and the
+# two ordered reductions).
+MLP_KERNELS = {"row 7": ("message_mlp_kernel",),
+               "row 8": ("mlp_tile_kernel", "mlp_wgrad_kernel", "mlp_reduce_weights",
+                         "mlp_reduce_biases")}
+
+
 def unbucketed_training_phase(nb, low=False):
     """5 full-width Trainer steps (dropout 0.1, noise 0.1 A; fp32, or with
     ``low`` the bf16 trunk of ``model_config_from_params({})``) on the
@@ -2464,8 +2539,11 @@ def unbucketed_training_phase(nb, low=False):
     decoder), all bf16 variants but the kNN with ``low``; then one step
     with the kernels against ``kernels="torch"`` (fp32: loss < 1e-5, leaves
     < 1e-4; bf16: loss < 1e-3, leaves < 3e-2, the plain path's backward
-    being autograd's). Returns the launches, the median step ms and the
-    peak bytes."""
+    being autograd's), the flat gradient bitwise across two passes, and a
+    ``torch.profiler`` trace of 3 more steps: the device busy share and
+    rows 7 and 8's device ms per step (raises if either row's kernels are
+    missing from the trace). Returns the launches, the median step ms and
+    the peak bytes."""
     import dataclasses
 
     import torch
@@ -2498,6 +2576,25 @@ def unbucketed_training_phase(nb, low=False):
     _grads_against_plain(f"{tag} training", trainer, plain, to_device(nb, dev), 7,
                          want, **tols)
     _grads_twice(f"{tag} training", trainer, to_device(nb, dev), 7)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    window, busy, by_name = _traced(lambda: trainer.train_step(nb, gen),
+                                    tag.replace(" ", "_") + "_steps", 3)
+    def base(name):     # "void k<...>(...)" -> "k"
+        return (name.split("<")[0].split("(")[0].split() or [""])[-1]
+
+    ms = {r: sum(us for n, (_, us) in by_name.items() if base(n) in keys) / 3e3
+          for r, keys in MLP_KERNELS.items()}
+    launched = {r: sum(c for n, (c, _) in by_name.items() if base(n) in keys) / 3
+                for r, keys in MLP_KERNELS.items()}
+    if not all(ms.values()):
+        raise AssertionError(f"{tag} profile: rows 7 and 8 not found ({ms})")
+    print(f"{tag} profile of 3 train steps (torch.profiler): {window:.2f} ms per "
+          f"step, device busy {busy:.2f} ms ({100 * busy / window:.1f}%); row 7 "
+          f"{ms['row 7']:.3f} ms ({launched['row 7']:.0f} kernels) and row 8 "
+          f"{ms['row 8']:.3f} ms ({launched['row 8']:.0f} kernels) of device time per "
+          f"step, rows 7 + 8 {ms['row 7'] + ms['row 8']:.3f} ms", flush=True)
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / 3e3:8.3f} ms  {n / 3:5.1f}x  {name[:90]}", flush=True)
     return counts, median, peak
 
 
@@ -3189,8 +3286,13 @@ def main():
     add(counts)
     counts, ub16_ms, ub16_peak = unbucketed_training_phase(ub, low=True)
     add(counts)
-    print(f"unbucketed (L=750, gathered decoder) against bucketed (L=768) training "
-          f"step: {unbucketed_ms:.2f} ms vs {classed_ms:.2f} ms", flush=True)
+    for what, u_ms, c_ms, u_pk, c_pk in (
+            ("fp32", unbucketed_ms, classed_ms, unbucketed_peak, classed_peak),
+            ("bf16", ub16_ms, classed16_ms, ub16_peak, classed16_peak)):
+        print(f"unbucketed (L=750, gathered decoder) against bucketed (L=768) training "
+              f"step ({what}): {u_ms:.2f} ms vs {c_ms:.2f} ms ({u_ms - c_ms:+.2f} ms); "
+              f"peak memory {u_pk / 2**30:.3f} GiB vs {c_pk / 2**30:.3f} GiB",
+              flush=True)
     counts, dense_ms, dense_peak = dense_training_phase(nb)
     add(counts)
     counts, dense16_ms, dense16_peak = dense_training_phase(nb, low=True)

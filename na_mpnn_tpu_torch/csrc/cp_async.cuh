@@ -1,6 +1,7 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80+),
-// for the kernels that stream their operands through a ring:
-// message_table.cu, message_table_bwd.cu and rbf_tile.cuh's forward walk. A
+// for the kernels that stream their operands through a ring: the message
+// MLP's walks (message_tile.cuh, message_bwd_tile.cuh) and rbf_tile.cuh's
+// forward walk. A
 // copy lands when its group has been waited for; a barrier then makes it
 // visible to the other threads.
 #pragma once

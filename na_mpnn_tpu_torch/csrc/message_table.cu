@@ -36,7 +36,8 @@
 // operations (three H x H products per edge, 98 kFLOP at H = 128).
 // Design: the tile walk of message_tile.cuh with its kEpiTable epilogues
 // (the per-edge store, the K-sum rounded once), one copy shared with the
-// fused layer updates (fused_layers.cu). A persistent grid, one block of 512
+// fused layer updates (fused_layers.cu) and the pre-gathered message MLP
+// (message_mlp.cu). A persistent grid, one block of 512
 // threads per SM, walks tiles of 64 edge rows of whole nodes (tn = min(64 /
 // K, 16), chosen by the caller); 64 rather than 128 rows so that the dec
 // mode's [A | B] rows and the fp32 operands fit beside the weights. The

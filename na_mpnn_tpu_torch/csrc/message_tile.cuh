@@ -1,13 +1,21 @@
-// The message MLP's tile walk on the tensor cores, with the neighbour-table
-// gather inside: one copy, shared by the message-table forward
-// (message_table.cu) and the fused layer updates (fused_layers.cu), which
-// differ only in what they do with a tile's messages (the epilogue, EPI).
+// The message MLP's tile walk on the tensor cores: one copy, shared by the
+// message-table forward (message_table.cu), the fused layer updates
+// (fused_layers.cu) and the pre-gathered message MLP (message_mlp.cu), which
+// differ in what they do with a tile's messages (the epilogue, EPI) and in
+// where an edge's neighbour term comes from (the operand kind, OP).
 //
-// Per edge row e = (node n, neighbour slot k), with j = eidx[e] local to the
-// structure b = n / L and table row t = b*Lk + j:
+// OP = kOpTable, the neighbour-table gather inside: per edge row e = (node
+// n, neighbour slot k), with j = eidx[e] local to the structure b = n / L
+// and table row t = b*Lk + j:
 //   enc modes: x = h_V[n]@Wa + e_in[e]@Wb + table[t] + b1
 //   dec mode:  x = h_V[n]@Wa + m1d[e]*(e_in[e]@Wb)
 //                  + mbw[e]*A[t] + m1d[e]*B[t] + b1,   table = [A | B]
+// OP = kOpGathered (contract_e) or kOpGatheredE (without it), the neighbour
+// term pre-gathered, row e of G = `table` (C = H; no eidx, no table rows), in
+// the enc modes only:
+//   x = ((h_V[n]@Wa + G[e]) + b1) + (contract_e ? e_in[e]@Wb : e_in[e])
+// (kOpGatheredE adds the tile's e_in rows as they are and skips the Wb
+// product and Wb's copy). Then, for every kind,
 //   m = W3 . gelu(W2 . gelu(x) + b2) + b3          (exact erf GELU)
 // x_out, when not null, receives the pre-GELU x of every edge row.
 // Epilogues:
@@ -56,6 +64,7 @@ constexpr int kMaxTileNodes = 16;
 constexpr float kLnEps = 1e-5f;
 
 constexpr int kEpiTable = 0, kEpiSumF32 = 1, kEpiEdgeLN = 2;
+constexpr int kOpTable = 0, kOpGathered = 1, kOpGatheredE = 2;
 
 template <int H, typename T>
 __host__ __device__ constexpr size_t tile_smem_bytes(int C) {
@@ -129,6 +138,30 @@ __device__ __forceinline__ void start_table(const Params<T>& p, int tile,
     const bool ok = r < rows;
     async_copy16(Tab + r * LT + h, p.table + (size_t)trow[r] * p.C + h, ok);
   }
+}
+
+// Start the copies of tile `tile`'s rows of the pre-gathered operand (row e
+// of `table`, C wide) into Tab (zero past its rows).
+template <typename T>
+__device__ __forceinline__ void start_gathered(const Params<T>& p, int tile,
+                                               T* Tab) {
+  constexpr int EPS = 16 / (int)sizeof(T);
+  const int SEG = p.C / EPS, LT = lda<T>(p.C), h = (threadIdx.x % SEG) * EPS;
+  const int n0 = tile * p.tn;
+  const int rows = min(p.tn, p.N - n0) * p.K;
+  const size_t e0 = (size_t)n0 * p.K;
+  for (int r = threadIdx.x / SEG; r < kTileRows; r += kTileThreads / SEG) {
+    const bool ok = r < rows;
+    async_copy16(Tab + r * LT + h, p.table + (ok ? e0 + r : 0) * p.C + h, ok);
+  }
+}
+
+// The neighbour rows of tile `tile` into Tab, by the operand kind.
+template <int OP, typename T>
+__device__ __forceinline__ void start_neighbours(const Params<T>& p, int tile,
+                                                 const int* trow, T* Tab) {
+  if constexpr (OP == kOpTable) start_table(p, tile, trow, Tab);
+  else start_gathered(p, tile, Tab);
 }
 
 // Start the copy of an fp32 weight [H, H] (16-byte aligned) into Wf
@@ -280,10 +313,12 @@ __device__ __forceinline__ void tile_ksum(const Params<T>& p, int mode,
 }
 
 // The walk of block blockIdx.x over tiles blockIdx.x, + gridDim.x, ...
-template <int H, int EPI, typename T>
+template <int H, int EPI, int OP = kOpTable, typename T>
 __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
   constexpr bool kLow = sizeof(T) == 2;
   constexpr bool kLn = EPI == kEpiEdgeLN;
+  constexpr bool kGathered = OP != kOpTable;
+  constexpr bool kWithWb = OP != kOpGatheredE;  // the Wb product and its weight
   constexpr int LA = lda<T>(H), LF = H + 4, LW = H + 8, NT = H / 32;
   const int LT = lda<T>(p.C);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -325,18 +360,21 @@ __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
     for (int idx = tid; idx < H * H; idx += kTileThreads) {
       const int r = idx / H, c = idx % H;  // W[r][c], r the input side
 #pragma unroll
-      for (int w = 0; w < 4; ++w) Ws[w * H * LW + c * LW + r] = wsrc[w][idx];
+      for (int w = 0; w < 4; ++w)
+        if (kWithWb || w != 1) Ws[w * H * LW + c * LW + r] = wsrc[w][idx];
     }
   }
 
   int tile = blockIdx.x;
   if (tile < p.tiles) start_rows<H>(p, tile, Es);
   async_commit();
-  if (tid < kTileRows) Tn[tid] = table_row(p, tile, tid);
+  if constexpr (!kGathered) {
+    if (tid < kTileRows) Tn[tid] = table_row(p, tile, tid);
+  }
   __syncthreads();
-  if (tile < p.tiles) start_table(p, tile, Tn, Tab);
+  if (tile < p.tiles) start_neighbours<OP>(p, tile, Tn, Tab);
   async_commit();
-  stage_weight<H>(p.wb, Ws);
+  if constexpr (kWithWb) stage_weight<H>(p.wb, Ws);
   async_commit();
 
   for (; tile < p.tiles; tile += gridDim.x) {
@@ -352,7 +390,8 @@ __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
     }
     if (mode != kEncEdge && tid < kTileRows) {
       Mr[tid] = tid < rows ? to_f(p.m_att[e0 + tid]) : 0.f;
-      Mr[kTileRows + tid] = tid < rows ? to_f(p.mbw[e0 + tid]) : 0.f;
+      if constexpr (!kGathered)
+        Mr[kTileRows + tid] = tid < rows ? to_f(p.mbw[e0 + tid]) : 0.f;
     }
     async_wait<2>();  // this tile's e_in rows
     __syncthreads();
@@ -367,10 +406,22 @@ __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
     async_wait<0>();  // this tile's table rows; at fp32 Wb
     __syncthreads();
 
-    // x = h_V@Wa + e_in@Wb + table + b1 (dec: with the masks); gelu(x) to Us
+    // x = h_V@Wa + e_in@Wb + table + b1 (dec: with the masks; gathered: in
+    // its order, the e_in rows themselves without contract_e); gelu(x) to Us
     float acc[NT][4];
-    if constexpr (kLow) product<H, NT>(Es, Wb_s, rb, cb, acc);
-    else product<H, NT>(Es, Wb_s, false, rb, cb, acc);
+    if constexpr (kWithWb) {
+      if constexpr (kLow) product<H, NT>(Es, Wb_s, rb, cb, acc);
+      else product<H, NT>(Es, Wb_s, false, rb, cb, acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 ev = ld2(Es + (16 * rb + g + 8 * hf) * LA + cb + 8 * j + 2 * t);
+          acc[j][2 * hf] = ev.x;
+          acc[j][2 * hf + 1] = ev.y;
+        }
+    }
     __syncthreads();  // Es and the fp32 weight buffer are free
     stage_weight<H>(p.w2, Ws);
     async_commit();
@@ -385,20 +436,31 @@ __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
         if (r < rows) {
           const size_t e = e0 + r;
           const int nd = r / p.K;
-          float x0 = AI[nd * LF + c] + bias[c], x1 = AI[nd * LF + c + 1] + bias[c + 1];
           const float2 tv = ld2(Tab + r * LT + c);
-          if (mode == kDec) {
-            const float m1 = Mr[r], mb = Mr[kTileRows + r];
-            const float2 bv = ld2(Tab + r * LT + H + c);
-            x0 = x0 + m1 * acc[j][2 * hf];
-            x1 = x1 + m1 * acc[j][2 * hf + 1];
-            x0 = x0 + mb * tv.x;
-            x1 = x1 + mb * tv.y;
-            x0 = x0 + m1 * bv.x;
-            x1 = x1 + m1 * bv.y;
+          float x0, x1;
+          if constexpr (kGathered) {
+            x0 = AI[nd * LF + c] + tv.x;
+            x1 = AI[nd * LF + c + 1] + tv.y;
+            x0 = x0 + bias[c];
+            x1 = x1 + bias[c + 1];
+            x0 = x0 + acc[j][2 * hf];
+            x1 = x1 + acc[j][2 * hf + 1];
           } else {
-            x0 = x0 + acc[j][2 * hf] + tv.x;
-            x1 = x1 + acc[j][2 * hf + 1] + tv.y;
+            x0 = AI[nd * LF + c] + bias[c];
+            x1 = AI[nd * LF + c + 1] + bias[c + 1];
+            if (mode == kDec) {
+              const float m1 = Mr[r], mb = Mr[kTileRows + r];
+              const float2 bv = ld2(Tab + r * LT + H + c);
+              x0 = x0 + m1 * acc[j][2 * hf];
+              x1 = x1 + m1 * acc[j][2 * hf + 1];
+              x0 = x0 + mb * tv.x;
+              x1 = x1 + mb * tv.y;
+              x0 = x0 + m1 * bv.x;
+              x1 = x1 + m1 * bv.y;
+            } else {
+              x0 = x0 + acc[j][2 * hf] + tv.x;
+              x1 = x1 + acc[j][2 * hf + 1] + tv.y;
+            }
           }
           if (EPI == kEpiTable && p.x_out) st2(p.x_out + e * H + c, x0, x1);
           u0 = gelu(x0);
@@ -406,13 +468,15 @@ __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
         }
         st2(Us + r * LA + c, u0, u1);
       }
-    if (tid < kTileRows) Tn[tid] = table_row(p, next, tid);  // read past the barrier
+    if constexpr (!kGathered) {
+      if (tid < kTileRows) Tn[tid] = table_row(p, next, tid);  // read past the barrier
+    }
     async_wait<1>();  // at fp32 W2
     __syncthreads();
     if constexpr (!kLow) {
       // at fp32 the K-sum's messages fit in Us alone, so Tab is free from
       // here: the next tile's table rows land during this tile's W2 and W3
-      if (next < p.tiles) start_table(p, next, Tn, Tab);
+      if (next < p.tiles) start_neighbours<OP>(p, next, Tn, Tab);
       async_commit();
     }
 
@@ -475,9 +539,9 @@ __device__ __forceinline__ void message_tiles(const Params<T>& p, int mode) {
       tile_ksum<H, NT>(p, mode, acc, bias + 2 * H, Mr, F, p.out, rb, cb, n0,
                        nodes, rows);
     }
-    if (kLow && next < p.tiles) start_table(p, next, Tn, Tab);
+    if (kLow && next < p.tiles) start_neighbours<OP>(p, next, Tn, Tab);
     async_commit();
-    stage_weight<H>(p.wb, Ws);
+    if constexpr (kWithWb) stage_weight<H>(p.wb, Ws);
     async_commit();
   }
   async_wait<0>();

@@ -1,7 +1,8 @@
 // Warp-level tensor-core products for Hopper (sm_90a), shared by the
-// message-table forward and backward (message_tile.cuh, message_table.cu,
-// message_table_bwd.cu), the fused layer updates (fused_layers.cu) and the
-// RBF projections' walks (rbf_tile.cuh: the classed and the dense forward
+// message MLP's forward and backward walks (message_tile.cuh,
+// message_bwd_tile.cuh: the message table and its backward, the fused layer
+// updates, the pre-gathered message MLP and its backward) and the RBF
+// projections' walks (rbf_tile.cuh: the classed and the dense forward
 // and their weight gradients).
 //
 // bf16: mma.sync m16n8k16, bf16 operands, fp32 accumulators; what each

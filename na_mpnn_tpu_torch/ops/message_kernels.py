@@ -61,6 +61,13 @@ port's (``models/mpnn.py::dec_layer``, the gathered route). bf16 operands
 select its bf16 variant (``*_bf16`` entries, launches counted as
 ``message_mlp_bf16`` / ``message_mlp_bwd_bf16``), with the rounding points
 of the JAX ``_fwd_kernel`` / ``_bwd_kernel`` at ``compute_dtype=bfloat16``.
+Both run on the tensor cores on the table kernels' tile code: the forward
+is the message table's walk with row ``e`` of ``G`` for the gathered table
+row (tiles of ``table_tile_nodes(K)`` nodes); the backward is the table
+backward's walk (tiles of ``bwd_tile_nodes(K)`` nodes), which recomputes
+``x`` in the tile, writes ``g_x`` to ``g_G``, and shares the split-K
+weight gradients and the ordered bias sums. Every output
+of both is the same on every launch.
 """
 from __future__ import annotations
 
@@ -262,6 +269,25 @@ def table_rows(eidx2, K, L, Lk):
     return (node // L) * Lk + eidx2
 
 
+# The backward walk's tiles (csrc/message_bwd_tile.cuh: kTileRows,
+# kMaxTileNodes), shared by the table backward and the pre-gathered backward.
+BWD_TILE_ROWS, BWD_MAX_TILE_NODES = 128, 16
+
+
+def bwd_tile_nodes(K):
+    """Nodes per tile of the backward walk for K neighbours: as many whole
+    nodes as fit in its 128 edge rows, at most 16 (one 16-row block of the
+    node products)."""
+    return min(BWD_TILE_ROWS // K, BWD_MAX_TILE_NODES)
+
+
+def wgrad_splits(nblocks):
+    """Row ranges of the split-K weight gradients on a card of ``nblocks``
+    SMs: a third of them (four products' blocks per range), the split the
+    table backward was tuned with."""
+    return max(1, nblocks // 3)
+
+
 def table_order(eidx2, K, L, Lk, n_rows):
     """The edges sorted stably by table row -> ``(order [E], offsets
     [n_rows + 1])``: row ``t``'s edges are ``order[offsets[t]:offsets[t+1]]``
@@ -309,10 +335,9 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
         check_aligned(t, name)
     dev = h_V2.device
     nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, nblocks // 3)   # three weight-gradient products per SM
+    splits = wgrad_splits(nblocks)
     lib = library("message_table_bwd")
-    lib.message_table_backward_tiles.restype = ctypes.c_int
-    tiles = lib.message_table_backward_tiles(N, K)
+    tiles = -(-N // bwd_tile_nodes(K))
     n_rows = N // L * Lk
     order, offsets = (table_order(eidx2, K, L, Lk, n_rows) if order is None
                       else order)
@@ -499,20 +524,26 @@ def message_mlp_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
                      K, contract_e, aggregate):
     """Launch ``csrc/message_mlp.cu`` on CUDA tensors, all fp32 or all bf16
     (then the bf16 variant, a bf16 output; the contract of
-    ``message_mlp_plain``)."""
+    ``message_mlp_plain``): a persistent grid of one block per SM over tiles
+    of ``table_tile_nodes(K)`` nodes. ``e_in`` and ``G`` are read as 16-byte
+    vectors and must start aligned; weights that do not are copied here."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V.shape
     dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
                          (b1, b2, b3))
-    out = torch.empty((N if aggregate else N * K, H), dtype=dt,
-                      device=h_V.device)
+    for name, t in (("e_in", e_in), ("G", G)):
+        check_aligned(t, name)
+    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+    dev = h_V.device
+    out = torch.empty((N if aggregate else N * K, H), dtype=dt, device=dev)
+    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
     fn = getattr(library("message_mlp"), "message_mlp_forward" + sfx)
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, out)
     err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
-             int(aggregate), stream_ptr(h_V.device))
+             int(aggregate), table_tile_nodes(K), nblocks, stream_ptr(dev))
     raise_on_error(err, "message_mlp" + sfx)
     LAUNCHES["message_mlp" + sfx] += 1
     return out
@@ -556,32 +587,49 @@ def message_mlp_bwd_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
 def message_mlp_bwd_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
                          g, *, K, contract_e, aggregate):
     """Launch ``csrc/message_mlp_bwd.cu`` on CUDA tensors, all fp32 or all
-    bf16 (the contract of ``message_mlp_bwd_plain``). The bf16 variant sums
+    bf16 (the contract of ``message_mlp_bwd_plain``): a persistent grid of
+    one block per SM over tiles of ``bwd_tile_nodes(K)`` nodes, then the
+    weight gradients over ``wgrad_splits`` row ranges. The bf16 variant sums
     the weight and bias gradients in fp32 and rounds them here, once, as
-    the JAX VJP does (``message_kernels.py:272-276``)."""
+    the JAX VJP does (``message_kernels.py:272-276``). Scratch of the
+    operands' type: gelu(x), g_m (with ``aggregate``; else it is ``g``),
+    gelu(y), g_y ``[N*K,H]`` and ``sum_k g_x`` ``[N,H]``; fp32: each
+    block's x ``[128,H]``, the bias and weight partials."""
     from ._build import library, ptr, stream_ptr
 
     N, H = h_V.shape
     dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
                          (b1, b2, b3))
     f32 = torch.float32
-    check_operand(g, "g", dt, (N if aggregate else N * K, H))
+    E = N * K
+    check_operand(g, "g", dt, (N if aggregate else E, H))
+    for name, t in (("h_V", h_V), ("e_in", e_in), ("G", G), ("g", g)):
+        check_aligned(t, name)
+    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
     dev = h_V.device
+    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = wgrad_splits(nblocks)
+    tn = bwd_tile_nodes(K)
+    tiles = -(-N // tn)
     g_hV = torch.empty((N, H), dtype=dt, device=dev)
-    g_ein = torch.empty((N * K, H), dtype=dt, device=dev)
-    g_G = torch.empty((N * K, H), dtype=dt, device=dev)
-    nslot = 4 * H * H + 3 * H
-    nparts = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((nparts, nslot), dtype=f32, device=dev)
-    wT = torch.empty((4, H, H), dtype=f32, device=dev)
-    wgrad = torch.empty((nslot,), dtype=f32, device=dev)
+    g_ein = torch.empty((E, H), dtype=dt, device=dev)
+    g_G = torch.empty((E, H), dtype=dt, device=dev)
+    u1s = torch.empty((E, H), dtype=dt, device=dev)
+    gms = torch.empty((E, H), dtype=dt, device=dev) if aggregate else None
+    u2s = torch.empty((E, H), dtype=dt, device=dev)
+    gys = torch.empty((E, H), dtype=dt, device=dev)
+    ss = torch.empty((N, H), dtype=dt, device=dev)
+    xs = torch.empty((min(nblocks, tiles), BWD_TILE_ROWS, H), dtype=f32, device=dev)
+    bpart = torch.empty((tiles, 3 * H), dtype=f32, device=dev)
+    wpart = torch.empty((splits, 4, H, H), dtype=f32, device=dev)
+    wgrad = torch.empty((4 * H * H + 3 * H,), dtype=f32, device=dev)
     fn = getattr(library("message_mlp_bwd"), "message_mlp_backward" + sfx)
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, g, g_hV, g_ein,
-               g_G, part, wT, wgrad)
-    err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
-             int(aggregate), nparts, stream_ptr(dev))
+               g_G, u1s, gms, u2s, gys, ss, xs, bpart, wpart, wgrad)
+    err = fn(*[None if t is None else ptr(t) for t in tensors], N, K, H,
+             int(contract_e), int(aggregate), tn, nblocks, splits, stream_ptr(dev))
     raise_on_error(err, "message_mlp_bwd" + sfx)
     LAUNCHES["message_mlp_bwd" + sfx] += 1
     wgrad = wgrad.to(dt)
