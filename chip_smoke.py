@@ -150,6 +150,20 @@ and the dense step's ms and peak memory are printed beside the classed
 step's of the same run at both dtypes. Their earlier scalar-FMA times are
 printed as text (``SCALAR_MS``).
 
+Inside the one-rank NCCL group of the mesh phase run the paths that need
+no kernel of their own: ``sample_graph_parallel`` against the one-device
+``sample`` from the same generator seed (design B=1 and specificity B=30
+on the 389-residue complex, design on a 6144-residue structure; tokens and
+orders equal, probabilities within JAX's bars; the encode's launches; s
+per structure and peak memory of both), the key-chunked plain kNN bitwise
+the one-shot at L = 6144; ``remat="layer"`` against ``"none"`` (one
+classed step at fp32 and bf16 and one unbucketed step at fp32: loss,
+flat gradient and launches the same; ms and peak of 3 steps of each);
+and the frames the RBF kernels do not take (the 65-atom table on the
+(1,1) mesh with ``gp_rbf_row_chunk=32`` at fp32 and bf16 and on one
+device at B=2 x L=384; ``include_pred_na_N=False`` at B=8 x L=768), each
+against ``kernels="torch"``, with ms, peak and launches.
+
 Outputs go to ``build/chip_smoke/`` in the checkout.
 """
 from __future__ import annotations
@@ -3121,14 +3135,250 @@ def _stream_cost(cfg, nb):
           f"{row_ms - gen_ms:.2f} ms)", flush=True)
 
 
-def mesh_phase(nb):
+# ---------------------------------------------------------------------------
+# The graph-parallel sampler, remat, the other atom frames
+# ---------------------------------------------------------------------------
+
+SAMPLER_6144 = (("A", "protein", 2000), ("B", "protein", 2000), ("C", "dna", 1072),
+                ("D", "dna", 1072))
+ENCODE_LAUNCHES = {"knn_qk": 1, "rbf_classed": 1, "fused_node_update_enc": 3,
+                   "fused_edge_update": 3}
+
+
+def _timed(fn):
+    """(``fn()``, host seconds to its end, synchronised, peak bytes
+    allocated during it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def graph_sampler_phase(pdb, mesh):
+    """``sample_graph_parallel`` on the one-rank mesh against the one-device
+    ``sample`` from the same generator seed (fp32, released width): design
+    (B=1, T=0.1) and specificity (B=30, T=0.6) on the 389-residue complex
+    and design on a 6144-residue structure (the largest bucket). Decode
+    orders and tokens equal, ``sampling_probs`` within 2e-4 and
+    ``log_probs`` within 2e-3 (JAX's bars, ``tests/test_graph_parallel.py:
+    233-237``); the encode's launches held to knn_qk 1, rbf_classed 1, fused
+    3 + 3 + 0; seconds per structure and peak memory of both. Then the
+    key-chunked plain kNN (chunks of 1000) against the one-shot plain kNN
+    at L = 6144: ``E_idx`` and ``D`` bitwise. Returns the launches."""
+    import torch
+    import torch.distributed as dist
+    from na_mpnn_tpu_torch.models import init_params, sample
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.ops.knn import knn_graph_qk_plain
+    from na_mpnn_tpu_torch.parallel.graph_parallel import (_knn_local_rows,
+                                                           sample_graph_parallel)
+    from na_mpnn_tpu_torch.train.trainer import model_config_from_params
+
+    dev = torch.device("cuda")
+    cfg = model_config_from_params({"MIXED_PRECISION": 0})
+    params = init_params(6, cfg, device=dev)
+    big = os.path.join(OUT, "sampler6144.pdb")
+    write_synthetic_pdb(big, SAMPLER_6144, seed=3)
+    counts = {}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(11)
+
+    # the graph group's communicator starts here, before the timed calls
+    dist.all_reduce(torch.zeros(1, device=dev), group=mesh.graph_group)
+    for tag, path, B, T in (("design", pdb, 1, 0.1), ("specificity", pdb, 30, 0.6),
+                            ("design L=6144", big, 1, 0.1)):
+        batch = _structure(path, dev)[0]
+        L = batch["S"].shape[1]
+        reset_launches()
+        gp, gp_s, gp_peak = _timed(lambda: sample_graph_parallel(
+            params, cfg, batch, gen(), mesh, num_samples=B, temperature=T))
+        enc = {k: v for k, v in LAUNCHES.items() if v}
+        if enc != ENCODE_LAUNCHES:
+            raise AssertionError(f"graph sampler {tag}: encode launches {enc}, "
+                                 f"want {ENCODE_LAUNCHES}")
+        for k, v in enc.items():
+            counts[k] = counts.get(k, 0) + v
+        one, one_s, one_peak = _timed(lambda: sample(
+            params, cfg, batch, gen(), num_samples=B, temperature=T))
+        if not (torch.equal(gp["S"], one["S"])
+                and torch.equal(gp["decoding_order"], one["decoding_order"])):
+            raise AssertionError(f"graph sampler {tag}: tokens or order differ "
+                                 "from sample")
+        dp = float((gp["sampling_probs"] - one["sampling_probs"]).abs().max())
+        dl = float((gp["log_probs"] - one["log_probs"]).abs().max())
+        if not (dp < 2e-4 and dl < 2e-3):
+            raise AssertionError(f"graph sampler {tag}: probs {dp:.3g}, log "
+                                 f"probs {dl:.3g}")
+        print(f"graph sampler (1,1) NCCL, {tag} B={B} L={L} T={T}: "
+              f"sample_graph_parallel {gp_s:.3f} s ({1e3 * gp_s / L:.3f} ms per "
+              f"decode step), peak {gp_peak / 2**30:.3f} GiB; sample {one_s:.3f} s "
+              f"({1e3 * one_s / L:.3f} ms per step), peak {one_peak / 2**30:.3f} "
+              f"GiB; tokens and order equal, max |d p| {dp:.3g} (< 2e-4), max "
+              f"|d log p| {dl:.3g} (< 2e-3); encode launches {enc}", flush=True)
+    _, X_aug, X_m_aug, X_ref, mask = _structure(big, dev)
+    (D1, I1), chunk_s, chunk_peak = _timed(
+        lambda: _knn_local_rows(X_ref, X_ref, mask, mask, 32, 1000))
+    (D0, I0), one_s, one_peak = _timed(
+        lambda: knn_graph_qk_plain(X_ref, X_ref, mask, mask, 32))
+    if not (torch.equal(I1, I0) and torch.equal(D1, D0)):
+        raise AssertionError("key-chunked kNN at L=6144 differs from the one-shot kNN")
+    print(f"key-chunked plain kNN L={X_ref.shape[1]} K=32, chunks of 1000: E_idx and "
+          f"D bitwise the one-shot plain kNN; {1e3 * chunk_s:.2f} ms, peak "
+          f"{chunk_peak / 2**30:.3f} GiB against one-shot {1e3 * one_s:.2f} ms, "
+          f"peak {one_peak / 2**30:.3f} GiB", flush=True)
+    return counts
+
+
+def remat_phase(nb, ub):
+    """Per-layer rematerialisation (``remat="layer"``) against ``"none"``:
+    one step of the classed B=8 x L=768 trainer at fp32 and bf16 and of the
+    unbucketed L=750 trainer at fp32 (dropout 0.1, noise 0.1 A, generator
+    seed 7): the loss and the whole flat gradient bitwise equal and the
+    same launches (no kernel runs again in the backward); then 5 train
+    steps of each setting, ms per step (median of steps 2-5) and peak GiB,
+    and for the classed steps a ``torch.profiler`` trace of 3 more steps of
+    each: the step's window and the device's busy ms (what the
+    recomputation costs on the device, and what it costs the host).
+    Returns the launches."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+    from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+
+    dev = torch.device("cuda")
+    counts = {}
+    for tag, batch, low in (("classed", nb, False), ("classed bf16", nb, True),
+                            ("unbucketed", ub, False)):
+        cfg = model_config_from_params({} if low else {"MIXED_PRECISION": 0})
+        res = {}
+        for remat in ("none", "layer"):
+            tr = Trainer(dataclasses.replace(cfg, remat=remat), seed=0, device=dev)
+            b = tr.device_batch(batch)
+            reset_launches()
+            loss, grad = tr.loss_and_grads(
+                b, torch.Generator(device=dev).manual_seed(7))[:2]
+            torch.cuda.synchronize()
+            want = {k: v for k, v in LAUNCHES.items() if v}
+            del b
+            gen = torch.Generator(device=dev).manual_seed(8)
+            step_ms, peak, _ = _train_steps(tr, batch, want, f"remat={remat} {tag}",
+                                            generator=gen)
+            for k, v in want.items():
+                counts[k] = counts.get(k, 0) + 6 * v
+            trace = ""
+            if tag.startswith("classed"):
+                window, busy, _ = _traced(lambda: tr.train_step(batch, gen),
+                                          f"remat_{remat}_{tag.replace(' ', '_')}", 3)
+                trace = f"{remat} {window:.2f} ms window, {busy:.2f} ms busy"
+            res[remat] = (loss, grad, want, float(np.median(step_ms[1:])), peak, trace)
+        (l0, g0, w0, ms0, pk0, tr0), (l1, g1, w1, ms1, pk1, tr1) = res["none"], res["layer"]
+        if not (torch.equal(l0, l1) and torch.equal(g0, g1)):
+            raise AssertionError(f"remat {tag}: loss or flat gradient differs from "
+                                 "remat='none'")
+        if w0 != w1:
+            raise AssertionError(f"remat {tag}: launches {w1} != {w0}")
+        B, L = batch["S"].shape
+        print(f"remat {tag} B={B} L={L}: loss {float(l0):.6f} and flat gradient "
+              f"({g0.numel()} entries) bitwise equal to remat='none', the same "
+              f"launches {w0}; ms per train step (median of steps 2-5) none "
+              f"{ms0:.2f}, layer {ms1:.2f}; peak none {pk0 / 2**30:.3f} GiB, layer "
+              f"{pk1 / 2**30:.3f} GiB"
+              + (f"; profile of 3 steps, per step: {tr0}; {tr1}" if tr0 else ""),
+              flush=True)
+    return counts
+
+
+def atom65_batch(sizes, tag, pad_to=None):
+    """Synthetic protein-DNA structures of ``sizes`` residues, parsed with
+    their 65-atom table (``xyz_65``: the synthetic files carry backbone
+    atoms only, so the other slots are absent) and collated."""
+    from na_mpnn_tpu_torch.data.pdb import parse_pdb
+    from na_mpnn_tpu_torch.train.collate import collate_batch
+    structs = []
+    for i, n in enumerate(sizes):
+        n_dna = 40 + 2 * i
+        path = os.path.join(OUT, f"{tag}{i}.pdb")
+        write_synthetic_pdb(path, (("A", "protein", n - 2 * n_dna), ("C", "dna", n_dna),
+                                   ("D", "dna", n_dna)), seed=70 + i)
+        parsed = parse_pdb(path)
+        s = {k: parsed[k] for k in TRAIN_KEYS}
+        s["X"], s["X_m"] = parsed["xyz_65"], parsed["xyz_65_m"]
+        structs.append(s)
+    return collate_batch(structs, pad_to=pad_to)
+
+
+def atom_frame_phase(nb, mesh):
+    """The frames the RBF kernels do not take (``PairRbfProjection``: the
+    plain RBF and one product, recomputed in the backward): a
+    ``Trainer(mesh=(1,1))`` step at B=8 x L=768 with the 65-atom table
+    and ``gp_rbf_row_chunk=32`` at fp32 and bf16, a one-device step with the
+    65-atom table at B=2 x L=384, and one with ``include_pred_na_N=False``
+    at B=8 x L=768. Each against ``kernels="torch"`` on the same batch
+    (``_grads_against_plain``'s bars), then 2 train steps: ms, peak GiB and
+    the launches (the kNN and the layers' kernels, no RBF kernel). Returns
+    the launches."""
+    import dataclasses
+
+    import torch
+    from na_mpnn_tpu_torch.train.trainer import Trainer, model_config_from_params
+
+    dev = torch.device("cuda")
+    nb65 = atom65_batch([600 + 24 * i for i in range(TRAIN_STRUCTURES)], "atom65_")
+    small65 = atom65_batch([384, 360], "atom65_small", pad_to=384)
+    counts = {}
+    cases = (("65-atom mesh (1,1) fp32", {"MIXED_PRECISION": 0, "ATOMS_TO_LOAD": "all"},
+              nb65, True),
+             ("65-atom mesh (1,1) bf16", {"ATOMS_TO_LOAD": "all"}, nb65, True),
+             ("65-atom one device fp32", {"MIXED_PRECISION": 0, "ATOMS_TO_LOAD": "all"},
+              small65, False),
+             ("no base N one device fp32", {"MIXED_PRECISION": 0, "INCLUDE_PRED_NA_N": 0},
+              nb, False))
+    for tag, keys, batch, on_mesh in cases:
+        cfg = model_config_from_params(keys)
+        low = cfg.compute_dtype == "bfloat16"
+        if on_mesh:
+            cfg = dataclasses.replace(cfg, gp_rbf_row_chunk=32)
+        want = {k: v for k, v in (_expected_bf16_launches(cfg) if low
+                                  else _expected_train_launches(cfg)).items()
+                if not k.startswith("rbf")}
+        if on_mesh:
+            want["knn_qk"] = want.pop("knn")
+        kw = dict(mesh=mesh) if on_mesh else dict(device=dev)
+        trainer = Trainer(cfg, seed=0, **kw)
+        plain = Trainer(dataclasses.replace(cfg, kernels="torch"), seed=0, **kw)
+        tols = dict(loss_tol=1e-3, grad_tol=3e-2) if low else {}
+        _grads_against_plain(tag, trainer, plain, trainer.device_batch(batch),
+                             None if on_mesh else 7, want, **tols)
+        del plain
+        step_ms, peak, launched = _train_steps(
+            trainer, batch, want, tag, steps=2,
+            generator=None if on_mesh else torch.Generator(device=dev).manual_seed(0))
+        for k, v in want.items():
+            counts[k] = counts.get(k, 0) + 3 * v
+        B, L = batch["S"].shape
+        print(f"{tag} B={B} L={L} ({cfg.total_atoms} slots, RBF block "
+              f"{cfg.edge_in - 16} wide{', row chunk 32' if on_mesh else ''}): "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)} ms per train step; peak "
+              f"{peak / 2**30:.3f} GiB; launches per step {want}", flush=True)
+    return counts
+
+
+
+def mesh_phase(nb, ub, pdb):
     """The mesh route on one card: a one-rank NCCL group from a FileStore
     under ``build/chip_smoke/``; at the training shape, the deterministic
     ``forward_graph_parallel`` against the one-device ``forward`` under the
     same decode order (log-probs < 1e-4); 5 steps of ``Trainer(mesh=(1,1))``
     (launches per step: knn_qk 1, RBF 1, RBF dW 1, message table 9, its
-    backward 9); one step with the kernels against ``kernels="torch"``.
-    Returns the launches of the kernel runs."""
+    backward 9); one step with the kernels against ``kernels="torch"``;
+    then, in the same group, the graph-parallel sampler,
+    remat and the other atom frames. Returns the launches of the kernel
+    runs."""
     import dataclasses
 
     import torch
@@ -3193,6 +3443,14 @@ def mesh_phase(nb):
                              trainer.device_batch(nb), None, want)
         for k, v in _bf16_mesh_steps(nb, mesh, order, median).items():
             counts[k] = counts.get(k, 0) + v
+        t0 = time.perf_counter()
+        for phase in (lambda: graph_sampler_phase(pdb, mesh),
+                      lambda: remat_phase(nb, ub),
+                      lambda: atom_frame_phase(nb, mesh)):
+            for k, v in phase().items():
+                counts[k] = counts.get(k, 0) + v
+        print(f"graph sampler, remat and atom-frame phases: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
     return counts
@@ -3309,7 +3567,7 @@ def main():
         print(f"bf16 against fp32 {what} training step: {ms16:.2f} ms vs "
               f"{ms32:.2f} ms ({ms16 / ms32:.3f}x); peak memory {pk16 / 2**30:.3f} "
               f"GiB vs {pk32 / 2**30:.3f} GiB ({pk16 / pk32:.3f}x)", flush=True)
-    add(mesh_phase(nb))
+    add(mesh_phase(nb, ub, pdb))
     counts, csv_path = training_loop_phase()
     add(counts)
     add(bf16_loop_phase(csv_path))

@@ -76,21 +76,14 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise for the options this port does not run yet (ROADMAP Queue 1)."""
+    """Raise for a value outside the choices the JAX package runs. Every
+    option of the JAX ``ModelConfig`` is ported: ``remat`` (any value but
+    ``"none"`` rematerialises the training layers' tails, ``models/mpnn.py``),
+    the graph-parallel chunks (``parallel/graph_parallel.py``) and both atom
+    tables with or without the virtual base N (``models/features.py``; as in
+    JAX, any ``atom_table`` but ``"backbone"`` is the 65-atom table)."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: choose from "
                          f"{COMPUTE_DTYPES}")
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: per-layer rematerialisation is not ported "
-            "(ROADMAP Queue 1, 'remat')")
-    if cfg.gp_knn_key_chunk or cfg.gp_rbf_row_chunk:
-        raise NotImplementedError(
-            "gp_knn_key_chunk / gp_rbf_row_chunk: the chunked graph-parallel "
-            "featurisation is not ported (ROADMAP Queue 1, 'Multi-GPU')")
-    if cfg.atom_table != "backbone" or not cfg.include_pred_na_N:
-        raise NotImplementedError(
-            "only the 18-atom backbone frame (atom_table='backbone', "
-            "include_pred_na_N=True) is ported")
     if cfg.rbf_mode not in RBF_MODES:
         raise ValueError(f"rbf_mode={cfg.rbf_mode!r}: choose from {RBF_MODES}")

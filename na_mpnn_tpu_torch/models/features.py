@@ -4,7 +4,10 @@ Port of the JAX package's ``models/features.py``. The
 kNN graph and the RBF edge projection run on the kernels of ``ops/knn.py``,
 ``ops/rbf_classed.py`` (``rbf_mode="classed"``) and ``ops/rbf_edge.py``
 (``rbf_mode="dense"``); ``knn_graph`` and ``all_pair_rbf`` here are the
-plain versions the kernels are held to.
+plain versions the kernels are held to. The RBF kernels take the 18-slot
+frame; the other frames (no virtual base N, the 65-atom table) take
+``PairRbfProjection``, the plain RBF and one product, as the JAX package
+computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -69,21 +72,75 @@ def augment_coordinates(X, X_m, batch, cfg: ModelConfig, generator):
 
 
 def build_augmented_atoms(X, X_m, batch, cfg: ModelConfig):
-    """Append virtual Cb and virtual base-N to the atom frame. Returns
-    (``X_aug [B,L,18,3]``, ``X_m_aug [B,L,18]``, ``X_ref [B,L,3]``), where
-    ``X_ref`` = CA + C1' (disjoint support: the residue centre)."""
+    """Append virtual Cb and (with ``include_pred_na_N``) virtual base-N to
+    the atom frame. Returns (``X_aug [B,L,A,3]``, ``X_m_aug [B,L,A]``,
+    ``X_ref [B,L,3]``), ``A = cfg.total_atoms``: 18 for the backbone table,
+    17 without the base N, 67 (66) for the 65-atom table; ``X_ref`` = CA +
+    C1' (disjoint support: the residue centre)."""
     ad = cfg.atom_dict
     Cb = get_virtual_atom(X[:, :, ad["N"]], X[:, :, ad["CA"]], X[:, :, ad["C"]],
                           *constants.CB_WEIGHTS)
     X_ref = X[:, :, ad["CA"]] + X[:, :, cfg.na_ref_atom_idx]
-    N_na = get_virtual_atom(X[:, :, ad["O4'"]], X[:, :, ad["C1'"]],
-                            X[:, :, ad["C2'"]], *constants.NA_N_WEIGHTS)
     protein_mask = batch["protein_mask"].to(X.dtype)
-    na_mask = (batch["rna_mask"] + batch["dna_mask"]).to(X.dtype)
-    X_aug = torch.cat([X, Cb[:, :, None], N_na[:, :, None]], dim=-2)
-    X_m_aug = torch.cat([X_m.to(X.dtype), protein_mask[..., None],
-                         na_mask[..., None]], dim=-1)
-    return X_aug, X_m_aug, X_ref
+    atoms = [X, Cb[:, :, None]]
+    masks = [X_m.to(X.dtype), protein_mask[..., None]]
+    if cfg.include_pred_na_N:
+        N_na = get_virtual_atom(X[:, :, ad["O4'"]], X[:, :, ad["C1'"]],
+                                X[:, :, ad["C2'"]], *constants.NA_N_WEIGHTS)
+        atoms.append(N_na[:, :, None])
+        masks.append((batch["rna_mask"] + batch["dna_mask"]).to(X.dtype)[..., None])
+    return torch.cat(atoms, dim=-2), torch.cat(masks, dim=-1), X_ref
+
+
+# The atom frame of the RBF kernels (rows 3-6, ``csrc/rbf_common.cuh``):
+# the 16-atom backbone table with both virtual atoms.
+KERNEL_FRAME = 18
+
+
+def _row_blocks(n, row_chunk):
+    """The query-row slices of ``n`` rows in blocks of ``row_chunk`` (one
+    block for 0 or at least ``n``)."""
+    step = row_chunk if 0 < row_chunk < n else n
+    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+class PairRbfProjection(torch.autograd.Function):
+    """``all_pair_rbf(...) @ W`` on any atom frame, the RBF block of the
+    frames the kernels do not take (17 and 67 slots) on every route: the
+    JAX featurisers' plain XLA ``all_pair_rbf`` and one product
+    (``features.py:235-237``, ``graph_parallel.py:236-267``), a
+    ``torch.matmul`` in the coordinates' type. The query rows go in blocks
+    of ``row_chunk`` (``gp_rbf_row_chunk``; 0: one block), each block's
+    ``[B, rows, K, A*A*num_rbf]`` RBF existing only inside its product (JAX
+    pads the last block, which changes no row; here it is shorter). The
+    backward forms ``dW`` by recomputing each block's RBF and summing its
+    product with the cotangent's rows: only the coordinates, the masks and
+    ``E_idx`` are saved, so the block (at 67 slots about 56 GB at fp32 for
+    B = 8 x L = 768) never outlives one block's product. The coordinates get
+    no gradient, as in the JAX package. ``X_aug_k``, ``X_m_k``: the key rows
+    ``E_idx`` indexes (the query rows themselves on one device)."""
+
+    @staticmethod
+    def forward(ctx, X_aug, X_m_aug, X_aug_k, X_m_k, E_idx, W, num_rbf,
+                row_chunk):
+        ctx.save_for_backward(X_aug, X_m_aug, X_aug_k, X_m_k, E_idx)
+        ctx.num_rbf, ctx.row_chunk = num_rbf, row_chunk
+        return torch.cat([
+            all_pair_rbf(X_aug[:, r], E_idx[:, r], X_m_aug[:, r], num_rbf,
+                         X_aug_k, X_m_k) @ W
+            for r in _row_blocks(X_aug.shape[1], row_chunk)], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        X_aug, X_m_aug, X_aug_k, X_m_k, E_idx = ctx.saved_tensors
+        dW = None
+        for r in _row_blocks(X_aug.shape[1], ctx.row_chunk):
+            rbf = all_pair_rbf(X_aug[:, r], E_idx[:, r], X_m_aug[:, r],
+                               ctx.num_rbf, X_aug_k, X_m_k)
+            part = (rbf.reshape(-1, rbf.shape[-1]).T
+                    @ g[:, r].reshape(-1, g.shape[-1]))
+            dW = part if dW is None else dW + part
+        return None, None, None, None, None, dW, None, None
 
 
 def features_apply(p, cfg: ModelConfig, batch, plain: bool = False,
@@ -114,9 +171,20 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     takes its bf16 function on every route; ``low_pos`` (default: the same
     as the RBF) makes the positional block bf16 too, as the one-device JAX
     featuriser does (``features.py:216``) and the JAX graph-parallel one does
-    not (``graph_parallel.py:275-278``)."""
+    not (``graph_parallel.py:275-278``).
+
+    The RBF block of a frame other than the kernels' 18 slots takes
+    ``PairRbfProjection`` (fp32, as JAX's plain product; at bf16 the bf16
+    positional block is added to it in fp32), on the graph-parallel route in
+    blocks of ``gp_rbf_row_chunk`` query rows; so does the 18-slot block
+    with a row chunk where the plain versions run (``plain``, or CPU
+    tensors: JAX's chunk acts on its plain RBF alone). On the
+    graph-parallel route the plain kNN streams its keys in chunks of
+    ``gp_knn_key_chunk`` (``parallel/graph_parallel.py::_knn_local_rows``);
+    the kernel streams them through shared memory in tiles and ignores the
+    chunk, as JAX's Pallas route does."""
     from ..ops.knn import knn_graph as knn_kernel
-    from ..ops.knn import knn_graph_qk, knn_graph_qk_plain
+    from ..ops.knn import knn_graph_qk
     from ..ops.rbf_classed import rbf_edge_features_classed_qk
     from ..ops.rbf_edge import rbf_edge_features_qk
 
@@ -137,14 +205,24 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
         _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
         keys = (X_aug, X_m_aug)
     else:
-        knn = knn_graph_qk_plain if plain else knn_graph_qk
-        _, E_idx = knn(X_ref, gather(X_ref), mask, gather(mask),
-                       cfg.k_neighbors)
+        if plain or not X_ref.is_cuda:
+            from ..parallel.graph_parallel import _knn_local_rows
+            _, E_idx = _knn_local_rows(X_ref, gather(X_ref), mask, gather(mask),
+                                       cfg.k_neighbors, cfg.gp_knn_key_chunk)
+        else:
+            _, E_idx = knn_graph_qk(X_ref, gather(X_ref), mask, gather(mask),
+                                    cfg.k_neighbors)
         keys = (gather(X_aug), gather(X_m_aug))
         scalar_tab = gather(scalar_tab)
-    rbf = (rbf_edge_features_qk if cfg.rbf_mode == "dense"
-           else rbf_edge_features_classed_qk)
-    E_rbf = rbf(X_aug, X_m_aug, *keys, E_idx, W[n_pos:], low=low, plain=plain)
+    row_chunk = cfg.gp_rbf_row_chunk if gather is not None else 0
+    if X_aug.shape[2] != KERNEL_FRAME or (row_chunk > 0 and (plain or not X.is_cuda)):
+        E_rbf = PairRbfProjection.apply(X_aug, X_m_aug, *keys, E_idx, W[n_pos:],
+                                        cfg.num_rbf, row_chunk)
+    else:
+        rbf = (rbf_edge_features_qk if cfg.rbf_mode == "dense"
+               else rbf_edge_features_classed_qk)
+        E_rbf = rbf(X_aug, X_m_aug, *keys, E_idx, W[n_pos:], low=low,
+                    plain=plain)
     g = take_rows(scalar_tab, E_idx)                            # [B,L,K,3]
     offset = R_idx[:, :, None] - g[..., 0].long()
     E_chains = (chain_labels[:, :, None] == g[..., 1].long()).long()

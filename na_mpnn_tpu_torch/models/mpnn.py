@@ -23,7 +23,13 @@ of three routes:
   MLP runs on the message-table kernel with its autograd Function, at any L.
 
 Off the fused route the layer norms, the feed-forward block and dropout are
-plain PyTorch around the message kernel.
+plain PyTorch around the message kernel. With ``remat`` other than
+``"none"`` (JAX ``mpnn.py:166-205``, ``:405-420``) those tails are
+recomputed in the backward (``_tail``): autograd keeps the message
+kernels' outputs and their saved ``x``, as JAX's ``"msg_kernel_out"``
+policy does, and the dropout masks are drawn before the recomputed region
+from the layers' own generator, so the loss and the gradient are bitwise
+those of ``remat="none"``.
 
 The node-level products (``h_V @ wc``, ``h_S @ ws``, ``h_V @ wv``) that make
 the tables the kernels gather from are plain PyTorch on every route.
@@ -232,13 +238,64 @@ def _no_dropout(x, slot):
 def generator_dropout(rate, generator):
     """The one-device dropout source of the layers: ``drop(x, slot)`` draws
     its mask from ``generator``; None (no dropout) when ``generator`` is
-    None or ``rate`` is 0."""
+    None or ``rate`` is 0. ``drop.rate`` is the rate (``_tail`` reads
+    it)."""
     if generator is None or rate <= 0.0:
         return None
 
     def drop(x, slot):
         return dropout(x, rate, generator)
+    drop.rate = rate
     return drop
+
+
+# ---------------------------------------------------------------------------
+# Per-layer rematerialisation (``remat != "none"``)
+# ---------------------------------------------------------------------------
+
+def _node_tail(p, h_V, dh, mask, drop):
+    """A layer's node tail: LN1 of the residual with the (dropped, slot 0)
+    message, the FFN with its (dropped, slot 1) output, LN2, the node
+    mask."""
+    h_V = layer_norm(p["norm1"], h_V + drop(dh, 0))
+    h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
+    return mask[..., None] * h_V
+
+
+def _edge_tail(p, h_E2, m, drop):
+    """The encoder's edge tail: LN3 of the residual with the (dropped, slot
+    2) edge message ``m [B,L,K*H]``."""
+    return layer_norm(p["norm3"], h_E2 + drop(m, 2).view(h_E2.shape))
+
+
+def _tail(tail, remat, drop, like, *args):
+    """``tail(*args, drop)``; with ``remat`` under ``torch.utils.checkpoint``:
+    autograd keeps the tail's inputs (the message kernel's output among
+    them; the kernel's Function keeps its saved ``x`` as ever) and
+    recomputes the LayerNorms, the FFN and the dropout in the backward.
+    ``like`` maps each dropout slot of the tail to a tensor of the shape and
+    type it drops; the keep masks are drawn here, before the checkpointed
+    region and in slot order, through ``drop`` itself (``drop(ones) != 0``:
+    the draws the tail makes without remat, in the same order, so the loss
+    and the gradient are bitwise those of ``remat="none"``), and the
+    recomputation reads them and draws nothing: ``preserve_rng_state``
+    would restore only the default generators, not the explicit
+    ``torch.Generator``s the layers draw from."""
+    if drop is None:
+        drop = _no_dropout
+    if not remat:
+        return tail(*args, drop)
+    from torch.utils.checkpoint import checkpoint
+
+    fixed = drop
+    if drop is not _no_dropout:
+        kept = {slot: drop(torch.ones_like(x), slot) != 0 for slot, x in like.items()}
+        keep = 1.0 - drop.rate
+
+        def fixed(x, slot):   # the expression of modules.dropout, row_dropout
+            return torch.where(kept[slot], x / keep, 0.0)
+    return checkpoint(tail, *args, fixed, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _leaves(tree):
@@ -277,7 +334,7 @@ def table_order(eidx2, K, L, Lk, plain, layers, *tensors):
 
 
 def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop=None,
-              gather=_identity, plain=False, order=None):
+              gather=_identity, plain=False, order=None, remat=False):
     """One encoder layer on flat edges: the node update (``W1..W3``, LN1,
     FFN, LN2, mask), then the edge update (``W11..W13``, LN3). ``h_V
     [B,L,H]``, ``h_E2 [B*L*K,H]``; ``drop(x, slot)``, where given, applies
@@ -287,7 +344,9 @@ def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop=None,
     graph-axis all-gather on the graph-parallel route); ``order`` is the
     stack's ``table_order`` for the message-table backward. On the fused
     route (``fused_route``) two launches, else two message-table launches
-    with the tail in PyTorch. Returns (``h_V``, ``h_E2``)."""
+    with the tail in PyTorch; with ``remat`` each tail (LN1, FFN, LN2; LN3)
+    is recomputed in the backward (``_tail``). Returns (``h_V``,
+    ``h_E2``)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
@@ -303,24 +362,20 @@ def enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop=None,
         h_E2 = edge(p, h_V2, h_E2, table.reshape(B * Lk, H), eidx2, K=K, L=L,
                     Lk=Lk)
         return h_V2.view(B, L, H), h_E2
-    drop = drop or _no_dropout
     dh = mk.message_agg_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
                                    eidx2, mask_att2, K=K, L=L, Lk=Lk,
-                                   plain=plain, order=order)
-    h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
-    h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
-    h_V = mask[..., None] * h_V
+                                   plain=plain, order=order).view(B, L, H)
+    h_V = _tail(_node_tail, remat, drop, {0: dh, 1: h_V}, p, h_V, dh, mask)
     h_V2 = h_V.reshape(N, H)
     table = gather((h_V2 @ p["W11"]["w"][2 * H:]).view(B, L, H))
     m = mk.message_edge_table_flat(p, h_V2, h_E2, table.reshape(B * Lk, H),
                                    eidx2, K=K, L=L, Lk=Lk, plain=plain,
-                                   order=order)
-    h_E2 = layer_norm(p["norm3"], h_E2 + drop(m.view(B, L, K * H), 2).view(N * K, H))
-    return h_V, h_E2
+                                   order=order).view(B, L, K * H)
+    return h_V, _tail(_edge_tail, remat, drop, {2: m}, p, h_E2, m)
 
 
 def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
-              gather=_identity, plain=False, order=None):
+              gather=_identity, plain=False, order=None, remat=False):
     """One parallel-decoder layer: a 2H node table ``[h_S@ws + h_V@wv -
     h_Venc@wv | h_Venc@wv]`` replaces the ``[B,L,K,3H]`` causal context
     (``mbw*A[j] + m1d*B[j]`` is the three-term context exactly, because
@@ -332,8 +387,9 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
     PyTorch into the pre-gathered message MLP (``mk.message_agg_batched``),
     as the JAX training decoder does at such L; there ``order`` is the
     stack's ``gather_order`` (the context gather's backward through
-    ``_GatherNodes``) or None (a plain gather). ``drop``, ``gather`` and
-    ``order`` otherwise as in ``enc_layer`` (slots 0 and 1)."""
+    ``_GatherNodes``) or None (a plain gather). ``drop``, ``gather``,
+    ``order`` and ``remat`` otherwise as in ``enc_layer`` (slots 0 and
+    1)."""
     B, L, H = h_V.shape
     N = B * L
     K = h_E2.shape[0] // N
@@ -367,10 +423,8 @@ def dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask, drop=None,
                                        table.reshape(B * Lk, 2 * H), eidx2,
                                        m1d2, mbw2, K=K, L=L, Lk=Lk, plain=plain,
                                        order=order)
-    drop = drop or _no_dropout
-    h_V = layer_norm(p["norm1"], h_V + drop(dh.view(B, L, H), 0))
-    h_V = layer_norm(p["norm2"], h_V + drop(pff_apply(p["dense"], h_V), 1))
-    return mask[..., None] * h_V
+    dh = dh.view(B, L, H)
+    return _tail(_node_tail, remat, drop, {0: dh, 1: h_V}, p, h_V, dh, mask)
 
 
 def encode(params, cfg: ModelConfig, batch, generator=None):
@@ -379,7 +433,9 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     stack; each layer makes two launches (fused or message-table, see
     ``enc_layer``). With a ``generator`` the layers apply dropout (on the
     node message, the FFN output and the edge message, as
-    ``_enc_layer_train_fused``) and the features coordinate noise."""
+    ``_enc_layer_train_fused``) and the features coordinate noise. With
+    ``cfg.remat`` other than ``"none"`` a layer off the fused route
+    recomputes its tails in the backward (``enc_layer``)."""
     check_supported(cfg)
     plain = _plain(cfg, batch["X"])
     mask = batch["mask"].to(batch["X"].dtype)
@@ -398,8 +454,14 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
     for p in layers:
         h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
-                              plain=plain, order=order)
+                              plain=plain, order=order, remat=_remat(cfg))
     return h_V, h_E2.view(B, L, K, H), E_idx
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Per-layer rematerialisation: any ``remat`` but ``"none"``, as the
+    JAX package tests it."""
+    return cfg.remat != "none"
 
 
 def _trunk_dtype(cfg: ModelConfig):
@@ -450,7 +512,7 @@ def _decoder_parallel(params, cfg, h_V, h_E, E_idx, mask, h_S, mask_bw,
     h_V_enc = h_V
     for p in layers:
         h_V = dec_layer(p, h_V, h_V_enc, h_S, h_E2, eidx2, m1d2, mbw2, mask,
-                        drop, plain=plain, order=order)
+                        drop, plain=plain, order=order, remat=_remat(cfg))
     return h_V
 
 

@@ -4,10 +4,12 @@ device (the port of the JAX package's ``train/metrics.py``).
 Rows are {train, valid} x {, protein, dna, rna} x {, interface,
 nonInterface}; columns are weights / canonicalBasePairWeights / loss /
 accuracy / canonicalBasePairAccuracy / per-restype pred and true counts /
-perplexity. Each batch adds its per-row sums in float32 on the device where
-its tensors live (no host transfer per step); ``compute_metrics`` drains the
-sums to float64 on the host once per epoch. The print string and
-``as_dict`` are the JAX package's.
+perplexity. Each batch adds its per-row sums in float64 on the device where
+its tensors live (no host transfer per step; the JAX package sums in
+float32); ``compute_metrics`` drains the sums to the host once per epoch.
+With the per-host feed each rank sums its own rows, and
+``all_reduce_across_hosts`` adds the ranks' sums before ``compute_metrics``.
+The print string and ``as_dict`` are the JAX package's.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ class MetricManager:
     def _batch_delta(self, loss, accuracy, cbp_accuracy, cbp_mask, S_true,
                      S_pred, masks_stack):
         """masks_stack: [R, B, L], the per-row combined masks -> [R, C]
-        float32 sums."""
+        float64 sums."""
         def row_sum(x):
             return (x * masks_stack).sum(dim=(1, 2))
 
@@ -81,7 +83,7 @@ class MetricManager:
         for residue in self.count_metrics:
             cols.append(row_sum((S_true == self.restype_to_int[residue])[None]))
         for _ in self.extra_metrics:
-            cols.append(torch.zeros(masks_stack.shape[0], dtype=torch.float32,
+            cols.append(torch.zeros(masks_stack.shape[0], dtype=torch.float64,
                                     device=masks_stack.device))
         return torch.stack(cols, dim=-1)
 
@@ -92,24 +94,24 @@ class MetricManager:
         are taken to the device of ``loss``."""
         dev = torch.as_tensor(loss).device
 
-        def f32(x):
-            return torch.as_tensor(x, device=dev).to(torch.float32)
+        def f64(x):
+            return torch.as_tensor(x, device=dev).to(torch.float64)
 
         row_names, mask_list = [], []
         for p in [""] + list(polymer_masks.keys()):
             for i in [""] + list(interface_masks.keys()):
                 name = train_or_valid
-                m = f32(mask_for_loss)
+                m = f64(mask_for_loss)
                 if p:
                     name += "_" + p
-                    m = m * f32(polymer_masks[p])
+                    m = m * f64(polymer_masks[p])
                 if i:
                     name += "_" + i
-                    m = m * f32(interface_masks[i])
+                    m = m * f64(interface_masks[i])
                 row_names.append(name)
                 mask_list.append(m)
         delta = self._batch_delta(
-            f32(loss), f32(accuracy), f32(cbp_accuracy), f32(cbp_mask),
+            f64(loss), f64(accuracy), f64(cbp_accuracy), f64(cbp_mask),
             torch.as_tensor(S_true, device=dev), torch.as_tensor(S_pred, device=dev),
             torch.stack(mask_list, dim=0))
         key = tuple(row_names)
@@ -119,8 +121,24 @@ class MetricManager:
     def _drain_device_acc(self):
         for row_names, acc in self._device_acc.items():
             rows = np.array([self.mask_to_row[n] for n in row_names])
-            self.metrics[rows] += acc.cpu().numpy().astype(np.float64)
+            self.metrics[rows] += acc.cpu().numpy()
         self._device_acc = {}
+
+    def all_reduce_across_hosts(self, device="cpu"):
+        """The per-host feed: each rank accumulated only its own rows; add
+        the ranks' float64 sums (before normalisation) with one
+        ``dist.all_reduce`` on ``device`` (the process group's: the card for
+        NCCL), so every rank holds the global epoch's sums. Call before
+        ``compute_metrics``; a no-op without a group of more than one rank
+        (JAX ``metrics.py:126-138``, whose float32 cast is not copied)."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return
+        self._drain_device_acc()
+        total = torch.from_numpy(self.metrics).to(device)
+        dist.all_reduce(total)
+        self.metrics = total.cpu().numpy()
 
     # -- epoch-end normalization ----------------------------------------
     def compute_metrics(self):

@@ -13,7 +13,9 @@ the global batch, and runs ``forward_graph_parallel`` at every mesh shape
 constant, so one all-reduce of the flat gradient over the world gives the
 global gradient, and every rank then takes the same clipped Adam update.
 Metrics are computed on the log-probs all-gathered along the graph axis and
-then gathered over the data axis: the global ``[B, L]`` arrays.
+then gathered over the data axis: the global ``[B, L]`` arrays. With the
+per-host feed (``per_host_feed``, graph axis 1) each rank's host batch holds
+its own rows only and its metrics are of those rows.
 
 The parameters live in one flat buffer, in ``ravel_pytree`` order (lists in
 order, dict keys sorted), and the parameter tree the model reads is a tree of
@@ -144,10 +146,16 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, label_smoothing=0.1,
                  loss_tokens=6000.0, grad_clip_norm=1.0,
                  na_shared_tokens=True, seed=0, device="cuda",
-                 mesh: Mesh = None, dtype=torch.float32):
+                 mesh: Mesh = None, dtype=torch.float32,
+                 per_host_feed: bool = False):
         check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
+        # the per-host feed: host batches hold this rank's rows only
+        self.per_host_feed = bool(per_host_feed) and mesh is not None
+        if self.per_host_feed and mesh.graph != 1:
+            raise ValueError("the per-host feed splits the batch over the data "
+                             "axis only: it needs a mesh with graph = 1")
         self.seed = seed
         self.dtype = dtype
         self.device = torch.device(device) if mesh is None else mesh.device
@@ -227,7 +235,8 @@ class Trainer:
     def _metrics(self, batch, log_probs, mfl, loss_per_token=None):
         """Per-token metrics of the global batch: with a mesh, from the
         log-probs and batch arrays gathered along the graph axis, then over
-        the data axis."""
+        the data axis; with the per-host feed, of this rank's rows only (the
+        metric sums are added over the ranks at the epoch's end)."""
         if self.mesh is None:
             return self._metrics_from_logprobs(batch, log_probs, mfl,
                                                loss_per_token)
@@ -237,6 +246,8 @@ class Trainer:
             m = self._metrics_from_logprobs(
                 rows, all_gather_rows(log_probs, self.mesh),
                 all_gather_rows(mfl, self.mesh))
+            if self.per_host_feed:
+                return m
             return {k: all_gather_batch(v, self.mesh) for k, v in m.items()}
 
     def _metrics_from_logprobs(self, batch, log_probs, mfl,
@@ -278,9 +289,16 @@ class Trainer:
     def device_batch(self, np_batch):
         """A host batch on the trainer's device: with a mesh, this rank's
         ``shard_batch`` of it (and its rows of ``decoding_order``, where
-        the host batch has one)."""
+        the host batch has one); with the per-host feed the host batch is
+        this rank's shard already (``decoding_order`` too)."""
         if self.mesh is None:
             return to_device(np_batch, self.device, self.dtype)
+        if self.per_host_feed:
+            batch = to_device(np_batch, self.device, self.dtype)
+            if "decoding_order" in np_batch:
+                batch["decoding_order"] = torch.as_tensor(
+                    np.asarray(np_batch["decoding_order"]), device=self.device)
+            return batch
         batch = to_device(shard_batch(np_batch, self.mesh), self.device,
                           self.dtype)
         if "decoding_order" in np_batch:
@@ -404,9 +422,15 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
     (seed, step)), so a run restored from the epoch-boundary checkpoint
     replays the interrupted epoch exactly. Under ``torchrun`` (or any
     initialised process group) the Trainer runs on a
-    ``(WORLD_SIZE / MESH_GRAPH_AXIS, MESH_GRAPH_AXIS)`` mesh: every rank
-    loads the whole batch, the batch dimension is padded to the data axis,
-    rank 0 writes logs and checkpoints. ``log.jsonl`` adds two keys per
+    ``(WORLD_SIZE / MESH_GRAPH_AXIS, MESH_GRAPH_AXIS)`` mesh, the batch
+    dimension padded to the data axis, rank 0 writing logs and checkpoints.
+    With more than one rank and ``MESH_GRAPH_AXIS`` 1, ``PER_HOST_FEED``
+    (default 1, JAX ``trainer.py:572-582``) has each rank parse and collate
+    only its own rows of each global batch (``PrefetchLoader(shard=(rank,
+    world))``), pad them to the world's longest L (``sync_batch_length``),
+    and sum its metric rows, added over the ranks at the epoch's end
+    (``all_reduce_across_hosts``); with ``PER_HOST_FEED: 0`` every rank
+    loads the whole batch and keeps its ``shard_batch``. ``log.jsonl`` adds two keys per
     epoch to the JAX package's: ``loader_wait_s`` (host seconds spent
     waiting for the next training batch) and ``steps`` (training steps taken
     in the epoch, a ``PROFILE_DIR`` capture's included).
@@ -418,7 +442,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
                                 parse_date, read_examples_csv)
     from ..data.loader import PrefetchLoader
     from ..data.parsers import make_parsers
-    from ..parallel.mesh import initialize_distributed, make_mesh
+    from ..parallel.mesh import (initialize_distributed, make_mesh,
+                                 sync_batch_length)
     from .metrics import generate_metric_manager
 
     if isinstance(config_path_or_dict, str):
@@ -485,11 +510,14 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
 
     cfg = model_config_from_params(p)
     seed = int(p.get("SEED", 0))
+    per_host_feed = (mesh is not None and mesh.size > 1
+                     and bool(p.get("PER_HOST_FEED", 1)) and mesh.graph == 1)
     trainer = Trainer(cfg, label_smoothing=p["LABEL_SMOOTHING"],
                       loss_tokens=float(p["LOSS_TOKENS"]),
                       grad_clip_norm=p["GRADIENT_NORM"],
                       na_shared_tokens=bool(p["NA_SHARED_TOKENS"]),
-                      seed=seed, device=device, mesh=mesh)
+                      seed=seed, device=device, mesh=mesh,
+                      per_host_feed=per_host_feed)
 
     epoch0, save_step = 0, 0
     if p.get("PREV_CHECKPOINT"):
@@ -520,7 +548,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
         if split not in loaders:
             loaders[split] = PrefetchLoader(
                 dataset, batch_iter, num_workers=int(p.get("NUM_WORKERS", 0)),
-                pad_batch_multiple=mesh.data if mesh is not None else None)
+                pad_batch_multiple=mesh.data if mesh is not None else None,
+                shard=(mesh.rank, mesh.size) if per_host_feed else None)
         else:
             loaders[split].set_clusters(batch_iter)
         return loaders[split]
@@ -551,6 +580,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
                         loader_wait_s += time.perf_counter() - t_wait
                     if np_batch is None:
                         break
+                    if per_host_feed:
+                        np_batch = sync_batch_length(np_batch, mesh)
 
                     def host(key):
                         return torch.as_tensor(np_batch[key], device=dev)
@@ -580,6 +611,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
             run_split(rows_valid, p["MAX_NUMBER_OF_PDBS_VALID"], "valid")
             t2 = time.time()
 
+            if per_host_feed:
+                metric_manager.all_reduce_across_hosts(dev)
             metric_manager.compute_metrics()
             out_str = metric_manager.create_print_string(
                 epoch, trainer.step,

@@ -22,7 +22,8 @@ one-device training path on the CPU.
   logits of order 1, through 6 layers of LayerNorm-bounded activations).
 * ``run_training`` from a config without ``MIXED_PRECISION`` trains the
   bf16 trunk, writes its fp32 ``.npz`` and resumes.
-* The options that still refuse: ``remat`` and the graph-parallel chunks.
+* The options that once refused, ``remat`` and the graph-parallel chunks,
+  run in a bf16 ``Trainer`` and leave the one-device forward as it is.
 * The bf16 combinations that run since the rest of the bf16 trunk was
   ported, one step each at a tiny width: the dense RBF, a one-rank mesh
   ``Trainer``, and the gathered decoder route (L = 40) whose ``eval_step``
@@ -231,13 +232,21 @@ def test_inference_entry_points_run_a_bf16_trunk():
                                 dict(gp_rbf_row_chunk=64)],
                          ids=["remat", "knn_key_chunk", "rbf_row_chunk"])
 def test_unported_options_refuse(kw):
+    """The three options these cases once saw refused now run (the name is
+    kept): a bf16 ``Trainer`` takes them, and its training forward with
+    dropout gives bitwise the log-probs of the default config from the same
+    generator seed. ``remat`` changes only what the backward recomputes
+    (``test_torch_remat.py`` holds its gradients), and the one-device
+    forward does not read the graph-parallel chunks (nor does JAX's;
+    ``test_torch_gp_sampler.py`` holds them on meshes)."""
     cfg = _tiny(**kw)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu")
+    Trainer(cfg, device="cpu")
     b = make_synthetic_structure(L=32, seed=1, n_protein=16, n_dna=8)
     bt = {k: torch.from_numpy(v) for k, v in b.items()}
-    with pytest.raises(NotImplementedError):
-        forward(init_params(0, cfg, device="cpu"), cfg, bt)
+    params = init_params(0, cfg, device="cpu")
+    got, want = (forward(params, c, bt, torch.Generator().manual_seed(3))[0]
+                 for c in (cfg, _tiny()))
+    assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 def _unbucketed(L=40):

@@ -259,3 +259,75 @@ def run_training_dtype_rank(rank, cfg):
     torch.set_num_threads(1)
     tr = run_training(cfg, max_epochs=1, device="cpu")
     return tr.step, tr.cfg.compute_dtype
+
+
+def sampler_cases(rank, data, graph, params_np, b_np, order, gumbel, bias,
+                  pair_np, cfg_kw, fwd):
+    """The graph-parallel sampler (``sample_graph_parallel``, float64) on
+    this rank of a (data, graph) mesh, each case beside the one-device
+    ``sample`` where it has one:
+
+    * ``"given"``: the decode order ``order`` and the per-step noise
+      ``gumbel`` given (JAX's, compared in the parent);
+    * ``"generator"``: order and noise drawn from a ``torch.Generator``
+      (seed 7), and ``sample`` with the same seed;
+    * ``"bias"``: a per-position bias and a pair bias (seed 9), and
+      ``sample`` with them.
+
+    Also, with ``fwd = (batch, order, R)``, the chunked graph-parallel
+    forward (``gp_knn_key_chunk=24``, ``gp_rbf_row_chunk=5``): this rank's
+    log-probs and the world-summed gradient of ``sum(log_probs * R)``."""
+    from na_mpnn_tpu_torch.models import sample
+    from na_mpnn_tpu_torch.parallel.graph_parallel import sample_graph_parallel
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(data, graph, device="cpu")
+    cfg = ModelConfig(**cfg_kw)
+    params = from_jax_params(params_np, device="cpu", dtype=torch.float64)
+    b = {k: torch.from_numpy(v) for k, v in b_np.items()}
+    B = order.shape[0]
+
+    def numpy(out):
+        return {k: v.numpy() for k, v in out.items()}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    out = {"given": numpy(sample_graph_parallel(
+        params, cfg, {**b, "decoding_order": torch.from_numpy(order)}, None,
+        mesh, num_samples=B, temperature=0.5, gumbel=torch.from_numpy(gumbel)))}
+    out["generator"] = tuple(numpy(fn(params, cfg, b, gen(7), *m, num_samples=3,
+                                      temperature=0.6))
+                             for fn, m in ((sample_graph_parallel, (mesh,)),
+                                           (sample, ())))
+    pair = {k: torch.from_numpy(v) for k, v in pair_np.items()}
+    out["bias"] = tuple(numpy(fn(params, cfg, b, gen(9), *m, num_samples=2,
+                                 temperature=0.5, bias=torch.from_numpy(bias),
+                                 pair_bias_ctx=pair))
+                        for fn, m in ((sample_graph_parallel, (mesh,)),
+                                      (sample, ())))
+
+    batch_np, order_f, R = fwd
+    local = {k: torch.from_numpy(v) for k, v in shard_batch(batch_np, mesh).items()}
+    R_local = torch.from_numpy(shard_batch({"S": batch_np["S"], "R": R}, mesh)["R"])
+    leaves = list(tree_leaves(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    lp = forward_graph_parallel(
+        params, ModelConfig(**cfg_kw, gp_knn_key_chunk=24, gp_rbf_row_chunk=5),
+        local, mesh, torch.from_numpy(_rows(mesh, batch_np, order_f)))
+    (lp * R_local).sum().backward()
+    g = torch.cat([leaf.grad.reshape(-1) for leaf in leaves])
+    dist.all_reduce(g)
+    out["forward"] = (lp.detach().numpy(), g.numpy())
+    return out
+
+
+def run_training_params(rank, cfg):
+    """``run_training_rank``, returning (the trainer's step, whether it took
+    the per-host feed, its flat parameters)."""
+    from na_mpnn_tpu_torch.train.trainer import run_training
+
+    torch.set_num_threads(1)
+    tr = run_training(cfg, max_epochs=1, device="cpu")
+    return tr.step, tr.per_host_feed, tr.flat.detach().numpy().copy()

@@ -73,5 +73,6 @@ def test_plain_option_matches_auto_on_cpu():
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="CUDA"):
         encode(pt, ModelConfig(kernels="cuda", **SMALL), bt)
-    with pytest.raises(NotImplementedError, match="remat"):
-        encode(pt, ModelConfig(remat="full", **SMALL), bt)
+    # remat (once refused here) runs and changes no forward value
+    for x, y in zip(a, encode(pt, ModelConfig(remat="full", **SMALL), bt)):
+        assert torch.equal(x, y)

@@ -2,8 +2,9 @@
 package: ``cli/preprocess`` (every side file equal), ``NADataset`` +
 ``make_batch_iter`` + ``PrefetchLoader`` (the same batches, every key,
 bitwise, from the same CSV and ``RandomState``; 2 spawn workers equal to
-none), ``MetricManager`` (``as_dict`` within 1e-6 relative: float32 sums in
-another order; the print string equal), and ``run_training`` at a tiny
+none), ``MetricManager`` (``as_dict`` within 1e-6 relative: JAX's float32
+sums against the port's float64 sums; the print string equal), and
+``run_training`` at a tiny
 width (the JAX log keys plus ``loader_wait_s`` and ``steps``, a checkpoint
 the JAX ``Trainer.restore`` reads, 2 epochs straight equal to 1 epoch plus a
 resume for 1, bitwise). The device's random draws of the two packages
@@ -254,5 +255,20 @@ def test_resume_replays_the_epoch_bitwise(data, two_epochs, tmp_path):
 @pytest.mark.parametrize("override", [{"ATOMS_TO_LOAD": "all"},
                                       {"CHECKPOINT_FORMAT": "orbax"}])
 def test_unported_options_raise(data, tmp_path, override):
-    with pytest.raises(NotImplementedError):
-        run_training(_config(data, tmp_path, **override), max_epochs=1, device="cpu")
+    """Orbax checkpoints still raise. The 65-atom table (``ATOMS_TO_LOAD:
+    all``), which raised before its frame was ported (the case keeps its
+    id), trains an epoch: 65-atom batches, a 67-slot RBF block, finite
+    losses, a checkpoint with its ``[16 + 16 * 67^2, H]`` edge weight."""
+    if "CHECKPOINT_FORMAT" in override:
+        with pytest.raises(NotImplementedError):
+            run_training(_config(data, tmp_path, **override), max_epochs=1,
+                         device="cpu")
+        return
+    tr = run_training(_config(data, tmp_path, **override), max_epochs=1,
+                      device="cpu")
+    assert tr.cfg.atom_table == "all" and tr.cfg.total_atoms == 67
+    assert tuple(tr.params["features"]["edge_embedding"]["w"].shape) == (
+        16 + 16 * 67 ** 2, 32)
+    (log,) = _log(tmp_path)
+    assert np.isfinite(log["train_loss"]) and log["steps"] >= 1
+    assert os.path.exists(tmp_path / "last.npz")
