@@ -30,7 +30,13 @@ CUDA toolkit. Phases, each of which raises on failure:
    launch); then the time of encode, sample, score and unconditional
    probs at that shape; encode and score on the fused route against the
    message-table route, in turns; ``eval.batch_design`` on 5 structures
-   (design and specificity); then score and unconditional probs with the
+   (design and specificity); the evaluation path (``eval_phase``): random
+   weights as ``s_1000.npz`` and their ``.pt`` export ``s_2000.pt``,
+   ``cli/sweep.py::run_sweep`` over both in score and design mode (10
+   samples; the two rows bitwise equal), ``predict_nucleic_acid_ppm`` (30
+   samples) and ``score_specificity_prediction`` against a PPM written for
+   DNA chain C (a finite Pearson), seconds per structure of each, rows 1,
+   3, 11 and 12 launched; then score and unconditional probs with the
    kernels against the plain path (``kernels="torch"``) on the card at
    that structure padded to 416 rows, and against the CPU on a small
    structure;
@@ -1328,6 +1334,123 @@ def batch_design_phase():
               f"residues, bucket 16, 2 per group): {dt:.2f} s, "
               f"{dt / len(BATCH_LENGTHS):.3f} s per structure, launches {counts}",
               flush=True)
+    return total
+
+
+def _eval_call(tag, fn, n_structures, total):
+    """Run one evaluation entry point on the card with the launches counted
+    from zero; print its seconds per structure; add its launches to
+    ``total``. Returns (result, launches)."""
+    import torch
+    from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = dict(LAUNCHES)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    print(f"eval {tag}: {dt:.2f} s, {dt / n_structures:.3f} s per structure "
+          f"(each call loads its checkpoint and featurises again), launches "
+          f"{counts}", flush=True)
+    return out, counts
+
+
+def eval_phase(pdb, L):
+    """The evaluation path (``cli/sweep.py``, ``eval/harness.py``) on the card
+    at the released width: random full-width weights written as
+    ``s_1000.npz`` and, through the ``.pt`` export, as ``s_2000.pt``;
+    ``run_sweep`` over both in score mode (10 decode orders) and design mode
+    (10 samples at T = 0.1), one seed: in each mode the two rows must be
+    bitwise equal; ``predict_nucleic_acid_ppm`` (30 samples at T = 0.6) and
+    ``score_specificity_prediction`` against a PPM CSV written for DNA chain
+    C (a finite Pearson correlation). Every call takes the fused route, and
+    rows 1, 3, 11 and 12 must be launched. Returns the launches."""
+    import shutil
+
+    from na_mpnn_tpu_torch import constants
+    from na_mpnn_tpu_torch.cli.sweep import run_sweep
+    from na_mpnn_tpu_torch.eval.harness import (predict_nucleic_acid_ppm,
+                                                score_specificity_prediction)
+    from na_mpnn_tpu_torch.models import init_params
+    from na_mpnn_tpu_torch.models.config import ModelConfig
+    from na_mpnn_tpu_torch.params import save_checkpoint_npz, save_torch_checkpoint
+
+    folder = os.path.join(OUT, "eval")
+    shutil.rmtree(folder, ignore_errors=True)
+    ckpts = os.path.join(folder, "ckpts")
+    os.makedirs(ckpts)
+    params = init_params(11, ModelConfig(), device="cpu")
+    save_checkpoint_npz(os.path.join(ckpts, "s_1000.npz"), params, meta={"step": 1000})
+    save_torch_checkpoint(os.path.join(ckpts, "s_2000.pt"), params, ModelConfig(),
+                          meta={"step": 2000})
+    csv_path = os.path.join(folder, "structures.csv")
+    with open(csv_path, "w") as f:
+        f.write(f"structure_path\n{pdb}\n")
+    total = {}
+    # per CLI call: score encodes twice (score, unconditional probs) and runs
+    # two parallel decoders; design encodes once and samples
+    for mode, extra, n_enc, n_dec in (("score", {}, 2, 2),
+                                      ("design", {"temperature": 0.1}, 1, 0)):
+        res, counts = _eval_call(
+            f"run_sweep {mode} (2 checkpoints x 1 structure, 10 samples, padded "
+            f"to 64)", lambda: run_sweep(
+                ckpts, csv_path, mode, num_samples=10, seed=7, device="cuda",
+                workdir=os.path.join(folder, f"sweep_{mode}"),
+                out=os.path.join(folder, f"sweep_{mode}.json"), **extra), 2, total)
+        rows = [dict(r) for r in res["table"]]
+        names = [os.path.basename(r.pop("checkpoint")) for r in rows]
+        if names != ["s_1000.npz", "s_2000.pt"] or rows[0] != rows[1] or \
+                not np.isfinite(rows[0]["value"]):
+            raise AssertionError(f"sweep {mode}: the .npz and .pt rows differ or "
+                                 f"are not finite: {res['table']}")
+        if not (counts.get("knn") == 2 * n_enc and _fused_launches_ok(counts, 2 * n_dec)):
+            raise AssertionError(f"sweep {mode}: launches {counts}, want the fused "
+                                 f"route and {n_enc} encode(s) per call (2 calls)")
+        print(f"eval sweep {mode}: .npz and .pt rows bitwise equal: {rows[0]}",
+              flush=True)
+
+    npz = os.path.join(ckpts, "s_1000.npz")
+    subject, counts = _eval_call(
+        "predict_nucleic_acid_ppm (30 samples, T = 0.6)",
+        lambda: predict_nucleic_acid_ppm(pdb, os.path.join(folder, "spec"), 30, 0.6,
+                                         na_mpnn_model_path=npz, seed=7,
+                                         device="cuda"), 1, total)
+    if not (counts.get("knn") == 1 and _fused_launches_ok(counts, 0)):
+        raise AssertionError(f"predict_nucleic_acid_ppm: launches {counts}")
+    with open(subject) as f:
+        spec = json.load(f)
+    _check_finite(spec["predicted_ppm_na_mpnn_format"], (L, 33), "eval predicted PPM")
+    # a motif on 10 bases of DNA chain C: 0.85 on the native base
+    chain = np.asarray(spec["chain_labels"])
+    true_seq = np.asarray(spec["true_sequence_na_mpnn_format"])
+    c_rows = np.flatnonzero(chain == np.unique(chain)[2])[10:20]
+    t = constants.restype_to_int_table(True)
+    ppm = np.full((len(c_rows), 4), 0.05)
+    ppm[np.arange(len(c_rows)), true_seq[c_rows] - t["DA"]] = 0.85
+    ppm_csv = os.path.join(folder, "chain_c_ppm.csv")
+    with open(ppm_csv, "w") as f:
+        f.write("A,C,G,T\n" + "".join(",".join(f"{v:.2f}" for v in r) + "\n"
+                                      for r in ppm))
+    t0 = time.time()
+    scored = score_specificity_prediction(f"[['{ppm_csv}']]", subject,
+                                          os.path.join(folder, "scores"))
+    with open(scored) as f:
+        result = json.load(f)
+    if not np.isfinite(result["pearson_dna"]):
+        raise AssertionError(f"score_specificity_prediction: pearson_dna "
+                             f"{result['pearson_dna']}")
+    print(f"eval score_specificity_prediction: {time.time() - t0:.3f} s per "
+          f"structure (host, numpy); pearson_dna {result['pearson_dna']:.4f}, "
+          f"alignment score {result['alignment_score_dna']:.4f} over "
+          f"{result['aligned_dna_length']} positions", flush=True)
+    for name in ("knn", "rbf_classed", "fused_node_update_enc", "fused_edge_update",
+                 "fused_node_update_dec"):
+        if total.get(name, 0) < 1:
+            raise AssertionError(f"eval phase: {name} never launched ({total})")
     return total
 
 
@@ -3525,6 +3648,7 @@ def main():
     breakdown_phase(pdb)
     add(fused_vs_table_phase(pdb))
     add(batch_design_phase())
+    add(eval_phase(pdb, L))
     reference_check_phase(pdb)
     add(dense_inference_phase(pdb))
     nb = training_batch()

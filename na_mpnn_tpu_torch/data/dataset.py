@@ -631,6 +631,24 @@ def parse_date(text: str) -> datetime.date:
     return datetime.datetime.strptime(text, DATE_FORMAT).date()
 
 
+def read_csv_rows(path: str):
+    """(rows as dicts of strings, column names) of a CSV file."""
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        return list(reader), list(reader.fieldnames or [])
+
+
+def write_csv_rows(path: str, rows, columns):
+    """Write row dicts as a CSV with ``columns`` as its header (written also
+    when there are no rows), ``\n`` line ends and ``str()`` of each value
+    (a list as its repr, None as an empty cell): the file ``pandas``'
+    ``to_csv(index=False)`` writes for the same table."""
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=columns, lineterminator="\n")
+        writer.writeheader()
+        writer.writerows(rows)
+
+
 def read_examples_csv(path: str) -> List[Dict]:
     """A table of training examples as row dicts, rows in file order:
     ``sampling_probability`` a float, ``date`` a ``datetime.date``, every

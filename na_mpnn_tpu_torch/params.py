@@ -1,14 +1,19 @@
 """Parameters: the JAX package's ``.npz`` checkpoint layout and reference
-``.pt`` state_dicts, read into the port's parameter tree.
+``.pt`` state_dicts, both ways.
+
+The port's own copy of the JAX package's ``models/torch_import.py``
+(``from_torch_state_dict``, ``to_torch_state_dict``) and of the ``.npz``
+and ``.pt`` halves of ``train/checkpoint.py`` (``flatten_pytree``,
+``unflatten_pytree``, ``save_checkpoint_npz``, ``load_checkpoint_npz``,
+``load_params_any``, ``save_torch_checkpoint``).
 
 The port's tree has the JAX package's nesting and key names (dicts and
 lists) with ``torch.Tensor`` leaves, and linear weights in the JAX layout
 ``[in, out]``: no transposes between the two packages. A reference
 state_dict stores ``nn.Linear`` weights ``[out, in]``; ``from_torch_state_dict``
-transposes every linear weight (not the token embedding) on the way in.
-The ``.npz`` helpers are the port's own copies of
-``train/checkpoint.py::flatten_pytree``, ``unflatten_pytree``,
-``save_checkpoint_npz`` and ``load_checkpoint_npz``.
+transposes every linear weight (not the token embedding) on the way in and
+``to_torch_state_dict`` on the way out. Orbax directory checkpoints are
+refused: ``orbax.checkpoint`` imports ``jax``, which the port never does.
 """
 from __future__ import annotations
 
@@ -95,7 +100,7 @@ def from_jax_params(tree, device="cuda", dtype=torch.float32):
         return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_jax_params(v, device, dtype) for v in tree]
-    t = torch.from_numpy(np.array(tree))   # a writable copy
+    t = torch.from_numpy(np.array(tree, order="C"))   # a writable C-order copy
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -160,10 +165,21 @@ def from_torch_state_dict(sd: Mapping, cfg: ModelConfig):
     }
 
 
+def refuse_orbax(path: str):
+    """Raise for an orbax directory checkpoint, saying why."""
+    raise NotImplementedError(
+        f"{path}: orbax directory checkpoints are refused: orbax.checkpoint "
+        "imports jax, which this package never imports; write the "
+        "checkpoint as .npz or .pt")
+
+
 def load_params_any(path: str, cfg: ModelConfig, device="cuda",
                     dtype=torch.float32):
     """Parameters from an ``.npz`` (JAX layout) or a reference ``.pt``
-    checkpoint -> (tensor tree on ``device``, meta)."""
+    checkpoint -> (tensor tree on ``device``, meta). An orbax directory
+    raises (``refuse_orbax``)."""
+    if os.path.isdir(path):
+        refuse_orbax(path)
     if path.endswith((".pt", ".pth")):
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
         sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
@@ -172,3 +188,58 @@ def load_params_any(path: str, cfg: ModelConfig, device="cuda",
     else:
         tree, meta, _ = load_checkpoint_npz(path)
     return from_jax_params(tree, device=device, dtype=dtype), meta
+
+
+def to_torch_state_dict(params, cfg: ModelConfig):
+    """The port's (or the JAX package's) parameter tree, on any device ->
+    the reference state_dict layout (numpy arrays; ``[out, in]`` linear
+    weights, the token embedding as it is). Inverse of
+    ``from_torch_state_dict``."""
+    sd = {}
+
+    def put_linear(prefix, p):
+        sd[prefix + ".weight"] = _np(p["w"]).T
+        if "b" in p:
+            sd[prefix + ".bias"] = _np(p["b"])
+
+    def put_norm(prefix, p):
+        sd[prefix + ".weight"] = _np(p["scale"])
+        sd[prefix + ".bias"] = _np(p["bias"])
+
+    f = params["features"]
+    put_linear("features.embeddings.linear", f["positional"])
+    put_linear("features.node_embedding", f["node_embedding"])
+    put_norm("features.norm_nodes", f["norm_nodes"])
+    put_linear("features.edge_embedding", f["edge_embedding"])
+    put_norm("features.norm_edges", f["norm_edges"])
+    put_linear("W_v", params["W_v"])
+    put_linear("W_e", params["W_e"])
+    sd["W_s.weight"] = _np(params["W_s"]["emb"])
+    put_linear("W_out", params["W_out"])
+    for i, lp in enumerate(params["encoder"]):
+        for name in ["W1", "W2", "W3", "W11", "W12", "W13"]:
+            put_linear(f"encoder_layers.{i}.{name}", lp[name])
+        for name in ["norm1", "norm2", "norm3"]:
+            put_norm(f"encoder_layers.{i}.{name}", lp[name])
+        put_linear(f"encoder_layers.{i}.dense.W_in", lp["dense"]["W_in"])
+        put_linear(f"encoder_layers.{i}.dense.W_out", lp["dense"]["W_out"])
+    for i, lp in enumerate(params["decoder"]):
+        for name in ["W1", "W2", "W3"]:
+            put_linear(f"decoder_layers.{i}.{name}", lp[name])
+        for name in ["norm1", "norm2"]:
+            put_norm(f"decoder_layers.{i}.{name}", lp[name])
+        put_linear(f"decoder_layers.{i}.dense.W_in", lp["dense"]["W_in"])
+        put_linear(f"decoder_layers.{i}.dense.W_out", lp["dense"]["W_out"])
+    return sd
+
+
+def save_torch_checkpoint(path: str, params, cfg: ModelConfig,
+                          meta: Optional[Dict] = None):
+    """Write ``params`` as a reference ``.pt`` checkpoint:
+    ``{**meta, "model_state_dict": ...}`` with contiguous CPU float32
+    tensors."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+          for k, v in to_torch_state_dict(params, cfg).items()}
+    payload = dict(meta or {})
+    payload["model_state_dict"] = sd
+    torch.save(payload, path)

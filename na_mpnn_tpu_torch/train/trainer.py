@@ -49,7 +49,7 @@ import torch.distributed as dist
 
 from ..models import ModelConfig, forward, init_params
 from ..models.config import check_supported
-from ..params import load_checkpoint_npz, save_checkpoint_npz
+from ..params import load_checkpoint_npz, refuse_orbax, save_checkpoint_npz
 from ..parallel.graph_parallel import all_gather_rows, forward_graph_parallel
 from ..parallel.mesh import Mesh, all_gather_batch, replicated, shard_batch
 from .losses import (compute_canonical_base_pair_accuracy, loss_nll,
@@ -362,9 +362,7 @@ class Trainer:
         the flat layout or the legacy per-leaf one (count, mu of every leaf,
         nu of every leaf, schedule count)."""
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path}: orbax directory checkpoints are not ported "
-                "(ROADMAP Queue 1 item 5, 'Checkpoint interchange')")
+            refuse_orbax(path)
         tree, meta, opt_flat = load_checkpoint_npz(path)
         with torch.no_grad():
             for view, arr in zip(self.leaves, tree_leaves(tree)):
@@ -453,7 +451,8 @@ def run_training(config_path_or_dict, max_epochs: Optional[int] = None,
         p = dict(config_path_or_dict)
     if p.get("CHECKPOINT_FORMAT", "npz") != "npz":
         raise NotImplementedError(
-            f"CHECKPOINT_FORMAT {p['CHECKPOINT_FORMAT']!r}: only npz is ported")
+            f"CHECKPOINT_FORMAT {p['CHECKPOINT_FORMAT']!r}: only npz is written "
+            "(orbax.checkpoint imports jax, which this package never imports)")
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and not dist.is_initialized():

@@ -1,8 +1,9 @@
 """The port stands alone: ``na_mpnn_tpu_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor anything of the JAX package ``na_mpnn_tpu``, and the
 port runs its CLI (design, symmetry-tied design, score), batch design,
-trainer (fp32 and the bf16 trunk), preprocessing CLI and training CLI where neither JAX nor pandas can
-be imported. ``run_training`` on a gloo world of 2 CPU processes logs the
+trainer (fp32 and the bf16 trunk), preprocessing CLI, training CLI and a
+score-mode checkpoint sweep over a ``.pt`` export where neither JAX nor
+pandas can be imported. ``run_training`` on a gloo world of 2 CPU processes logs the
 losses of a world of 1 (both on the mesh route, whose random streams are
 keyed by global row, so the two split the same draws)."""
 import ast
@@ -83,6 +84,16 @@ mesh_trainer = Trainer(cfg, seed=0, mesh=make_mesh(1, 1, "cpu"))
 m = mesh_trainer.train_step(batch)
 assert mesh_trainer.step == 1 and float(m["loss_av"]) == float(m["loss_av"])
 assert tuple(m["S_pred"].shape) == tuple(batch["S"].shape)
+import os
+from na_mpnn_tpu_torch.cli.sweep import run_sweep
+from na_mpnn_tpu_torch.params import load_params_any, save_torch_checkpoint
+os.makedirs(out + "/ck")
+params, _ = load_params_any(out + "/w.npz", ModelConfig(), device="cpu")
+save_torch_checkpoint(out + "/ck/s_1.pt", params, ModelConfig(), meta={"step": 1})
+sweep = run_sweep(out + "/ck", out + "/s.csv", "score", num_samples=2, seed=3,
+                  workdir=out + "/sweep", device="cpu")
+assert [e["n_orders"] for e in sweep["table"]] == [2], sweep
+assert sweep["best_checkpoint"]["checkpoint"] == out + "/ck/s_1.pt"
 leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "na_mpnn_tpu" or m.startswith("na_mpnn_tpu.")
           or m == "pandas" or m.startswith("pandas.")]
@@ -106,6 +117,7 @@ def test_port_runs_its_cli_with_jax_unimportable(tmp_path):
     with open(tmp_path / "run" / "log.jsonl") as f:
         assert [json.loads(line)["epoch"] for line in f] == [1]
     assert os.path.exists(tmp_path / "run" / "last.npz")
+    assert os.path.exists(tmp_path / "sweep" / "s_1" / "s" / "stats" / "s.npz")
 
 
 def test_run_training_on_two_ranks_logs_what_one_rank_logs(tmp_path):
@@ -139,15 +151,25 @@ def test_run_training_on_two_ranks_logs_what_one_rank_logs(tmp_path):
 
 
 def _imported_modules(path):
-    """Absolute module names a source file imports (relative imports stay
-    inside the package and are skipped)."""
+    """(absolute module name, imported inside a function) for each import of
+    a source file (relative imports stay inside the package and are
+    skipped)."""
     tree = ast.parse(open(path).read(), path)
+    in_function = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            in_function.update(id(n) for n in ast.walk(node))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name
+                yield alias.name, id(node) in in_function
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, id(node) in in_function
+
+
+# A plotting tool that never runs on the card keeps the JAX module's pandas
+# imports inside its functions.
+LAZY_PANDAS = {os.path.join("na_mpnn_tpu_torch", "eval", "visualize.py")}
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -159,8 +181,13 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) > 15
     bad = []
     for f in files:
-        for name in _imported_modules(f):
+        rel = os.path.relpath(f, ROOT)
+        for name, in_function in _imported_modules(f):
             root = name.split(".")[0]
+            if root == "pandas" and in_function and rel in LAZY_PANDAS:
+                continue
             if root in ("jax", "jaxlib", "na_mpnn_tpu", "pandas"):
-                bad.append((os.path.relpath(f, ROOT), name))
+                bad.append((rel, name))
     assert bad == []
+    assert any(name == "pandas" for f in LAZY_PANDAS
+               for name, _ in _imported_modules(os.path.join(ROOT, f)))
