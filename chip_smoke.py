@@ -8,7 +8,15 @@ CUDA toolkit. Phases, each of which raises on failure:
 
 1. device check: prints the card's name and power limit, turns TF32 off;
 2. build: compiles ``na_mpnn_tpu_torch/csrc/*.cu`` (one nvcc per source, in
-   parallel) and prints the seconds;
+   parallel) and prints the seconds; then the host side of the data path
+   (``host_reader_phase``): whether the native structure tokenizer
+   (``native/na_parse.cc``, ``g++`` at first use) built, where and in how
+   many seconds, or the compiler's error (the pure-Python reader then
+   serves); where it built, its records against the Python reader's on the
+   synthetic PDB and its gzipped copy, ``parse_pdb``'s features bitwise
+   from both, and ms per read and per parse of each; ``utils/geometry.py``
+   on CUDA tensors against the CPU; topology and 1D features of every
+   entry of the packaged residue library; the phase's seconds;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: kNN (E_idx and D exact, also with the masked rows of
    ``--pad_to_bucket 32``, and on ``_knn_cases``: exact ties, masked rows
@@ -24,7 +32,8 @@ CUDA toolkit. Phases, each of which raises on failure:
    design, specificity and score mode, in design mode with
    ``--pad_to_bucket 32``, with ``--symmetry_residues`` (tied positions
    draw equal tokens) and on the same structure written as mmCIF (the PDB
-   run's fields, shapes and native sequence); checks the outputs and that
+   run's fields, shapes and native sequence), printing which reader read
+   each run's structure; checks the outputs and that
    each run took the fused route (3 encoder node and 3 edge updates per
    encode, 3 decoder node updates per parallel decoder, no message-table
    launch); then the time of encode, sample, score and unconditional
@@ -1024,15 +1033,17 @@ def _fused_launches_ok(counts, n_dec):
 def main_path_phase(pdb, L):
     """The port's CLI on the card, per mode (design, specificity, score,
     design padded to 416 rows, symmetry-tied design, design from mmCIF);
-    checks the outputs and the fused route's launches; returns the
-    launches."""
+    checks the outputs and the fused route's launches; prints which reader
+    read each run's structure; returns the launches."""
     import torch
     from na_mpnn_tpu_torch.cli.run import cli_entry
+    from na_mpnn_tpu_torch.data.native_loader import native_available
     from na_mpnn_tpu_torch.models import init_params
     from na_mpnn_tpu_torch.models.config import ModelConfig
     from na_mpnn_tpu_torch.ops import LAUNCHES, reset_launches
     from na_mpnn_tpu_torch.params import save_checkpoint_npz
 
+    reader = "native tokenizer" if native_available() else "pure-Python"
     ckpt = os.path.join(OUT, "random_weights.npz")
     save_checkpoint_npz(ckpt, init_params(0, ModelConfig(), device="cpu"))
     cif = os.path.join(OUT, "synthetic.cif")
@@ -1097,8 +1108,162 @@ def main_path_phase(pdb, L):
                         np.array_equal(ref["native_sequence"], stats["native_sequence"]):
                     raise AssertionError("cif: outputs differ from the PDB run's "
                                          "fields, shapes or native sequence")
-        print(f"main path {tag}: {dt:.2f} s, launches {counts}", flush=True)
+        served = ("the mmCIF atom_site reader" if path.endswith(".cif")
+                  else f"the {reader} PDB reader")
+        print(f"main path {tag}: {dt:.2f} s, read by {served}, "
+              f"launches {counts}", flush=True)
     return total
+
+
+def _records_match(got, want):
+    """True if two ``read_pdb_atoms`` results hold the same records (names,
+    numbers, chains, codes, elements; coordinates within 1e-4; occupancy
+    and B-factor within 1e-6, relative to the value where it is below 1)."""
+    keys = ("record", "serial", "name", "altloc", "resname", "chain", "resnum",
+            "icode", "element")
+
+    def close(x, y):
+        return abs(x - y) <= 1e-6 * min(1.0, abs(y))
+
+    return len(got) == len(want) and all(
+        all(getattr(a, k) == getattr(b, k) for k in keys)
+        and np.abs(a.xyz - b.xyz).max() <= 1e-4
+        and close(a.occupancy, b.occupancy) and close(a.bfactor, b.bfactor)
+        for a, b in zip(got, want))
+
+
+def _parsed_equal(a, b):
+    """True if two ``parse_pdb`` results give the same model inputs bit for
+    bit (the atom lists are compared as ``_records_match`` compares)."""
+    if sorted(a) != sorted(b):
+        return False
+    for k in a:
+        if k.endswith("_atoms"):
+            flat = [[x] if hasattr(x, "xyz") else x for x in a[k]]
+            want = [[x] if hasattr(x, "xyz") else x for x in b[k]]
+            if not _records_match(sum(flat, []), sum(want, [])):
+                return False
+            continue
+        pairs = zip(a[k], b[k]) if isinstance(a[k], list) else [(a[k], b[k])]
+        if len(a[k]) != len(b[k]) or any(
+                np.asarray(x).dtype != np.asarray(y).dtype
+                or np.asarray(x).tobytes() != np.asarray(y).tobytes() for x, y in pairs):
+            return False
+    return True
+
+
+def _parse_pdb_with(path, native):
+    """``parse_pdb(path)`` with its records read by the native tokenizer
+    (``native``) or by the pure-Python reader."""
+    from na_mpnn_tpu_torch.data import pdb as pdb_mod
+
+    orig = pdb_mod.read_pdb_atoms
+    pdb_mod.read_pdb_atoms = lambda path, fmo=True, use_native=True: \
+        orig(path, fmo, native)
+    try:
+        return pdb_mod.parse_pdb(path)
+    finally:
+        pdb_mod.read_pdb_atoms = orig
+
+
+def host_reader_phase(pdb):
+    """The host side of the data path, which the main path runs first: the
+    native structure tokenizer (``native/na_parse.cc``, built with ``g++``
+    at first use) — whether it built, where, in how many seconds, or the
+    compiler's error; where it built, its records against the pure-Python
+    reader's on the synthetic PDB and its gzipped copy, ``parse_pdb``'s
+    features bitwise from both readers, and ms per read and per parse of
+    each; ``utils/geometry.py`` on CUDA tensors against the CPU; topology
+    and 1D features of every entry of the packaged residue library (no
+    networkx on this machine)."""
+    import gzip
+    import shutil
+
+    import torch
+    from na_mpnn_tpu_torch.data import native_loader
+    from na_mpnn_tpu_torch.data import pdb as pdb_mod
+    from na_mpnn_tpu_torch.data.ligands import (MolFeaturizer, ResidueLibrary,
+                                                get_topology)
+    from na_mpnn_tpu_torch.utils import geometry
+
+    t_phase = time.time()
+    if native_loader.native_available():
+        b = native_loader.BUILD
+        reader = "native"
+        print(f"host reader: native tokenizer built in {b['seconds']:.2f} s "
+              f"(0 = found built) at {os.path.relpath(b['path'], ROOT)}", flush=True)
+    else:
+        reader = "python"
+        print("host reader: the native tokenizer did not build; the pure-Python "
+              f"reader serves. Error: {native_loader.BUILD['error']}", flush=True)
+    gz = os.path.join(OUT, "synthetic.pdb.gz")
+    with open(pdb, "rb") as f, gzip.open(gz, "wb") as g:
+        shutil.copyfileobj(f, g)
+    if reader == "native":
+        for path in (pdb, gz):
+            nat = pdb_mod.read_pdb_atoms(path)
+            py = pdb_mod.read_pdb_atoms(path, use_native=False)
+            if not nat or nat[0].line != "" or not _records_match(nat, py):
+                raise AssertionError(f"native against Python records differ on {path}")
+        orig = pdb_mod.read_pdb_atoms
+
+        def parse(native):
+            return _parse_pdb_with(pdb, native)
+
+        if not _parsed_equal(parse(True), parse(False)):
+            raise AssertionError("parse_pdb features differ between the native "
+                                 "and the Python reader")
+        # three rounds in turns (the host is shared), 30 calls each, so that
+        # every reading carries its share of the garbage collector's full
+        # passes (one per ~70,000 objects made); the median of each
+        ms = {}
+        for _ in range(3):
+            for name, native in (("native", True), ("python", False)):
+                for path in (pdb, gz):
+                    ms.setdefault((name, path), []).append(_host_ms(
+                        lambda: orig(path, use_native=native), 30))
+                ms.setdefault((name, "parse"), []).append(
+                    _host_ms(lambda: parse(native), 30))
+        ms = {k: float(np.median(v)) for k, v in ms.items()}
+        print(f"host reader: {len(nat)} records, native = Python (plain and .gz); "
+              "parse_pdb features bitwise equal", flush=True)
+        print(f"host reader ms per read of the 389-residue PDB (median of 3 rounds "
+              f"in turns): native {ms['native', pdb]:.3f} (.gz {ms['native', gz]:.3f}), "
+              f"Python {ms['python', pdb]:.3f} (.gz {ms['python', gz]:.3f}); per "
+              f"parse_pdb: native {ms['native', 'parse']:.3f}, Python "
+              f"{ms['python', 'parse']:.3f}", flush=True)
+
+    rng = np.random.default_rng(0)
+    pts = [rng.standard_normal((8, 768, 3)).astype(np.float32) * 3 for _ in range(4)]
+    worst = {}
+    for name, n in (("get_ang", 3), ("get_dih", 4), ("get_frames", 3), ("triple_prod", 3)):
+        fn = getattr(geometry, name)
+        cpu = fn(*[torch.from_numpy(p) for p in pts[:n]])
+        dev = fn(*[torch.from_numpy(p).cuda() for p in pts[:n]])
+        if not (dev.is_cuda and dev.dtype == torch.float32 and dev.shape == cpu.shape):
+            raise AssertionError(f"{name}: {dev.device}, {dev.dtype}, {tuple(dev.shape)}")
+        worst[name] = float((dev.cpu() - cpu).abs().max())
+        if not worst[name] < 1e-4:
+            raise AssertionError(f"{name}: cuda against cpu max |d| {worst[name]:.3g}")
+    print("host geometry (B=8 x L=768, fp32) cuda against cpu, max |d| (< 1e-4): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()), flush=True)
+
+    t0 = time.time()
+    lib, feat = ResidueLibrary.standard(), MolFeaturizer()
+    n_bonds = 0
+    for name, raw in lib._raw.items():
+        topo = get_topology(raw)
+        f1d, emb = feat.features_1d(raw), feat.embed_features_1d(raw)
+        n = len(raw["atoms"])
+        if (len(topo["bonds"]) != len(raw["bonds"]) or f1d.shape != (n, 4)
+                or emb.shape != (n, feat.num_features_1d())
+                or not np.isfinite(topo["bondlen"]).all()):
+            raise AssertionError(f"residue library entry {name}: bad topology or features")
+        n_bonds += len(topo["bonds"])
+    print(f"host ligands: topology and 1D features of {len(lib._raw)} packaged "
+          f"entries ({n_bonds} bonds) in {time.time() - t0:.2f} s", flush=True)
+    print(f"host reader phase: {time.time() - t_phase:.1f} s; PDB input is read "
+          f"by the {reader} reader", flush=True)
 
 
 def _host_ms(fn, iters):
@@ -3637,6 +3802,7 @@ def main():
     build_phase()
     pdb = os.path.join(OUT, "synthetic.pdb")
     L = write_synthetic_pdb(pdb)
+    host_reader_phase(pdb)
     rows = kernel_phase(pdb)
     rows.update(fused_kernel_phase(pdb))
     launches = main_path_phase(pdb, L)

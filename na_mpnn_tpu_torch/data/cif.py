@@ -14,9 +14,10 @@ port's own copy of the JAX package's ``data/cif.py``):
   metadata (method / deposition date / resolution);
 * PDB-format writers of parsed chains (``save_chain``, ``save_all``).
 
-The ligand residue library of the JAX package (``data/ligands.py``, which
-needs networkx) is not ported; ``CIFParser`` takes any object with a
-``get(res_name)`` in its place.
+``CIFParser(residue_library=...)`` takes a ``data/ligands.py::
+ResidueLibrary`` (``ResidueLibrary.standard()`` is the packaged one) for
+chem_comp-level detail of non-polymer residues: bonds, automorphisms,
+leaving groups.
 """
 from __future__ import annotations
 
@@ -307,9 +308,8 @@ class CIFParser:
         self.skip_res = set(skip_res)
         self.randomize_nmr_model = randomize_nmr_model
         self._rng = rng  # None -> np.random (kept picklable for loader workers)
-        # Optional residue library (any object with ``get(res_name)``, as
-        # the JAX package's ligands.ResidueLibrary) giving chem_comp-level
-        # detail for non-polymer residues.
+        # Optional ligands.ResidueLibrary giving chem_comp-level detail
+        # (bonds, automorphisms, leaving groups) for non-polymer residues.
         self.library = residue_library
 
     def ligand_residues(self, chains) -> Dict:

@@ -10,10 +10,11 @@ the JAX package's ``data/pdb.py`` on its pure-Python readers).
 * ``rna_mask_for_token_conversion`` marks residues with an O2' atom;
 * non-polymer heavy atoms become ligand context (Y / Y_t / Y_m).
 
-mmCIF inputs (``.cif``, ``.mmcif``, gzipped or not) are read from their
-``atom_site`` table with the same filtering as PDB records. The native
-(C++) tokenizer is not ported: the pure-Python readers are its semantic
-reference.
+PDB records are read by the native (C++) tokenizer,
+``native/na_parse.cc`` through ``data/native_loader.py``, where its library
+builds; the pure-Python reader here is its semantic reference and serves
+where it does not. mmCIF inputs (``.cif``, ``.mmcif``, gzipped or not) are
+read from their ``atom_site`` table with the same filtering as PDB records.
 """
 from __future__ import annotations
 
@@ -95,15 +96,30 @@ def _parse_atom_line(line: str) -> Optional[PDBAtom]:
         return None
 
 
-def read_pdb_atoms(path: str) -> List[PDBAtom]:
-    """Read the first model's ATOM/HETATM records (altloc ' ' or 'A',
-    occupancy > 0) with the pure-Python reader."""
+def read_pdb_atoms(path: str, first_model_only: bool = True,
+                   use_native: bool = True) -> List[PDBAtom]:
+    """Read ATOM/HETATM records (altloc ' ' or 'A', occupancy > 0), of the
+    first model only unless ``first_model_only`` is false.
+
+    With ``use_native`` the native tokenizer reads them where its library
+    builds (``PDBAtom.line`` is then empty); the pure-Python reader below is
+    its semantic reference and the fallback, also where the native reader
+    raises on a file (one it cannot open, or a non-ASCII byte in a text
+    column), so that such a file reads, or fails, as the Python reader
+    has it."""
+    if use_native:
+        from .native_loader import native_available, read_pdb_atoms_native
+        if native_available():
+            try:
+                return read_pdb_atoms_native(path, first_model_only)
+            except (OSError, ValueError):
+                pass
     opener = gzip.open if path.endswith(".gz") else open
     atoms = []
     with opener(path, "rt") as f:
         for line in f:
             rec = line[:6]
-            if rec.startswith("ENDMDL") and atoms:
+            if rec.startswith("ENDMDL") and first_model_only and atoms:
                 break
             if not (rec.startswith("ATOM") or rec.startswith("HETATM")):
                 continue

@@ -3,8 +3,9 @@
 Port of the JAX package's ``models/features.py``. The
 kNN graph and the RBF edge projection run on the kernels of ``ops/knn.py``,
 ``ops/rbf_classed.py`` (``rbf_mode="classed"``) and ``ops/rbf_edge.py``
-(``rbf_mode="dense"``); ``knn_graph`` and ``all_pair_rbf`` here are the
-plain versions the kernels are held to. The RBF kernels take the 18-slot
+(``rbf_mode="dense"``); ``knn_graph`` here is ``ops/knn.py``'s (the
+kernel on CUDA tensors), ``all_pair_rbf`` the plain version the RBF
+kernels are held to. The RBF kernels take the 18-slot
 frame; the other frames (no virtual base N, the 65-atom table) take
 ``PairRbfProjection``, the plain RBF and one product, as the JAX package
 computes them outside any Pallas kernel.
@@ -15,9 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import constants
-from ..ops.knn import knn_graph_plain as knn_graph  # noqa: F401 (public name)
+from ..ops.knn import knn_graph, knn_graph_plain
 from .config import ModelConfig
-from .modules import layer_norm, take_rows
+from .modules import init_layer_norm, init_linear, layer_norm, take_rows
 
 RBF_D_MIN = 2.0
 RBF_D_MAX = 22.0
@@ -58,6 +59,34 @@ def all_pair_rbf(X_aug, E_idx, X_m_aug, num_rbf, X_aug_k=None, X_m_k=None):
     X_m_g = take_rows(X_m_k, E_idx)                          # [B,L,K,A]
     RBF = RBF * X_m_aug[:, :, None, :, None, None] * X_m_g[:, :, :, None, :, None]
     return RBF.reshape(B, L, K, A * A * num_rbf)
+
+
+def positional_embed(p, offset, E_chains, max_relative_feature):
+    """Relative-position embedding clipped at +-max_relative_feature with a
+    separate cross-chain bucket: a row gather of the table ``p["w"]``
+    (plus ``p["b"]`` where present). The featuriser computes the same rows
+    folded through the edge projection (``features_from_coords``)."""
+    mrf = max_relative_feature
+    d = torch.clamp(offset + mrf, 0, 2 * mrf)
+    d = d * E_chains + (1 - E_chains) * (2 * mrf + 1)
+    out = p["w"][d.long()]
+    return out + p["b"] if "b" in p else out
+
+
+def init_features(rng, cfg: ModelConfig):
+    """The featuriser's parameters as a numpy tree in the JAX layout
+    (xavier-uniform weights, zero biases, unit LayerNorms), drawn from the
+    numpy Generator ``rng``."""
+    return {
+        "positional": init_linear(rng, 2 * cfg.max_relative_feature + 2,
+                                  cfg.num_positional_embeddings),
+        "node_embedding": init_linear(rng, cfg.node_in, cfg.node_features,
+                                      bias=False),
+        "norm_nodes": init_layer_norm(cfg.node_features),
+        "edge_embedding": init_linear(rng, cfg.edge_in, cfg.edge_features,
+                                      bias=False),
+        "norm_edges": init_layer_norm(cfg.edge_features),
+    }
 
 
 def augment_coordinates(X, X_m, batch, cfg: ModelConfig, generator):
@@ -183,7 +212,6 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     ``gp_knn_key_chunk`` (``parallel/graph_parallel.py::_knn_local_rows``);
     the kernel streams them through shared memory in tiles and ignores the
     chunk, as JAX's Pallas route does."""
-    from ..ops.knn import knn_graph as knn_kernel
     from ..ops.knn import knn_graph_qk
     from ..ops.rbf_classed import rbf_edge_features_classed_qk
     from ..ops.rbf_edge import rbf_edge_features_qk
@@ -201,7 +229,7 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     n_pos = cfg.num_positional_embeddings
     W = p["edge_embedding"]["w"]
     if gather is None:
-        knn = knn_graph if plain else knn_kernel
+        knn = knn_graph_plain if plain else knn_graph
         _, E_idx = knn(X_ref, mask, cfg.k_neighbors)
         keys = (X_aug, X_m_aug)
     else:

@@ -106,6 +106,18 @@ def gather_nodes(nodes, neighbor_idx):
     return take_rows(nodes, neighbor_idx)
 
 
+def gather_edges(edges, neighbor_idx):
+    """Features ``[B,L,L,C]`` at neighbour indices ``[B,L,K]`` -> ``[B,L,K,C]``."""
+    idx = neighbor_idx.long()[..., None].expand(*neighbor_idx.shape, edges.shape[-1])
+    return torch.gather(edges, 2, idx)
+
+
+def gather_nodes_t(nodes, neighbor_idx):
+    """Features ``[B,L,C]`` at per-batch indices ``[B,K]`` -> ``[B,K,C]``."""
+    idx = neighbor_idx.long()[..., None].expand(*neighbor_idx.shape, nodes.shape[-1])
+    return torch.gather(nodes, 1, idx)
+
+
 def cat_neighbors_nodes(h_nodes, h_neighbors, E_idx):
     """``cat(h_neighbors, gather(h_nodes))`` along the features:
     ``[B,L,K,C1]`` and ``[B,L,C2]`` -> ``[B,L,K,C1+C2]``."""

@@ -68,11 +68,11 @@ from .. import constants
 from ..ops import fused_layers as fl
 from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
-from .features import features_apply
+from .features import features_apply, init_features
 from .modules import (MESSAGE_SCALE, _message_tail, _split_w1,
                       cast_tree, cat_neighbors_nodes, dec_layer_apply, dropout,
                       gather_nodes, init_dec_layer, init_enc_layer,
-                      init_layer_norm, init_linear, layer_norm, linear,
+                      init_linear, layer_norm, linear,
                       pff_apply, take_rows, widen)
 
 # Token ints zeroed out during sampling (UNK, DX, RX, MAS, PAD).
@@ -96,16 +96,7 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda",
     rng = np.random.default_rng(seed)
     H = cfg.hidden_dim
     tree = {
-        "features": {
-            "positional": init_linear(rng, 2 * cfg.max_relative_feature + 2,
-                                      cfg.num_positional_embeddings),
-            "node_embedding": init_linear(rng, cfg.node_in, cfg.node_features,
-                                          bias=False),
-            "norm_nodes": init_layer_norm(cfg.node_features),
-            "edge_embedding": init_linear(rng, cfg.edge_in, cfg.edge_features,
-                                          bias=False),
-            "norm_edges": init_layer_norm(cfg.edge_features),
-        },
+        "features": init_features(rng, cfg),
         "W_v": init_linear(rng, cfg.node_features, H),
         "W_e": init_linear(rng, cfg.edge_features, H),
         "W_s": {"emb": rng.standard_normal((cfg.vocab, H)).astype(np.float32)},

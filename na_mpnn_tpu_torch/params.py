@@ -2,7 +2,8 @@
 ``.pt`` state_dicts, both ways.
 
 The port's own copy of the JAX package's ``models/torch_import.py``
-(``from_torch_state_dict``, ``to_torch_state_dict``) and of the ``.npz``
+(``from_torch_state_dict``, ``load_torch_checkpoint``,
+``to_torch_state_dict``) and of the ``.npz``
 and ``.pt`` halves of ``train/checkpoint.py`` (``flatten_pytree``,
 ``unflatten_pytree``, ``save_checkpoint_npz``, ``load_checkpoint_npz``,
 ``load_params_any``, ``save_torch_checkpoint``).
@@ -165,6 +166,16 @@ def from_torch_state_dict(sd: Mapping, cfg: ModelConfig):
     }
 
 
+def load_torch_checkpoint(path: str, cfg: ModelConfig):
+    """A reference ``.pt`` checkpoint -> (numpy tree in the JAX layout,
+    meta: its epoch / step / save_step)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
+    meta = {k: ckpt[k] for k in ("epoch", "step", "save_step") if k in ckpt} \
+        if isinstance(ckpt, dict) else {}
+    return from_torch_state_dict(sd, cfg), meta
+
+
 def refuse_orbax(path: str):
     """Raise for an orbax directory checkpoint, saying why."""
     raise NotImplementedError(
@@ -181,10 +192,7 @@ def load_params_any(path: str, cfg: ModelConfig, device="cuda",
     if os.path.isdir(path):
         refuse_orbax(path)
     if path.endswith((".pt", ".pth")):
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
-        meta = {k: ckpt[k] for k in ("epoch", "step", "save_step") if k in ckpt}
-        tree = from_torch_state_dict(sd, cfg)
+        tree, meta = load_torch_checkpoint(path, cfg)
     else:
         tree, meta, _ = load_checkpoint_npz(path)
     return from_jax_params(tree, device=device, dtype=dtype), meta

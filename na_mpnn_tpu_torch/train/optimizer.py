@@ -31,17 +31,22 @@ class OptState:
     schedule_count: int
 
 
+def noam_schedule(d_model: int, factor: float = 2.0, warmup: int = 4000):
+    """The step -> learning-rate function of the JAX package's
+    ``noam_schedule``, in float32 as it computes it."""
+    def schedule(step) -> float:
+        s = np.maximum(np.float32(step), np.float32(1.0))
+        return float(np.float32(factor * d_model ** -0.5) * np.minimum(
+            s ** np.float32(-0.5), s * np.float32(warmup ** -1.5)))
+    return schedule
+
+
 class NoamAdam:
     def __init__(self, d_model: int = 128, factor: float = 2.0,
                  warmup: int = 4000, grad_clip_norm: float = 1.0):
         self.d_model, self.factor, self.warmup = d_model, factor, warmup
         self.grad_clip_norm = grad_clip_norm
-
-    def learning_rate(self, count: int) -> float:
-        step = np.float32(max(count, 1))
-        lr = np.float32(self.factor * self.d_model ** -0.5) * np.minimum(
-            step ** np.float32(-0.5), step * np.float32(self.warmup ** -1.5))
-        return float(lr)
+        self.learning_rate = noam_schedule(d_model, factor, warmup)
 
     def init(self, flat: torch.Tensor) -> OptState:
         return OptState(0, torch.zeros_like(flat), torch.zeros_like(flat), 0)
@@ -62,3 +67,10 @@ class NoamAdam:
         lr = self.learning_rate(state.schedule_count)
         state.schedule_count += 1
         return u * -lr
+
+
+def make_optimizer(d_model: int = 128, factor: float = 2.0, warmup: int = 4000,
+                   grad_clip_norm: float = 1.0) -> NoamAdam:
+    """The optimizer of the JAX package's ``make_optimizer`` (clipping, Adam,
+    the Noam schedule) over one flat parameter vector."""
+    return NoamAdam(d_model, factor, warmup, grad_clip_norm)

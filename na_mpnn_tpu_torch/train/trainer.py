@@ -54,7 +54,7 @@ from ..parallel.graph_parallel import all_gather_rows, forward_graph_parallel
 from ..parallel.mesh import Mesh, all_gather_batch, replicated, shard_batch
 from .losses import (compute_canonical_base_pair_accuracy, loss_nll,
                      loss_smoothed, make_polymer_restype_masks, mask_for_loss)
-from .optimizer import NoamAdam, OptState
+from .optimizer import OptState, make_optimizer
 
 
 def model_config_from_params(params: Dict) -> ModelConfig:
@@ -163,7 +163,7 @@ class Trainer:
         self.loss_tokens = loss_tokens
         self.na_shared_tokens = na_shared_tokens
         self.restype_masks = make_polymer_restype_masks(na_shared_tokens)
-        self.optimizer = NoamAdam(cfg.hidden_dim, grad_clip_norm=grad_clip_norm)
+        self.optimizer = make_optimizer(cfg.hidden_dim, grad_clip_norm=grad_clip_norm)
         tree = init_params(seed, cfg, device=self.device, dtype=dtype)
         offsets, n = {}, 0
         for leaf in tree_leaves(tree):

@@ -20,6 +20,7 @@ outside any Pallas kernel), against the JAX package with
 Batch: B = 2, L = 24, H = 32, K = 8, 2 + 2 layers, dropout and noise off;
 the 65-atom batch carries side-chain atoms of its own besides the
 backbone."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

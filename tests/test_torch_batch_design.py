@@ -7,6 +7,7 @@ generators, so the files, FASTA header fields, native lines and npz keys
 and shapes are compared, not the designs; the packed rows are held to
 ``sample_multi`` on each structure alone at float64 (same decode order and
 noise, tokens exact, probabilities within 1e-10)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import os
 import threading
 import time

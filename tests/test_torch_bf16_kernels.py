@@ -20,6 +20,7 @@ one side only, and moves what it feeds by one bf16 step of itself.
 * The damped bins before rounding (fp32): 1e-5 relative, the fp32 exps of
   two libraries and 15 chained products.
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -33,6 +33,7 @@ The port follows the JAX Trainer's dtype policy on each mesh shape:
 
 The ranks run ``test_torch_mesh_workers.py`` in their own processes; the
 JAX reference runs here."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -54,6 +54,7 @@ Tolerances. bf16 keeps 8 significant bits (unit roundoff 2^-8).
   7, 8 against a JAX reference that keeps every bf16 rounding
   (``exact_reference``).
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import dataclasses
 import os
 import subprocess

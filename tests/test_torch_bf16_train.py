@@ -30,6 +30,7 @@ one-device training path on the CPU.
   still takes the fused route. Their parity with JAX is held in
   ``test_torch_bf16_rows5to8.py`` and ``test_torch_bf16_mesh.py``.
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import dataclasses
 import json
 

@@ -6,6 +6,7 @@ same keys in the same order, bitwise the same arrays; the two ``.pt`` files
 read back through ``torch.load`` with the same keys, meta and float32
 tensors; each package loads the other's file back to the original tree,
 bitwise. An orbax directory is refused, saying why."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -5,6 +5,7 @@ features from ``.cif``, ``.cif.gz``, ``.mmcif`` and upper-case names, the
 same fallbacks for mmCIF null tokens and multi-character chain IDs, a
 ``ValueError`` without ``atom_site``, and the port's CLI on an mmCIF
 input."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import os
 
 import numpy as np

@@ -6,6 +6,7 @@ in score mode the same unconditional log-probs (1e-4; the two sample with
 different generators, so only deterministic outputs are compared). The
 ``symmetry`` mode ties positions with ``--symmetry_residues``: both CLIs
 draw equal tokens at tied positions in every sample."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import os
 
 import numpy as np

@@ -1,5 +1,6 @@
 """The port's CLI in specificity and score mode against the JAX package's
 CLI (see ``test_torch_cli.py``; split so the two files run side by side)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import pytest
 
 from test_torch_cli import compare_with_jax_cli, inputs  # noqa: F401 (fixture)

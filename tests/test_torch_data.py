@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's tables, checkpoint layouts,
 PDB parser and featuriser give what the JAX package gives."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

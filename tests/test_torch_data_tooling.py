@@ -5,6 +5,7 @@ row dicts (as ``csv.DictReader`` gives them); the JAX functions get a
 same numbers (numpy from a seed; the same code, so equal) and the same CSV
 files. Mirrors ``tests/test_dataset_recipes.py`` and the curation cases of
 ``tests/test_utils_misc.py``."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import csv
 import os
 

@@ -4,6 +4,7 @@ against the JAX package's XLA path under ``jax.enable_x64``, to 1e-8 (the
 bar of ``test_torch_model64.py``); the mode is set only through
 ``ModelConfig``. The JAX XLA path computes ``all_pair_rbf(...) @ W`` in
 either mode, which is the function the dense kernel computes."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -8,6 +8,7 @@ Tolerances: the forward is bitwise the gather (no product in it). The
 gradient against JAX's VJP of ``emb[S]`` at float64: 1e-12 (the same terms,
 summed in another order). At fp32, against the float64 sums: 1e-6 relative
 (fp32 sums of a few hundred terms)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

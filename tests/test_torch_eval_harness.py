@@ -21,6 +21,7 @@ writes as ``.npz``:
 The two packages sample with different generators, so sampled sequences
 are compared by shape and layout only; JSON paths are compared with each
 package's output root replaced."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import json
 import os
 

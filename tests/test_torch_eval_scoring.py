@@ -6,6 +6,7 @@ file helpers of ``eval/harness.py``. Both run the same numpy, so every
 result is required equal (``==`` or ``assert_array_equal``), NaN where
 NaN. Mirrors the cases of ``tests/test_eval.py`` that need no reference
 module and the unit cases of ``tests/test_eval_monomer_rna.py``."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import json
 import os
 

@@ -6,6 +6,7 @@ same rows. The two must keep the same ids in the same order and write the
 same JSON, CSV and PDB files. Mirrors ``tests/test_prepare_sets.py`` and the
 split and visualisation cases of ``tests/test_utils_misc.py``, on synthetic
 structures."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import csv
 import json
 import os

@@ -16,6 +16,7 @@
   ``enc_layer_apply`` / ``dec_layer_apply`` within 1e-8.
 * Dispatch: which route each entry point takes.
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -35,6 +35,7 @@ erf, and another summation order), and 3e-5 of its largest magnitude on
 ``dh``; bf16 2^-6 of the largest magnitude (four bf16 steps: a rounding
 that flips upstream on one side only, plus the output's own rounding).
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@ float64 (``kernels="xla"`` under ``jax.enable_x64``).
   of every parameter of a scalar of them, as JAX's
   ``test_graph_parallel.py:295`` holds its chunked forward. The ranks run
   ``test_torch_mesh_workers.py`` (no JAX); the JAX references run here."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ them agree within 1e-8, in ``rbf_mode`` classed and dense (the JAX
 contract, ``graph_parallel.py:24-25``). The ranks run in their own
 processes (``test_torch_mesh_workers.py``, which imports no JAX); the JAX
 reference runs here. Also the statistics of the row-keyed random streams."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import math
 
 import numpy as np

@@ -7,6 +7,7 @@ sum the squared differences in another order); the RBF projection agrees
 to 2e-6 relative (fp32, different summation order over 5184 rows); the
 message MLP to 1e-5 relative, because the Pallas kernel's GELU uses the
 Abramowitz-Stegun erf (error up to 1.5e-7) and the port the exact erf."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ k``, ``Lk`` not a multiple of 32, B > 1 with different lengths, and query
 shards that start mid-structure. The CUDA kernel meets the same cases on the
 card (``chip_smoke.py::knn_hard_cases``).
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@
   every rank's batch to the longest over the world.
 
 The ranks run ``test_torch_mesh_workers.py`` in their own processes."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 

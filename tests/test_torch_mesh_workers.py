@@ -4,6 +4,7 @@ and ``spawn``, which runs one
 on a gloo mesh of CPU processes. The workers import only ``torch``, numpy
 and the port; the JAX reference runs in the parent. This module holds no
 tests."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import collections
 import queue
 import traceback

@@ -12,6 +12,7 @@ order); the autograd Function's gradients against ``jax.grad`` through
 ``message_mlp`` (interpret) at fp32, 1e-4 of each leaf's max (the weight
 gradients sum 512 edge rows, and the erf difference enters every GELU
 derivative)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -36,6 +36,7 @@ multiples of their 32-node tile: N = 37 nodes are padded to 64 with zero
 rows and a zero cotangent, which add nothing, so that the model also runs
 with a tile that is not full. Widths: H = 32 (the bars hold at any width).
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import os
 import re
 import subprocess

@@ -3,6 +3,7 @@ path under ``jax.enable_x64``: the same weights and inputs give the same
 function to 1e-8 (the bar ``test_parity_model.py`` sets against the
 original PyTorch code). ``sample`` gets JAX's own decode order and Gumbel
 noise and must draw the same tokens."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ inference entry points run its fused layer updates at every L, so the test
 pins both JAX routes to the port's fused route. ``sample`` is held at float64 only
 (``test_torch_model64.py``): at fp32 a near-tie could flip a token and with
 it every later step."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

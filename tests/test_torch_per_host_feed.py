@@ -11,6 +11,7 @@ order). Six structures at 120 batch tokens give clusters of one to three
 structures, padded to an even global batch, so some ranks' rows are all
 padding (the loader's all-masked batch). Also the loader's shard alone:
 its rows are the replicated batch's rows of that rank."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import json
 
 import numpy as np

@@ -9,6 +9,7 @@ products per output, summed in another order than the Pallas kernel's);
 the dense weight gradient to 5e-5 of its max at fp32 (a sum over all edges
 as well); the float64 comparisons, of one function written twice, to
 1e-10."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -31,6 +31,7 @@ moving a sum by 2^-8 of that one term). The shard's JAX reference is the
 whole structure's output at the shard's rows, and its gradient with the
 cotangent zero on every other row.
 """
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import re
 from pathlib import Path
 

@@ -13,6 +13,7 @@ so at float64 it equals the full plain gradient to 1e-12. Against the JAX
 2e-5 relative at fp32, the bar of ``test_torch_train_kernels.py``, and 2^-8
 at bf16, the bar of ``test_torch_bf16_kernels.py`` (a bin near a bf16
 rounding boundary may round apart, moving a sum by 2^-8 of one term)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,7 @@ kernel in interpret mode: 2e-6 relative at fp32 (the bar of
 ``test_torch_kernels.py``), 2^-8 at bf16 (the bar of
 ``test_torch_bf16_kernels.py``: a bin near a bf16 rounding boundary may
 round apart, moving a sum by 2^-8 of one term)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ CPU's index backward of the plain message functions otherwise adds in a
 varying order, remat or not); the layers' tails really run again in the backward
 (the FFN runs twice per layer with remat, once without); and on a one-rank
 gloo mesh (G = 1, the mesh's row-keyed dropout) the same holds."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -4,6 +4,7 @@ package at float64 (``kernels="xla"`` under ``jax.enable_x64``): the same
 weights, inputs, decode order and JAX's own Gumbel noise (per decode group,
 or per decode step) must draw the same tokens, and the probabilities agree
 within 1e-8, the bar of ``test_torch_model64.py``."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ glue it is given, on the CPU.
 Tolerance: summing the contributions through the order equals
 ``index_add_`` at float64 to 1e-12 (the same terms, summed in another
 order)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

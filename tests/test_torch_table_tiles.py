@@ -9,6 +9,7 @@ the CPU, where the kernel itself does not run:
 - ``aligned_weights``: the four weights as the kernel copies them, as
   16-byte vectors, whatever the offset of their views in the flat
   parameter vector, with their values unchanged (compared exactly)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import re
 from pathlib import Path
 

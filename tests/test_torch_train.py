@@ -10,6 +10,7 @@ the whole vector) and each leaf's update within 1e-5 of its largest entry
 (fp32 gradients summed in another order); checkpoints round-trip bitwise.
 The random draws of the two packages differ, so dropout and noise are
 checked by their statistics, within 4 sigma."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ the weight gradients sum 512 edge rows. The RBF weight gradient agrees with
 ``jax.grad`` of the Pallas projection to 2e-5 relative (fp32 sums over the
 edges in another order), as ``test_message_kernels.py`` holds the Pallas
 kernel to the dense form."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

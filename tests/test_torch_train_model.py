@@ -13,6 +13,7 @@ route): the loss and every gradient match JAX ``forward(kernels="xla")`` at
 float64 within 1e-8, and JAX with the Pallas kernels in interpret mode at
 fp32 (loss within 1e-5 relative, each gradient leaf within 1e-4 of its max:
 fp32 sums in other orders, and the Pallas kernels' Abramowitz-Stegun erf)."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ differ, so the loop's random parts are compared with themselves. The module
 runs under ``torch.use_deterministic_algorithms(True)``: on the CPU the
 backward of an index gather (``index_put_`` with accumulation) otherwise
 sums in an order that changes from call to call, in the last bits."""
+import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import csv
 import json
 import os
