@@ -64,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import constants
+from .. import constants, trace
 from ..ops import fused_layers as fl
 from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
@@ -427,26 +427,27 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     ``_enc_layer_train_fused``) and the features coordinate noise. With
     ``cfg.remat`` other than ``"none"`` a layer off the fused route
     recomputes its tails in the backward (``enc_layer``)."""
-    check_supported(cfg)
-    plain = _plain(cfg, batch["X"])
-    mask = batch["mask"].to(batch["X"].dtype)
-    V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
-                                              plain, generator)
-    h_V = linear(params["W_v"], V)
-    h_E = linear(params["W_e"], E)
-    layers, h_V, h_E, mask, mask_attend = to_trunk(
-        _trunk_dtype(cfg), params["encoder"], h_V, h_E, mask, mask_attend)
-    B, L, K = E_idx.shape
-    H = h_V.shape[-1]
-    h_E2 = h_E.reshape(B * L * K, H)
-    eidx2 = E_idx.reshape(-1)
-    mask_att2 = mask_attend.reshape(-1)
-    drop = generator_dropout(cfg.dropout, generator)
-    order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
-    for p in layers:
-        h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
-                              plain=plain, order=order, remat=_remat(cfg))
-    return h_V, h_E2.view(B, L, K, H), E_idx
+    with trace.span("model.encode", rows=batch["X"].shape[0]):
+        check_supported(cfg)
+        plain = _plain(cfg, batch["X"])
+        mask = batch["mask"].to(batch["X"].dtype)
+        V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
+                                                  plain, generator)
+        h_V = linear(params["W_v"], V)
+        h_E = linear(params["W_e"], E)
+        layers, h_V, h_E, mask, mask_attend = to_trunk(
+            _trunk_dtype(cfg), params["encoder"], h_V, h_E, mask, mask_attend)
+        B, L, K = E_idx.shape
+        H = h_V.shape[-1]
+        h_E2 = h_E.reshape(B * L * K, H)
+        eidx2 = E_idx.reshape(-1)
+        mask_att2 = mask_attend.reshape(-1)
+        drop = generator_dropout(cfg.dropout, generator)
+        order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
+        for p in layers:
+            h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
+                                  plain=plain, order=order, remat=_remat(cfg))
+        return h_V, h_E2.view(B, L, K, H), E_idx
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -699,7 +700,8 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
     log_probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
     b_idx = torch.arange(B, device=device)
 
-    for step in range(L):
+    def decode_step(step):
+        """Decode position ``decoding_order[:, step]`` of every row."""
         t = decoding_order[:, step]                          # [B]
         E_t = E_idx[b_idx, t]                                # [B,K]
         bw = mask_bw[b_idx, t]                               # [B,K,1]
@@ -742,6 +744,11 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
         S_out[b_idx, t] = S_t
         probs_out[b_idx, t] = cm_t[:, None] * probs_sample
         log_probs_out[b_idx, t] = cm_t[:, None] * log_probs
+
+    with trace.span("sample.decode", steps=L):
+        for step in range(L):
+            with trace.span("sample.step"):
+                decode_step(step)
 
     return {"S": S_out, "sampling_probs": probs_out,
             "log_probs": log_probs_out, "decoding_order": decoding_order}
@@ -845,7 +852,9 @@ def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Gener
         return linear(params["W_out"], h_V_stack[n_dec][:, t])
 
     t_all = torch.arange(L, device=device)
-    for g in range(groups.shape[0]):
+
+    def decode_group(g):
+        """Decode group ``g`` of every row and draw its token."""
         members = [(m, int(t)) for m, t in enumerate(groups[g]) if t >= 0]
         total_logits = torch.zeros((B, nl), dtype=dtype, device=device)
         for m, t in members:
@@ -869,5 +878,10 @@ def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Gener
             S_t = torch.where(cm_t > 0, S_t, S_true[:, t])
             h_S[:, t] = embed_tokens(params, S_t).to(dtype)
             S[:, t] = S_t
+
+    with trace.span("sample.decode", steps=groups.shape[0]):
+        for g in range(groups.shape[0]):
+            with trace.span("sample.step"):
+                decode_group(g)
     return {"S": S, "sampling_probs": all_probs, "log_probs": all_log_probs,
             "decoding_order": decoding_order}

@@ -3,17 +3,44 @@
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version of the same function (in the same module) for CPU tensors.
 ``LAUNCHES`` counts kernel launches by name, so that a run can show which
-kernels its path went through; it is the package's only global state.
+kernels its path went through. A wrapper runs its host work, from the
+operand checks to the return, inside ``launch(name)``, which counts the
+launch when the body returns and marks it as the span ``kernel.<name>``
+(``trace.py``). ``LAUNCHES`` is global state of the package, as are the
+tracer's flag and buffer.
 """
 from __future__ import annotations
 
 import collections
+
+from .. import trace
 
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launches():
     LAUNCHES.clear()
+
+
+class launch:
+    """``with launch(name):`` around a wrapper's body: the span
+    ``kernel.<name>`` over it, and one more launch of ``name`` in
+    ``LAUNCHES`` once it returns without raising."""
+
+    __slots__ = ("name", "span")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.span = trace.span("kernel." + name)
+
+    def __enter__(self):
+        self.span.__enter__()
+
+    def __exit__(self, *exc):
+        self.span.__exit__(*exc)
+        if exc[0] is None:
+            LAUNCHES[self.name] += 1
+        return False
 
 
 def check_operand(t, name, dtype, shape=None):

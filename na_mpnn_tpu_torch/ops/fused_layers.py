@@ -50,7 +50,7 @@ import functools
 
 import torch
 
-from . import LAUNCHES, check_aligned, check_operand, raise_on_error
+from . import check_aligned, check_operand, launch, raise_on_error
 from .message_kernels import (_check_mode, _dtype_of, _weights, aligned_weights,
                               message_table_acc, table_tile_nodes)
 from ..models.modules import layer_norm, pff_acc, widen
@@ -176,39 +176,39 @@ def fused_node_update_launch(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
     16-byte aligned; weights that do not are copied here."""
     from ._build import ptr, stream_ptr
 
-    msg_mode, code = _node_mode(mode)
-    N, H = h_V2.shape
-    Lk = L if Lk is None else Lk
-    _check_mode(msg_mode, N, K, L, H)
-    dev = h_V2.device
-    mbw2 = mask_att2 if mbw2 is None else mbw2
-    dt, sfx = _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk,
-                                      2 * H if mode == "dec" else H, H)
-    check_operand(mask_att2, "mask_att2", dt, (N * K,))
-    check_operand(mbw2, "mbw2", dt, (N * K,))
-    check_operand(mask2, "mask2", dt, (N,))
-    _check_weights(p, H, ("W1", "W2", "W3"), ("norm1", "norm2"), dt)
-    d = p["dense"]
-    check_operand(d["W_in"]["w"], "dense.W_in.w", dt, (H, 4 * H))
-    check_operand(d["W_in"]["b"], "dense.W_in.b", dt, (4 * H,))
-    check_operand(d["W_out"]["w"], "dense.W_out.w", dt, (4 * H, H))
-    check_operand(d["W_out"]["b"], "dense.W_out.b", dt, (H,))
-    wa, wb, b1, w2, b2, w3, b3 = _weights(p, H, "W1", "W2", "W3")
-    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
-    w_in, = aligned_weights(d["W_in"]["w"])
-    w_out, = aligned_weights(d["W_out"]["w"])
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    dh = torch.empty((N, H), dtype=torch.float32, device=dev)
-    out = torch.empty((N, H), dtype=dt, device=dev)
-    tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, mask2, wa, wb, b1,
-               w2, b2, w3, b3, p["norm1"]["scale"], p["norm1"]["bias"],
-               w_in, d["W_in"]["b"], w_out, d["W_out"]["b"], p["norm2"]["scale"], p["norm2"]["bias"], dh, out)
-    fn = _entry("fused_node_update" + sfx, _NODE_ARGS)
-    err = fn(code, *[ptr(t) for t in tensors], N, K, L, Lk, H,
-             table_tile_nodes(K), n_sm, tail_tile_rows(N, H, n_sm), stream_ptr(dev))
-    raise_on_error(err, "fused_node_update" + sfx)
-    LAUNCHES[f"fused_node_update_{mode}{sfx}"] += 1
-    return out, dh
+    with launch(f"fused_node_update_{mode}{_dtype_of(h_V2)[1]}"):
+        msg_mode, code = _node_mode(mode)
+        N, H = h_V2.shape
+        Lk = L if Lk is None else Lk
+        _check_mode(msg_mode, N, K, L, H)
+        dev = h_V2.device
+        mbw2 = mask_att2 if mbw2 is None else mbw2
+        dt, sfx = _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk,
+                                          2 * H if mode == "dec" else H, H)
+        check_operand(mask_att2, "mask_att2", dt, (N * K,))
+        check_operand(mbw2, "mbw2", dt, (N * K,))
+        check_operand(mask2, "mask2", dt, (N,))
+        _check_weights(p, H, ("W1", "W2", "W3"), ("norm1", "norm2"), dt)
+        d = p["dense"]
+        check_operand(d["W_in"]["w"], "dense.W_in.w", dt, (H, 4 * H))
+        check_operand(d["W_in"]["b"], "dense.W_in.b", dt, (4 * H,))
+        check_operand(d["W_out"]["w"], "dense.W_out.w", dt, (4 * H, H))
+        check_operand(d["W_out"]["b"], "dense.W_out.b", dt, (H,))
+        wa, wb, b1, w2, b2, w3, b3 = _weights(p, H, "W1", "W2", "W3")
+        wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+        w_in, = aligned_weights(d["W_in"]["w"])
+        w_out, = aligned_weights(d["W_out"]["w"])
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        dh = torch.empty((N, H), dtype=torch.float32, device=dev)
+        out = torch.empty((N, H), dtype=dt, device=dev)
+        tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, mask2, wa, wb, b1,
+                   w2, b2, w3, b3, p["norm1"]["scale"], p["norm1"]["bias"],
+                   w_in, d["W_in"]["b"], w_out, d["W_out"]["b"], p["norm2"]["scale"], p["norm2"]["bias"], dh, out)
+        fn = _entry("fused_node_update" + sfx, _NODE_ARGS)
+        err = fn(code, *[ptr(t) for t in tensors], N, K, L, Lk, H,
+                 table_tile_nodes(K), n_sm, tail_tile_rows(N, H, n_sm), stream_ptr(dev))
+        raise_on_error(err, "fused_node_update" + sfx)
+        return out, dh
 
 
 def fused_node_update_cuda(mode, p, h_V2, h_E2, table2, eidx2, mask_att2,
@@ -224,25 +224,25 @@ def fused_edge_update_cuda(p, h_V2, h_E2, table2, eidx2, *, K, L, Lk=None):
     """Launch the edge-update kernel on CUDA tensors, all fp32 or all bf16."""
     from ._build import ptr, stream_ptr
 
-    N, H = h_V2.shape
-    Lk = L if Lk is None else Lk
-    _check_mode("enc_edge", N, K, L, H)
-    dt, sfx = _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk,
-                                      H, H)
-    _check_weights(p, H, ("W11", "W12", "W13"), ("norm3",), dt)
-    wa, wb, b1, w2, b2, w3, b3 = _weights(p, H, "W11", "W12", "W13")
-    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
-    dev = h_V2.device
-    out = torch.empty((N * K, H), dtype=dt, device=dev)
-    tensors = (h_V2, h_E2, table2, eidx2, wa, wb, b1, w2, b2, w3, b3,
-               p["norm3"]["scale"], p["norm3"]["bias"], out)
-    fn = _entry("fused_edge_update" + sfx, _EDGE_ARGS)
-    err = fn(*[ptr(t) for t in tensors], N, K, L, Lk, H, table_tile_nodes(K),
-             torch.cuda.get_device_properties(dev).multi_processor_count,
-             stream_ptr(dev))
-    raise_on_error(err, "fused_edge_update" + sfx)
-    LAUNCHES["fused_edge_update" + sfx] += 1
-    return out
+    with launch("fused_edge_update" + _dtype_of(h_V2)[1]):
+        N, H = h_V2.shape
+        Lk = L if Lk is None else Lk
+        _check_mode("enc_edge", N, K, L, H)
+        dt, sfx = _check_message_operands(h_V2, h_E2, table2, eidx2, N, K, L, Lk,
+                                          H, H)
+        _check_weights(p, H, ("W11", "W12", "W13"), ("norm3",), dt)
+        wa, wb, b1, w2, b2, w3, b3 = _weights(p, H, "W11", "W12", "W13")
+        wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+        dev = h_V2.device
+        out = torch.empty((N * K, H), dtype=dt, device=dev)
+        tensors = (h_V2, h_E2, table2, eidx2, wa, wb, b1, w2, b2, w3, b3,
+                   p["norm3"]["scale"], p["norm3"]["bias"], out)
+        fn = _entry("fused_edge_update" + sfx, _EDGE_ARGS)
+        err = fn(*[ptr(t) for t in tensors], N, K, L, Lk, H, table_tile_nodes(K),
+                 torch.cuda.get_device_properties(dev).multi_processor_count,
+                 stream_ptr(dev))
+        raise_on_error(err, "fused_edge_update" + sfx)
+        return out
 
 
 def fused_node_update(mode, p, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from . import LAUNCHES, check_operand, raise_on_error
+from . import check_operand, launch, raise_on_error
 
 
 def masked_distances(X_q, X_k, mask_q, mask_k, eps=1e-6):
@@ -74,26 +74,26 @@ def _entry(entry):
 def _launch(entry, X_q, X_k, mask_q, mask_k, k, eps):
     from ._build import stream_ptr
 
-    B, Lq, _ = X_q.shape
-    Lk = X_k.shape[1]
-    check_operand(X_q, "X_q", torch.float32, (B, Lq, 3))
-    check_operand(mask_q, "mask_q", torch.float32, (B, Lq))
-    if entry == "knn_qk":
-        check_operand(X_k, "X_k", torch.float32, (B, Lk, 3))
-        check_operand(mask_k, "mask_k", torch.float32, (B, Lk))
-    k = min(k, Lk)
-    D = torch.empty((B, Lq, k), dtype=torch.float32, device=X_q.device)
-    E_idx = torch.empty((B, Lq, k), dtype=torch.int64, device=X_q.device)
-    if entry == "knn":
-        args = (X_q.data_ptr(), mask_q.data_ptr(), B, Lq, k)
-    else:
-        args = (X_q.data_ptr(), mask_q.data_ptr(), X_k.data_ptr(),
-                mask_k.data_ptr(), B, Lq, Lk, k)
-    err = _entry(entry)(*args, eps, D.data_ptr(), E_idx.data_ptr(),
-                        stream_ptr(X_q.device))
-    raise_on_error(err, entry)
-    LAUNCHES[entry] += 1
-    return D, E_idx
+    with launch(entry):
+        B, Lq, _ = X_q.shape
+        Lk = X_k.shape[1]
+        check_operand(X_q, "X_q", torch.float32, (B, Lq, 3))
+        check_operand(mask_q, "mask_q", torch.float32, (B, Lq))
+        if entry == "knn_qk":
+            check_operand(X_k, "X_k", torch.float32, (B, Lk, 3))
+            check_operand(mask_k, "mask_k", torch.float32, (B, Lk))
+        k = min(k, Lk)
+        D = torch.empty((B, Lq, k), dtype=torch.float32, device=X_q.device)
+        E_idx = torch.empty((B, Lq, k), dtype=torch.int64, device=X_q.device)
+        if entry == "knn":
+            args = (X_q.data_ptr(), mask_q.data_ptr(), B, Lq, k)
+        else:
+            args = (X_q.data_ptr(), mask_q.data_ptr(), X_k.data_ptr(),
+                    mask_k.data_ptr(), B, Lq, Lk, k)
+        err = _entry(entry)(*args, eps, D.data_ptr(), E_idx.data_ptr(),
+                            stream_ptr(X_q.device))
+        raise_on_error(err, entry)
+        return D, E_idx
 
 
 def knn_graph_cuda(X_ref, mask, k, eps=1e-6):

@@ -76,7 +76,7 @@ from functools import partial
 
 import torch
 
-from . import LAUNCHES, check_aligned, check_operand, raise_on_error
+from . import check_aligned, check_operand, launch, raise_on_error
 from ..models.modules import MESSAGE_SCALE, dotp, gelu, widen
 
 MODES = {"enc_node": 0, "enc_edge": 1, "dec": 2}
@@ -176,41 +176,41 @@ def message_table_cuda(mode, h_V2, h_E2, table2, eidx2, mask_att2, mbw2,
     that do not are copied here."""
     from ._build import library, ptr, stream_ptr
 
-    N, H = h_V2.shape
-    Lk = L if Lk is None else Lk
-    _check_mode(mode, N, K, L, H)
-    dt, sfx = _dtype_of(h_V2)
-    C = 2 * H if mode == "dec" else H
-    check_operand(h_V2, "h_V2", dt, (N, H))
-    check_operand(h_E2, "h_E2", dt, (N * K, H))
-    check_operand(table2, "table2", dt, (N // L * Lk, C))
-    check_operand(eidx2, "eidx2", torch.int64, (N * K,))
-    check_operand(mask_att2, "mask_att2", dt, (N * K,))
-    check_operand(mbw2, "mbw2", dt, (N * K,))
-    for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
-        check_operand(w, name, dt, (H, H))
-    for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
-        check_operand(b, name, dt, (H,))
-    for name, t in (("h_E2", h_E2), ("table2", table2)):
-        check_aligned(t, name)
-    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
-    dev = h_V2.device
-    out = torch.empty((N * K if mode == "enc_edge" else N, H), dtype=dt,
-                      device=dev)
-    x = torch.empty((N * K, H), dtype=dt, device=dev) if save_x else None
-    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    fn = getattr(library("message_table"), "message_table_forward" + sfx)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, wa, wb, b1, w2,
-               b2, w3, b3, out)
-    err = fn(MODES[mode], *[ptr(t) for t in tensors],
-             ptr(x) if save_x else None, N, K, L, Lk, H, table_tile_nodes(K),
-             nblocks, stream_ptr(dev))
-    raise_on_error(err, "message_table" + sfx)
-    LAUNCHES[f"message_table_{mode}{sfx}"] += 1
-    return (out, x) if save_x else out
+    with launch(f"message_table_{mode}{_dtype_of(h_V2)[1]}"):
+        N, H = h_V2.shape
+        Lk = L if Lk is None else Lk
+        _check_mode(mode, N, K, L, H)
+        dt, sfx = _dtype_of(h_V2)
+        C = 2 * H if mode == "dec" else H
+        check_operand(h_V2, "h_V2", dt, (N, H))
+        check_operand(h_E2, "h_E2", dt, (N * K, H))
+        check_operand(table2, "table2", dt, (N // L * Lk, C))
+        check_operand(eidx2, "eidx2", torch.int64, (N * K,))
+        check_operand(mask_att2, "mask_att2", dt, (N * K,))
+        check_operand(mbw2, "mbw2", dt, (N * K,))
+        for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
+            check_operand(w, name, dt, (H, H))
+        for name, b in (("b1", b1), ("b2", b2), ("b3", b3)):
+            check_operand(b, name, dt, (H,))
+        for name, t in (("h_E2", h_E2), ("table2", table2)):
+            check_aligned(t, name)
+        wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+        dev = h_V2.device
+        out = torch.empty((N * K if mode == "enc_edge" else N, H), dtype=dt,
+                          device=dev)
+        x = torch.empty((N * K, H), dtype=dt, device=dev) if save_x else None
+        nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        fn = getattr(library("message_table"), "message_table_forward" + sfx)
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        tensors = (h_V2, h_E2, table2, eidx2, mask_att2, mbw2, wa, wb, b1, w2,
+                   b2, w3, b3, out)
+        err = fn(MODES[mode], *[ptr(t) for t in tensors],
+                 ptr(x) if save_x else None, N, K, L, Lk, H, table_tile_nodes(K),
+                 nblocks, stream_ptr(dev))
+        raise_on_error(err, "message_table" + sfx)
+        return (out, x) if save_x else out
 
 
 def gelu_grad(x):
@@ -314,64 +314,64 @@ def message_table_bwd_cuda(mode, h_V2, h_E2, x, eidx2, mask_att2, mbw2,
     ``sum_k g_x`` ``[N,H]``; fp32 bias and weight partials."""
     from ._build import library, ptr, stream_ptr
 
-    N, H = h_V2.shape
-    Lk = L if Lk is None else Lk
-    _check_mode(mode, N, K, L, H)
-    dt, sfx = _dtype_of(h_V2)
-    f32 = torch.float32
-    C = 2 * H if mode == "dec" else H
-    E = N * K
-    check_operand(h_V2, "h_V2", dt, (N, H))
-    check_operand(h_E2, "h_E2", dt, (E, H))
-    check_operand(x, "x", dt, (E, H))
-    check_operand(eidx2, "eidx2", torch.int64, (E,))
-    check_operand(mask_att2, "mask_att2", dt, (E,))
-    check_operand(mbw2, "mbw2", dt, (E,))
-    for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
-        check_operand(w, name, dt, (H, H))
-    check_operand(b2, "b2", dt, (H,))
-    check_operand(g, "g", dt, (E if mode == "enc_edge" else N, H))
-    for name, t in (("h_V2", h_V2), ("h_E2", h_E2), ("x", x), ("g", g)):
-        check_aligned(t, name)
-    dev = h_V2.device
-    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = wgrad_splits(nblocks)
-    lib = library("message_table_bwd")
-    tiles = -(-N // bwd_tile_nodes(K))
-    n_rows = N // L * Lk
-    order, offsets = (table_order(eidx2, K, L, Lk, n_rows) if order is None
-                      else order)
-    check_operand(order, "order", torch.int64, (E,))
-    check_operand(offsets, "offsets", torch.int64, (n_rows + 1,))
-    g_hV = torch.empty((N, H), dtype=dt, device=dev)
-    g_ein = torch.empty((E, H), dtype=dt, device=dev)
-    g_table = torch.empty((n_rows, C), dtype=f32, device=dev)
-    u1s = torch.empty((E, H), dtype=dt, device=dev)
-    gms = None if mode == "enc_edge" else torch.empty((E, H), dtype=dt, device=dev)
-    u2s = torch.empty((E, H), dtype=dt, device=dev)
-    gys = torch.empty((E, H), dtype=dt, device=dev)
-    tcs = torch.empty((E, C), dtype=dt, device=dev)
-    ss = torch.empty((N, H), dtype=dt, device=dev)
-    bpart = torch.empty((tiles, 3 * H), dtype=f32, device=dev)
-    wpart = torch.empty((splits, 4, H, H), dtype=f32, device=dev)
-    wgrad = torch.empty((4 * H * H + 3 * H,), dtype=f32, device=dev)
-    fn = getattr(lib, "message_table_backward" + sfx)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 26
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    tensors = (h_V2, h_E2, x, eidx2, mask_att2, mbw2, wa, wb, w2, b2, w3, g,
-               g_hV, g_ein, u1s, gms, u2s, gys, tcs, ss, bpart, wpart, order,
-               offsets, g_table, wgrad)
-    err = fn(MODES[mode], *[None if t is None else ptr(t) for t in tensors],
-             N, K, L, Lk, H, nblocks,
-             splits, stream_ptr(dev))
-    raise_on_error(err, "message_table_bwd" + sfx)
-    LAUNCHES[f"message_table_bwd_{mode}{sfx}"] += 1
-    g_table, wgrad = g_table.to(dt), wgrad.to(dt)
-    HH = H * H
-    dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
-    db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))
-    return g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3, db3
+    with launch(f"message_table_bwd_{mode}{_dtype_of(h_V2)[1]}"):
+        N, H = h_V2.shape
+        Lk = L if Lk is None else Lk
+        _check_mode(mode, N, K, L, H)
+        dt, sfx = _dtype_of(h_V2)
+        f32 = torch.float32
+        C = 2 * H if mode == "dec" else H
+        E = N * K
+        check_operand(h_V2, "h_V2", dt, (N, H))
+        check_operand(h_E2, "h_E2", dt, (E, H))
+        check_operand(x, "x", dt, (E, H))
+        check_operand(eidx2, "eidx2", torch.int64, (E,))
+        check_operand(mask_att2, "mask_att2", dt, (E,))
+        check_operand(mbw2, "mbw2", dt, (E,))
+        for name, w in (("wa", wa), ("wb", wb), ("w2", w2), ("w3", w3)):
+            check_operand(w, name, dt, (H, H))
+        check_operand(b2, "b2", dt, (H,))
+        check_operand(g, "g", dt, (E if mode == "enc_edge" else N, H))
+        for name, t in (("h_V2", h_V2), ("h_E2", h_E2), ("x", x), ("g", g)):
+            check_aligned(t, name)
+        dev = h_V2.device
+        nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = wgrad_splits(nblocks)
+        lib = library("message_table_bwd")
+        tiles = -(-N // bwd_tile_nodes(K))
+        n_rows = N // L * Lk
+        order, offsets = (table_order(eidx2, K, L, Lk, n_rows) if order is None
+                          else order)
+        check_operand(order, "order", torch.int64, (E,))
+        check_operand(offsets, "offsets", torch.int64, (n_rows + 1,))
+        g_hV = torch.empty((N, H), dtype=dt, device=dev)
+        g_ein = torch.empty((E, H), dtype=dt, device=dev)
+        g_table = torch.empty((n_rows, C), dtype=f32, device=dev)
+        u1s = torch.empty((E, H), dtype=dt, device=dev)
+        gms = None if mode == "enc_edge" else torch.empty((E, H), dtype=dt, device=dev)
+        u2s = torch.empty((E, H), dtype=dt, device=dev)
+        gys = torch.empty((E, H), dtype=dt, device=dev)
+        tcs = torch.empty((E, C), dtype=dt, device=dev)
+        ss = torch.empty((N, H), dtype=dt, device=dev)
+        bpart = torch.empty((tiles, 3 * H), dtype=f32, device=dev)
+        wpart = torch.empty((splits, 4, H, H), dtype=f32, device=dev)
+        wgrad = torch.empty((4 * H * H + 3 * H,), dtype=f32, device=dev)
+        fn = getattr(lib, "message_table_backward" + sfx)
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 26
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        tensors = (h_V2, h_E2, x, eidx2, mask_att2, mbw2, wa, wb, w2, b2, w3, g,
+                   g_hV, g_ein, u1s, gms, u2s, gys, tcs, ss, bpart, wpart, order,
+                   offsets, g_table, wgrad)
+        err = fn(MODES[mode], *[None if t is None else ptr(t) for t in tensors],
+                 N, K, L, Lk, H, nblocks,
+                 splits, stream_ptr(dev))
+        raise_on_error(err, "message_table_bwd" + sfx)
+        g_table, wgrad = g_table.to(dt), wgrad.to(dt)
+        HH = H * H
+        dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
+        db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))
+        return g_hV, g_ein, g_table, dwa, dwb, db1, dw2, db2, dw3, db3
 
 
 class _MessageTable(torch.autograd.Function):
@@ -529,24 +529,24 @@ def message_mlp_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, *,
     vectors and must start aligned; weights that do not are copied here."""
     from ._build import library, ptr, stream_ptr
 
-    N, H = h_V.shape
-    dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
-                         (b1, b2, b3))
-    for name, t in (("e_in", e_in), ("G", G)):
-        check_aligned(t, name)
-    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
-    dev = h_V.device
-    out = torch.empty((N if aggregate else N * K, H), dtype=dt, device=dev)
-    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    fn = getattr(library("message_mlp"), "message_mlp_forward" + sfx)
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, out)
-    err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
-             int(aggregate), table_tile_nodes(K), nblocks, stream_ptr(dev))
-    raise_on_error(err, "message_mlp" + sfx)
-    LAUNCHES["message_mlp" + sfx] += 1
-    return out
+    with launch("message_mlp" + _dtype_of(h_V)[1]):
+        N, H = h_V.shape
+        dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
+                             (b1, b2, b3))
+        for name, t in (("e_in", e_in), ("G", G)):
+            check_aligned(t, name)
+        wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+        dev = h_V.device
+        out = torch.empty((N if aggregate else N * K, H), dtype=dt, device=dev)
+        nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        fn = getattr(library("message_mlp"), "message_mlp_forward" + sfx)
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3, out)
+        err = fn(*[ptr(t) for t in tensors], N, K, H, int(contract_e),
+                 int(aggregate), table_tile_nodes(K), nblocks, stream_ptr(dev))
+        raise_on_error(err, "message_mlp" + sfx)
+        return out
 
 
 def message_mlp_bwd_plain(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
@@ -597,46 +597,46 @@ def message_mlp_bwd_cuda(h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, b3,
     block's x ``[128,H]``, the bias and weight partials."""
     from ._build import library, ptr, stream_ptr
 
-    N, H = h_V.shape
-    dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
-                         (b1, b2, b3))
-    f32 = torch.float32
-    E = N * K
-    check_operand(g, "g", dt, (N if aggregate else E, H))
-    for name, t in (("h_V", h_V), ("e_in", e_in), ("G", G), ("g", g)):
-        check_aligned(t, name)
-    wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
-    dev = h_V.device
-    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = wgrad_splits(nblocks)
-    tn = bwd_tile_nodes(K)
-    tiles = -(-N // tn)
-    g_hV = torch.empty((N, H), dtype=dt, device=dev)
-    g_ein = torch.empty((E, H), dtype=dt, device=dev)
-    g_G = torch.empty((E, H), dtype=dt, device=dev)
-    u1s = torch.empty((E, H), dtype=dt, device=dev)
-    gms = torch.empty((E, H), dtype=dt, device=dev) if aggregate else None
-    u2s = torch.empty((E, H), dtype=dt, device=dev)
-    gys = torch.empty((E, H), dtype=dt, device=dev)
-    ss = torch.empty((N, H), dtype=dt, device=dev)
-    xs = torch.empty((min(nblocks, tiles), BWD_TILE_ROWS, H), dtype=f32, device=dev)
-    bpart = torch.empty((tiles, 3 * H), dtype=f32, device=dev)
-    wpart = torch.empty((splits, 4, H, H), dtype=f32, device=dev)
-    wgrad = torch.empty((4 * H * H + 3 * H,), dtype=f32, device=dev)
-    fn = getattr(library("message_mlp_bwd"), "message_mlp_backward" + sfx)
-    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, g, g_hV, g_ein,
-               g_G, u1s, gms, u2s, gys, ss, xs, bpart, wpart, wgrad)
-    err = fn(*[None if t is None else ptr(t) for t in tensors], N, K, H,
-             int(contract_e), int(aggregate), tn, nblocks, splits, stream_ptr(dev))
-    raise_on_error(err, "message_mlp_bwd" + sfx)
-    LAUNCHES["message_mlp_bwd" + sfx] += 1
-    wgrad = wgrad.to(dt)
-    HH = H * H
-    dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
-    db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))
-    return g_hV, g_ein, g_G, dwa, dwb, db1, dw2, db2, dw3, db3
+    with launch("message_mlp_bwd" + _dtype_of(h_V)[1]):
+        N, H = h_V.shape
+        dt, sfx = _check_mlp(N, K, H, h_V, e_in, G, mask_att, (wa, wb, w2, w3),
+                             (b1, b2, b3))
+        f32 = torch.float32
+        E = N * K
+        check_operand(g, "g", dt, (N if aggregate else E, H))
+        for name, t in (("h_V", h_V), ("e_in", e_in), ("G", G), ("g", g)):
+            check_aligned(t, name)
+        wa, wb, w2, w3 = aligned_weights(wa, wb, w2, w3)
+        dev = h_V.device
+        nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = wgrad_splits(nblocks)
+        tn = bwd_tile_nodes(K)
+        tiles = -(-N // tn)
+        g_hV = torch.empty((N, H), dtype=dt, device=dev)
+        g_ein = torch.empty((E, H), dtype=dt, device=dev)
+        g_G = torch.empty((E, H), dtype=dt, device=dev)
+        u1s = torch.empty((E, H), dtype=dt, device=dev)
+        gms = torch.empty((E, H), dtype=dt, device=dev) if aggregate else None
+        u2s = torch.empty((E, H), dtype=dt, device=dev)
+        gys = torch.empty((E, H), dtype=dt, device=dev)
+        ss = torch.empty((N, H), dtype=dt, device=dev)
+        xs = torch.empty((min(nblocks, tiles), BWD_TILE_ROWS, H), dtype=f32, device=dev)
+        bpart = torch.empty((tiles, 3 * H), dtype=f32, device=dev)
+        wpart = torch.empty((splits, 4, H, H), dtype=f32, device=dev)
+        wgrad = torch.empty((4 * H * H + 3 * H,), dtype=f32, device=dev)
+        fn = getattr(library("message_mlp_bwd"), "message_mlp_backward" + sfx)
+        fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        tensors = (h_V, e_in, G, mask_att, wa, wb, b1, w2, b2, w3, g, g_hV, g_ein,
+                   g_G, u1s, gms, u2s, gys, ss, xs, bpart, wpart, wgrad)
+        err = fn(*[None if t is None else ptr(t) for t in tensors], N, K, H,
+                 int(contract_e), int(aggregate), tn, nblocks, splits, stream_ptr(dev))
+        raise_on_error(err, "message_mlp_bwd" + sfx)
+        wgrad = wgrad.to(dt)
+        HH = H * H
+        dwa, dwb, dw2, dw3 = (wgrad[i * HH:(i + 1) * HH].view(H, H) for i in range(4))
+        db1, db2, db3 = (wgrad[4 * HH + i * H:4 * HH + (i + 1) * H] for i in range(3))
+        return g_hV, g_ein, g_G, dwa, dwb, db1, dw2, db2, dw3, db3
 
 
 class _MessageMLP(torch.autograd.Function):

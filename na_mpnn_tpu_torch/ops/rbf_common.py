@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from . import LAUNCHES, check_aligned, check_operand, raise_on_error
+from . import check_aligned, check_operand, launch, raise_on_error
 
 A = 18                   # augmented atom slots
 NUM_RBF = 16
@@ -205,26 +205,26 @@ def group_forward(source, symbol, name, widths, table_dtype, X_aug, X_m_aug,
     fp32."""
     from ._build import library, ptr, stream_ptr
 
-    B, L, K = E_idx.shape
-    H = W.shape[1]
-    _check_width(name, H, widths)
-    Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k)
-    check_operand(W, "W", torch.float32, (ROWS, H))
-    dev = X_aug.device
-    table = W.index_select(0, _pair_row_map(dev)).to(table_dtype)
-    order, counts = edge_tile_order(edge_list_codes_cuda(Mq, Mk, nbr, K))
-    out = torch.empty((B * L * K, H), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    fn = getattr(library(source), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                              ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), K, H, ptr(table),
-             ptr(order), ptr(counts), sms, ptr(out), stream_ptr(dev))
-    raise_on_error(err, name)
-    LAUNCHES[name] += 1
-    return out.view(B, L, K, H)
+    with launch(name):
+        B, L, K = E_idx.shape
+        H = W.shape[1]
+        _check_width(name, H, widths)
+        Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k)
+        check_operand(W, "W", torch.float32, (ROWS, H))
+        dev = X_aug.device
+        table = W.index_select(0, _pair_row_map(dev)).to(table_dtype)
+        order, counts = edge_tile_order(edge_list_codes_cuda(Mq, Mk, nbr, K))
+        out = torch.empty((B * L * K, H), dtype=torch.float32, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fn = getattr(library(source), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                                  ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), K, H, ptr(table),
+                 ptr(order), ptr(counts), sms, ptr(out), stream_ptr(dev))
+        raise_on_error(err, name)
+        return out.view(B, L, K, H)
 
 
 def group_dw(source, symbol, name, widths, X_aug, X_m_aug, E_idx, g, X_aug_k,
@@ -235,25 +235,25 @@ def group_dw(source, symbol, name, widths, X_aug, X_m_aug, E_idx, g, X_aug_k,
     row order."""
     from ._build import library, ptr, stream_ptr
 
-    B, L, K = E_idx.shape
-    H = g.shape[-1]
-    _check_width(name, H, widths)
-    E = B * L * K
-    Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k)
-    g = g.reshape(E, H)
-    check_operand(g, "g", torch.float32, (E, H))
-    check_aligned(g, "g")
-    dev = X_aug.device
-    lists, counts = edge_group_lists(edge_groups(Mq, Mk, nbr, K))
-    part = torch.empty((DW_SPLITS, ROWS, H), dtype=torch.float32, device=dev)
-    dW = torch.empty((ROWS, H), dtype=torch.float32, device=dev)
-    fn = getattr(library(source), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), ptr(g), ptr(lists),
-             ptr(counts), lists.shape[1], ptr(_pair_row_map(dev)), K, H,
-             ptr(part), ptr(dW), stream_ptr(dev))
-    raise_on_error(err, name)
-    LAUNCHES[name] += 1
-    return dW
+    with launch(name):
+        B, L, K = E_idx.shape
+        H = g.shape[-1]
+        _check_width(name, H, widths)
+        E = B * L * K
+        Xq, Mq, Xk, Mk, nbr = edge_operands(X_aug, X_m_aug, E_idx, X_aug_k, X_m_k)
+        g = g.reshape(E, H)
+        check_operand(g, "g", torch.float32, (E, H))
+        check_aligned(g, "g")
+        dev = X_aug.device
+        lists, counts = edge_group_lists(edge_groups(Mq, Mk, nbr, K))
+        part = torch.empty((DW_SPLITS, ROWS, H), dtype=torch.float32, device=dev)
+        dW = torch.empty((ROWS, H), dtype=torch.float32, device=dev)
+        fn = getattr(library(source), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        err = fn(ptr(Xq), ptr(Mq), ptr(Xk), ptr(Mk), ptr(nbr), ptr(g), ptr(lists),
+                 ptr(counts), lists.shape[1], ptr(_pair_row_map(dev)), K, H,
+                 ptr(part), ptr(dW), stream_ptr(dev))
+        raise_on_error(err, name)
+        return dW

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..models import ModelConfig, forward, init_params
 from ..models.config import check_supported
 from ..params import load_checkpoint_npz, refuse_orbax, save_checkpoint_npz
@@ -215,20 +216,22 @@ class Trainer:
         the rest this rank's rows."""
         for p in self.leaves:
             p.grad = None
-        log_probs = self._log_probs(batch, generator, train=True)
-        mfl = mask_for_loss(batch["S"], batch["mask"],
-                            self.na_shared_tokens).to(log_probs.dtype)
-        loss_per_token, loss_av = self._loss(log_probs, batch, mfl)
-        loss_av.backward()
-        grad = torch.cat([(p.grad if p.grad is not None
-                           else torch.zeros_like(p)).reshape(-1)
-                          for p in self.leaves])
-        for p in self.leaves:
-            p.grad = None
-        loss_av = loss_av.detach()
-        if self.mesh is not None:
-            dist.all_reduce(grad)
-            dist.all_reduce(loss_av)
+        with trace.span("train.forward"):
+            log_probs = self._log_probs(batch, generator, train=True)
+            mfl = mask_for_loss(batch["S"], batch["mask"],
+                                self.na_shared_tokens).to(log_probs.dtype)
+            loss_per_token, loss_av = self._loss(log_probs, batch, mfl)
+        with trace.span("train.backward"):
+            loss_av.backward()
+            grad = torch.cat([(p.grad if p.grad is not None
+                               else torch.zeros_like(p)).reshape(-1)
+                              for p in self.leaves])
+            for p in self.leaves:
+                p.grad = None
+            loss_av = loss_av.detach()
+            if self.mesh is not None:
+                dist.all_reduce(grad)
+                dist.all_reduce(loss_av)
         return (loss_av, grad, log_probs.detach(), mfl,
                 loss_per_token.detach())
 
@@ -272,9 +275,10 @@ class Trainer:
         metrics."""
         loss_av, grad, log_probs, mfl, loss_per_token = self.loss_and_grads(
             batch, generator)
-        with torch.no_grad():
-            self.flat.add_(self.optimizer.update(grad, self.opt_state))
-        metrics = self._metrics(batch, log_probs, mfl, loss_per_token)
+        with trace.span("train.update"):
+            with torch.no_grad():
+                self.flat.add_(self.optimizer.update(grad, self.opt_state))
+            metrics = self._metrics(batch, log_probs, mfl, loss_per_token)
         metrics["loss_av"] = loss_av
         return metrics
 
@@ -312,7 +316,10 @@ class Trainer:
         """One training step. On one device ``generator`` (on the trainer's
         device) draws the coordinate noise, dropout masks and decode order
         (None: none of them). With a mesh they come from (seed, step)."""
-        metrics = self._train_step_impl(self.device_batch(np_batch), generator)
+        with trace.span("train.step"):
+            with trace.span("train.batch"):
+                batch = self.device_batch(np_batch)
+            metrics = self._train_step_impl(batch, generator)
         self.step += 1
         return metrics
 

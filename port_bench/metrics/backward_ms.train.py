@@ -1,0 +1,12 @@
+"""Milliseconds a training step spends in the backward and the flat gradient
+(``train.backward``; with a mesh, its all-reduce too), averaged over the
+window's steps (``train.step``). Host time, from the program's own spans
+(``program_trace``): where the card sets the pace, the stage that waits for
+it holds the wait."""
+from port_bench import program_trace
+
+WRAPS = []
+
+
+def read(run):
+    return program_trace.ms_per(run, ["train.backward"], "train.step")
