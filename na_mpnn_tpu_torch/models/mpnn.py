@@ -46,7 +46,9 @@ graph-parallel forward keeps its layers in fp32 at G > 1, as JAX does;
 ``torch.Generator`` turns on training randomness (dropout, coordinate
 noise), ``None`` makes them deterministic; the inference entry points run
 under ``torch.no_grad``. The autoregressive samplers are plain PyTorch, as
-they are plain XLA in the JAX package.
+they are plain XLA in the JAX package; on a card ``sample`` and
+``sample_multi`` replay their decode step as one CUDA graph, as the JAX
+package runs its loop as one ``lax.scan``.
 
 Sampling draws the decode order as ``argsort((chain_mask + 1e-4) * |randn|)``
 and tokens as ``argmax(log(p + 1e-30) + Gumbel)`` (what
@@ -663,6 +665,67 @@ def sample_multi(params, cfg: ModelConfig, batch, generator: Optional[torch.Gene
                         pair_bias_ctx, generator, gumbel)
 
 
+# Decode steps a card runs eagerly before it captures the step: they set up
+# cuBLAS's handle and workspace on the capture stream, which a capture must
+# find in place.
+_EAGER_STEPS = 2
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device):
+    """The card's one side stream for every call's eager steps and capture
+    (as ``torch.cuda.graph`` keeps one capture stream): cuBLAS keeps a
+    workspace for each stream it has run on until the process ends, so a
+    new stream a call would come to hold one for each of PyTorch's 32 pool
+    streams (about 1 GB on an H100)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return _SIDE_STREAMS[index]
+
+
+def _decode_loop(decode_step, L, device, generator):
+    """Call ``decode_step`` L times inside ``sample.decode``, each call in a
+    ``sample.step`` of its own. On a CUDA device the first ``_EAGER_STEPS``
+    calls run eagerly on a side stream, one more call is captured there into
+    a ``torch.cuda.CUDAGraph``, and the graph is replayed for the remaining
+    ``L - _EAGER_STEPS`` steps: one graph launch a step in place of the
+    step's hundred-odd kernel launches. ``generator`` is registered with the
+    graph, so a replay draws from it what an eager step would and a seed
+    gives the eager loop's tokens. The graph lives for this call only; its
+    private memory pool goes with it (PyTorch's allocator keeps the pool's
+    segments reserved until it next needs room on the card). Elsewhere, and
+    where ``L <= _EAGER_STEPS``, every step runs eagerly. The span counts
+    the ``steps`` and those ``replayed``."""
+    graphed = device.type == "cuda" and L > _EAGER_STEPS
+    replayed = L - _EAGER_STEPS if graphed else 0
+    with trace.span("sample.decode", steps=L, replayed=replayed):
+        if not graphed:
+            for _ in range(L):
+                with trace.span("sample.step"):
+                    decode_step()
+            return
+        main = torch.cuda.current_stream(device)
+        side = _side_stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(_EAGER_STEPS):
+                with trace.span("sample.step"):
+                    decode_step()
+            graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                graph.register_generator_state(generator)
+            graph.capture_begin()
+            try:
+                decode_step()
+            finally:
+                graph.capture_end()
+            for _ in range(replayed):
+                with trace.span("sample.step"):
+                    graph.replay()
+        main.wait_stream(side)
+
+
 def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
                  S_true, decoding_order, temperature, bias, pair_bias_ctx,
                  generator, gumbel):
@@ -670,7 +733,9 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
     position per step and row, in decode order. The per-layer static edge
     terms (edge features, encoder-node context, b1) are computed once; per
     step only the decoded-sequence embeddings and the mid-stack node states
-    of the neighbours are gathered."""
+    of the neighbours are gathered. The step reads its index from the
+    device (``step_t``) and writes only buffers made before the loop, so on
+    a card ``_decode_loop`` replays it as one CUDA graph."""
     B, L = mask.shape
     nl = cfg.num_letters
     H = cfg.hidden_dim
@@ -699,10 +764,13 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
     probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
     log_probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
     b_idx = torch.arange(B, device=device)
+    step_t = torch.zeros(1, dtype=torch.int64, device=device)
 
-    def decode_step(step):
-        """Decode position ``decoding_order[:, step]`` of every row."""
-        t = decoding_order[:, step]                          # [B]
+    def decode_step():
+        """Decode position ``decoding_order[:, step_t]`` of every row and
+        advance ``step_t``: device work only, on buffers made before the
+        loop, so one call can be captured and replayed."""
+        t = decoding_order.index_select(1, step_t)[:, 0]    # [B]
         E_t = E_idx[b_idx, t]                                # [B,K]
         bw = mask_bw[b_idx, t]                               # [B,K,1]
         s_nb = bw * take_rows(h_S, E_t)                      # [B,K,H]
@@ -731,7 +799,7 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
         probs = torch.softmax((logits + total_bias) / temperature, dim=-1)
         probs = probs * (1.0 - omit)
         probs_sample = probs / probs.sum(dim=-1, keepdim=True)
-        g = (gumbel[step].to(dtype) if gumbel is not None
+        g = (gumbel.index_select(0, step_t)[0].to(dtype) if gumbel is not None
              else _gumbel(generator, (B, nl), dtype, device))
         S_t = torch.argmax(torch.log(probs_sample + 1e-30) + g, dim=-1)
         cm_t = chain_mask[b_idx, t]
@@ -744,11 +812,9 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
         S_out[b_idx, t] = S_t
         probs_out[b_idx, t] = cm_t[:, None] * probs_sample
         log_probs_out[b_idx, t] = cm_t[:, None] * log_probs
+        step_t.add_(1)
 
-    with trace.span("sample.decode", steps=L):
-        for step in range(L):
-            with trace.span("sample.step"):
-                decode_step(step)
+    _decode_loop(decode_step, L, device, generator)
 
     return {"S": S_out, "sampling_probs": probs_out,
             "log_probs": log_probs_out, "decoding_order": decoding_order}
@@ -879,7 +945,7 @@ def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Gener
             h_S[:, t] = embed_tokens(params, S_t).to(dtype)
             S[:, t] = S_t
 
-    with trace.span("sample.decode", steps=groups.shape[0]):
+    with trace.span("sample.decode", steps=groups.shape[0], replayed=0):
         for g in range(groups.shape[0]):
             with trace.span("sample.step"):
                 decode_group(g)

@@ -1,11 +1,12 @@
 """The port's spans (``na_mpnn_tpu_torch/trace.py``) on the CPU: a CLI call
 in each mode records its stages under one ``cli.call`` with one request id,
 the stages cover the call, the encoder runs once per sampled structure (and
-B + 1 times in score mode), the decode loop counts its steps; a training
-step records its four stages; under ``torch.profiler`` the spans are named
-in the trace with the tracer off; off and outside a profile nothing is
-recorded and ``record_function`` is never entered; the buffer is bounded;
-``ops.launch`` counts as ``LAUNCHES`` did."""
+B + 1 times in score mode), the decode loop counts its steps (none
+replayed on the CPU); a training step records its four stages; under
+``torch.profiler`` the spans are named in the trace with the tracer off;
+off and outside a profile nothing is recorded and ``record_function`` is
+never entered; the buffer is bounded; ``ops.launch`` counts as
+``LAUNCHES`` did."""
 import torch_threads  # noqa: F401  (one share of the cores per xdist worker)
 import collections
 import dataclasses
@@ -107,7 +108,7 @@ def test_cli_stages(inputs, tracer, mode):
         assert not by["sample.decode"]
         return
     decode, = by["sample.decode"]
-    assert decode.counts == {"steps": L}
+    assert decode.counts == {"steps": L, "replayed": 0}
     assert len(by["sample.step"]) == L
     assert all(_within(r, decode) for r in by["sample.step"])
 
