@@ -7,6 +7,12 @@ stats) as the JAX package's ``cli/run.py``, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain versions of the kernels). Reads PDB and
 mmCIF structures (``.cif``, ``.mmcif``, gzipped or not), ``.npz``
 checkpoints in the JAX layout and reference ``.pt`` checkpoints.
+``--model_type ligand_mpnn`` runs a LigandMPNN checkpoint given as
+``--checkpoint_na_mpnn`` (a ``ligandmpnn_v_32_*.pt`` by its own key names or
+the port's ``.npz``; ``models/ligand.py``): the protein residues are designed
+with its 21 letters and every other heavy atom (ligands, metals, DNA/RNA) is
+context (``data/ligand_input.py``). The flags are the JAX CLI's, plus
+``--device``.
 ``--symmetry_residues "A1,B1|A2,B2"`` (with optional ``--symmetry_weights``
 of the same shape) ties positions: each group decodes together and draws
 one token (``models/mpnn.py::sample_tied``).
@@ -79,6 +85,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def apply_mode_defaults(args):
     """Checkpoint, batch size and temperature defaults of each mode."""
+    if args.model_type == "ligand_mpnn" and args.checkpoint_na_mpnn is None:
+        args.checkpoint_na_mpnn = "./model_params/ligandmpnn_v_32_010_25.pt"
     if args.checkpoint_na_mpnn is None:
         if args.mode in ("design", "score"):
             args.checkpoint_na_mpnn = "./models/design_model/s_19137.pt"
@@ -129,22 +137,33 @@ def main(args):
     from ..data.featurize import (featurize_inference, get_score, get_seq_rec,
                                   make_pair_bias_ctx, resolve_device)
     from ..data.pdb import parse_pdb, write_backbone_pdb
-    from ..models.config import ModelConfig
+    from ..models.config import ModelConfig, ligand_config
     from ..models.mpnn import (build_decode_groups, sample,
                                sample_decoding_order, sample_tied, score,
                                unconditional_probs)
     from ..params import load_params_any
 
     with trace.span("cli.load"):
-        if args.model_type != "na_mpnn":
+        if args.model_type not in ("na_mpnn", "ligand_mpnn"):
             print("Choose --model_type flag from currently available models")
             sys.exit(1)
+        ligand = args.model_type == "ligand_mpnn"
         device = resolve_device(args.device)
 
-        restype_to_int = constants.restype_to_int_table(bool(args.na_shared_tokens))
-        restype_STRtoINT, restype_INTtoSTR, dna_char_to_rna_char = \
-            seq_format.token_maps(bool(args.na_shared_tokens))
-        num_letters = constants.NUM_LETTERS
+        if ligand:
+            from ..data.ligand_input import ligand_view
+            from ..models.ligand import ALPHABET
+            restype_STRtoINT = {c: i for i, c in enumerate(ALPHABET)}
+            restype_INTtoSTR = dict(enumerate(ALPHABET))
+            dna_char_to_rna_char = {}
+            restype_to_int = {constants.RESTYPE_1_TO_3[c]: i
+                              for i, c in enumerate(ALPHABET)}
+            num_letters = len(ALPHABET)
+        else:
+            restype_to_int = constants.restype_to_int_table(bool(args.na_shared_tokens))
+            restype_STRtoINT, restype_INTtoSTR, dna_char_to_rna_char = \
+                seq_format.token_maps(bool(args.na_shared_tokens))
+            num_letters = constants.NUM_LETTERS
 
         seed = args.seed if args.seed else int(np.random.randint(0, 99999))
         np.random.seed(seed)
@@ -164,13 +183,27 @@ def main(args):
             os.makedirs(base_folder + "stats", exist_ok=True)
 
         k_neighbors = args.k_neighbors if args.k_neighbors is not None else 32
-        cfg = ModelConfig(k_neighbors=k_neighbors, dropout=0.0)
-        params, _ = load_params_any(args.checkpoint_na_mpnn, cfg, device=device)
+        if ligand:
+            import dataclasses
+            cfg = ligand_config(k_neighbors=k_neighbors, dropout=0.0)
+            params, meta = load_params_any(args.checkpoint_na_mpnn, cfg, device=device)
+            cfg = dataclasses.replace(
+                cfg, atom_context_num=int(meta.get("atom_context_num", 25)),
+                k_neighbors=(k_neighbors if args.k_neighbors is not None
+                             else int(meta.get("num_edges", 32))))
+        else:
+            cfg = ModelConfig(k_neighbors=k_neighbors, dropout=0.0)
+            params, _ = load_params_any(args.checkpoint_na_mpnn, cfg, device=device)
 
         bias_AA = seq_format.parse_bias_spec(args.bias_AA, restype_STRtoINT)
         pair_bias_AA = seq_format.parse_pair_bias_spec(args.pair_bias_AA,
                                                        restype_STRtoINT)
-        omit_AA = seq_format.omit_vector(args.omit_AA, bool(args.na_shared_tokens))
+        if ligand:
+            bias_AA, pair_bias_AA = (bias_AA[:num_letters],
+                                     pair_bias_AA[:num_letters, :num_letters])
+            omit_AA = np.array([a in args.omit_AA for a in ALPHABET], np.float32)
+        else:
+            omit_AA = seq_format.omit_vector(args.omit_AA, bool(args.na_shared_tokens))
 
         if args.fixed_pos_by_pdb:
             with open(args.fixed_pos_by_pdb) as fh:
@@ -182,17 +215,20 @@ def main(args):
         with trace.span("cli.structure"):
             with trace.span("cli.parse"):
                 name = seq_format.structure_name(pdb)
+                chains = ((args.parse_these_chains_only.split(",")
+                           if "," in args.parse_these_chains_only
+                           else list(args.parse_these_chains_only))
+                          if args.parse_these_chains_only else None)
                 parsed = parse_pdb(
                     pdb,
-                    chains=(args.parse_these_chains_only.split(",")
-                            if "," in args.parse_these_chains_only
-                            else list(args.parse_these_chains_only))
-                    if args.parse_these_chains_only else None,
+                    chains=chains,
                     parse_na_only=bool(args.parse_na_only),
                     na_shared_tokens=bool(args.na_shared_tokens),
                     load_residues_with_missing_atoms=bool(
                         args.load_residues_with_missing_atoms),
                 )
+                if ligand:
+                    parsed = ligand_view(pdb, parsed, chains)
 
                 L = len(parsed["S"])
                 encoded_residues = [
@@ -236,6 +272,9 @@ def main(args):
                 if args.pad_to_bucket:
                     pad_L = -(-L // args.pad_to_bucket) * args.pad_to_bucket
                 batch = featurize_inference(parsed, chain_mask, pad_to=pad_L, device=device)
+                if ligand:
+                    batch.update({k: torch.from_numpy(parsed[k])[None].to(device)
+                                  for k in ("Y", "Y_t", "Y_m")})
                 L_run = max(pad_L, L)
                 bias = torch.as_tensor(np.tile(-1e8 * omit_AA + bias_AA, (L_run, 1)),
                                        device=device)
@@ -389,7 +428,8 @@ def main(args):
                     ix_suffix = ix if args.zero_indexed else ix + 1
                     seq = ints_to_seq(S_stack[ix])
                     if args.output_pdbs:
-                        new_resnames = [constants.RESTYPE_1_TO_3[c] for c in seq]
+                        new_resnames = [constants.RESTYPE_1_TO_3.get(c, "UNK")
+                                        for c in seq]
                         bf = loss_per_residue_stack[ix]
                         bfactors = np.exp(-bf) * (bf > 0.01).astype(np.float32)
                         write_backbone_pdb(

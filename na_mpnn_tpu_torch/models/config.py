@@ -11,6 +11,40 @@ RBF_MODES = ("classed", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
+class Architecture:
+    """What the shared code reads of a model type: ``letters``, the default
+    vocabulary and output width; ``edge_pairs``, the atom pairs of an edge's
+    RBF block (0: every pair of the atom frame); ``omit``, the letters no
+    sampler draws; ``pad_token``, the letter of a training batch's padded
+    rows; ``loss``, ``"polymer"`` (``losses.loss_smoothed``: smoothing per
+    polymer, PPM labels) or ``"uniform"`` (ProteinMPNN's,
+    ``losses.loss_smoothed_uniform``); ``atom_context``, an atom-context
+    encoder after the protein encoder (``models/ligand.py``)."""
+    letters: int
+    edge_pairs: int
+    omit: tuple
+    pad_token: int
+    loss: str
+    atom_context: bool
+
+
+# LigandMPNN's 21 letters (ProteinMPNN's), X for any other residue
+LIGAND_ALPHABET = "ACDEFGHIKLMNPQRSTVWYX"
+_X = LIGAND_ALPHABET.index("X")
+ARCHITECTURES = {
+    "na_mpnn": Architecture(
+        letters=constants.NUM_LETTERS, edge_pairs=0,
+        omit=tuple(constants.RESTYPE_TO_INT[r] for r in ("UNK", "DX", "RX", "MAS", "PAD")),
+        pad_token=constants.RESTYPE_TO_INT["PAD"], loss="polymer", atom_context=False),
+    # ProteinMPNN's 25 backbone pairs (N, CA, C, O, virtual CB)
+    "ligand_mpnn": Architecture(
+        letters=len(LIGAND_ALPHABET), edge_pairs=25, omit=(_X,),
+        pad_token=_X, loss="uniform", atom_context=True),
+}
+MODEL_TYPES = tuple(ARCHITECTURES)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Hyperparameters of the NA-MPNN network (defaults: the released models).
 
@@ -44,6 +78,8 @@ class ModelConfig:
     gp_knn_key_chunk: int = 0
     gp_rbf_row_chunk: int = 0
     remat: str = "none"
+    model_type: str = "na_mpnn"     # a key of ARCHITECTURES
+    atom_context_num: int = 25      # LigandMPNN's context atoms a residue
 
     def __post_init__(self):
         if self.kernels not in KERNEL_CHOICES:
@@ -60,8 +96,13 @@ class ModelConfig:
         return len(self.atom_dict) + 1 + (1 if self.include_pred_na_N else 0)
 
     @property
+    def arch(self) -> Architecture:
+        return ARCHITECTURES[self.model_type]
+
+    @property
     def edge_in(self) -> int:
-        return self.num_positional_embeddings + self.num_rbf * self.total_atoms ** 2
+        pairs = self.arch.edge_pairs or self.total_atoms ** 2
+        return self.num_positional_embeddings + self.num_rbf * pairs
 
     @property
     def node_in(self) -> int:
@@ -87,3 +128,16 @@ def check_supported(cfg: ModelConfig):
                          f"{COMPUTE_DTYPES}")
     if cfg.rbf_mode not in RBF_MODES:
         raise ValueError(f"rbf_mode={cfg.rbf_mode!r}: choose from {RBF_MODES}")
+    if cfg.model_type not in MODEL_TYPES:
+        raise ValueError(f"model_type={cfg.model_type!r}: choose from {MODEL_TYPES}")
+    if cfg.arch.atom_context and (cfg.atom_table != "backbone" or not cfg.include_pred_na_N):
+        raise ValueError("ligand_mpnn runs on the 18-slot frame: atom_table "
+                         "'backbone' with include_pred_na_N")
+
+
+def ligand_config(**kw) -> ModelConfig:
+    """A LigandMPNN configuration (``ligandmpnn_v_32_010_25`` widths: 21
+    letters, 25 context atoms; ``kw`` overrides)."""
+    letters = ARCHITECTURES["ligand_mpnn"].letters
+    return ModelConfig(**{"model_type": "ligand_mpnn", "vocab": letters,
+                          "num_letters": letters, **kw})

@@ -211,7 +211,9 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     graph-parallel route the plain kNN streams its keys in chunks of
     ``gp_knn_key_chunk`` (``parallel/graph_parallel.py::_knn_local_rows``);
     the kernel streams them through shared memory in tiles and ignores the
-    chunk, as JAX's Pallas route does."""
+    chunk, as JAX's Pallas route does. A tree without ``node_embedding``
+    (LigandMPNN's trunk, ``models/ligand.py``) gives no node features:
+    ``V`` is None."""
     from ..ops.knn import knn_graph_qk
     from ..ops.rbf_classed import rbf_edge_features_classed_qk
     from ..ops.rbf_edge import rbf_edge_features_qk
@@ -271,6 +273,8 @@ def features_from_coords(p, cfg: ModelConfig, batch, X, plain: bool = False,
     if "b" in p["positional"]:
         E_pos = E_pos + (p["positional"]["b"] @ W[:n_pos]).to(cdt)
     E = layer_norm(p["norm_edges"], E_pos + E_rbf)
+    if "node_embedding" not in p:       # LigandMPNN: h_V starts at zero
+        return None, E, E_idx, mask_attend
 
     V = F.one_hot(batch["R_polymer_type"].long(), cfg.num_polytypes).to(X.dtype)
     V = layer_norm(p["norm_nodes"], V @ p["node_embedding"]["w"])

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import constants, trace
+from .. import trace
 from ..ops import fused_layers as fl
 from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
@@ -76,14 +76,6 @@ from .modules import (MESSAGE_SCALE, _message_tail, _split_w1,
                       gather_nodes, init_dec_layer, init_enc_layer,
                       init_linear, layer_norm, linear,
                       pff_apply, take_rows, widen)
-
-# Token ints zeroed out during sampling (UNK, DX, RX, MAS, PAD).
-_OMIT_ALWAYS = [
-    constants.RESTYPE_TO_INT["UNK"], constants.RESTYPE_TO_INT["DX"],
-    constants.RESTYPE_TO_INT["RX"], constants.RESTYPE_TO_INT["MAS"],
-    constants.RESTYPE_TO_INT["PAD"],
-]
-
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -96,6 +88,9 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda",
     from ..params import from_jax_params
 
     rng = np.random.default_rng(seed)
+    if cfg.arch.atom_context:
+        from .ligand import init_tree
+        return from_jax_params(init_tree(rng, cfg), device=device, dtype=dtype)
     H = cfg.hidden_dim
     tree = {
         "features": init_features(rng, cfg),
@@ -431,6 +426,9 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     recomputes its tails in the backward (``enc_layer``)."""
     with trace.span("model.encode", rows=batch["X"].shape[0]):
         check_supported(cfg)
+        if cfg.arch.atom_context:
+            from .ligand import encode as encode_ligand
+            return encode_ligand(params, cfg, batch, generator)
         plain = _plain(cfg, batch["X"])
         mask = batch["mask"].to(batch["X"].dtype)
         V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
@@ -746,7 +744,7 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
         bias = torch.zeros((B, L, nl), dtype=dtype, device=device)
     bias = bias.to(dtype)
     omit = torch.zeros(nl, dtype=dtype, device=device)
-    omit[_OMIT_ALWAYS] = 1.0
+    omit[list(cfg.arch.omit)] = 1.0
     mask_1d = mask[:, :, None, None]
 
     w_splits = [_split_w1(p, H) for p in params["decoder"]]
@@ -893,7 +891,7 @@ def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Gener
     bias = (torch.zeros((B, L, nl), dtype=dtype, device=device) if bias is None
             else bias.expand(B, L, nl).to(dtype))
     omit = torch.zeros(nl, dtype=dtype, device=device)
-    omit[_OMIT_ALWAYS] = 1.0
+    omit[list(cfg.arch.omit)] = 1.0
     weights = np.asarray(group_weights, np.float64)
 
     h_V_stack = [h_V0] + [torch.zeros((B, L, h_V0.shape[-1]), dtype=dtype,

@@ -59,7 +59,7 @@ from ..models.config import ModelConfig, check_supported
 from ..models.features import features_from_coords
 from ..models.modules import (MESSAGE_SCALE, _message_tail, _split_w1,
                               layer_norm, linear, pff_apply, take_rows, widen)
-from ..models.mpnn import (_OMIT_ALWAYS, _gumbel, _logits, _pair_bias_step,
+from ..models.mpnn import (_gumbel, _logits, _pair_bias_step,
                            _plain, _remat, _trunk_dtype, dec_layer,
                            embed_tokens, enc_layer, sample_decoding_order,
                            table_order, to_trunk)
@@ -420,7 +420,7 @@ def sample_graph_parallel(params, cfg: ModelConfig, batch, generator, mesh: Mesh
     bias = (torch.zeros((B, L, nl), dtype=dtype, device=device) if bias is None
             else bias.expand(B, L, nl).to(dtype))
     omit = torch.zeros(nl, dtype=dtype, device=device)
-    omit[_OMIT_ALWAYS] = 1.0
+    omit[list(cfg.arch.omit)] = 1.0
     w_splits = [_split_w1(p, H) for p in params["decoder"]]
 
     # this rank's rows of the decode state

@@ -129,9 +129,46 @@ def _pff(sd: Mapping, prefix: str):
             "W_out": _linear(sd, prefix + ".W_out")}
 
 
+# LigandMPNN's state-dict names (``model_utils.py``) of the port's keys
+# that differ from them: the context featuriser's layers live under
+# ``features.`` there, the two context stacks under their module names
+_LIGAND_CONTEXT = ("type_linear", "node_project_down", "norm_nodes", "y_nodes",
+                   "y_edges", "norm_y_nodes", "norm_y_edges")
+_LIGAND_STACKS = {"context_layers": "context_encoder_layers",
+                  "y_context_layers": "y_context_encoder_layers"}
+_LIGAND_LINEARS = ("W_v", "W_e", "W_c", "W_nodes_y", "W_edges_y", "V_C", "W_out")
+
+
+def _ligand_from_state_dict(sd: Mapping, cfg: ModelConfig, enc, dec):
+    """A LigandMPNN ``model_state_dict`` (``ligandmpnn_v_32_*``, by its own
+    key names) -> the port's LigandMPNN tree (``models/ligand.py``)."""
+    ctx = {}
+    for n in _LIGAND_CONTEXT:
+        ctx[n] = (_norm(sd, f"features.{n}") if n.startswith("norm")
+                  else _linear(sd, f"features.{n}"))
+    tree = {
+        "features": {
+            "positional": _linear(sd, "features.embeddings.linear"),
+            "edge_embedding": _linear(sd, "features.edge_embedding"),
+            "norm_edges": _norm(sd, "features.norm_edges"),
+        },
+        "context": ctx,
+        "V_C_norm": _norm(sd, "V_C_norm"),
+        "W_s": {"emb": _np(sd["W_s.weight"])},
+        "encoder": [enc(f"encoder_layers.{i}") for i in range(cfg.num_encoder_layers)],
+        "decoder": [dec(f"decoder_layers.{i}") for i in range(cfg.num_decoder_layers)],
+    }
+    from .models.ligand import NUM_CONTEXT_LAYERS
+    tree.update({n: _linear(sd, n) for n in _LIGAND_LINEARS})
+    for key, name in _LIGAND_STACKS.items():
+        tree[key] = [dec(f"{name}.{i}") for i in range(NUM_CONTEXT_LAYERS)]
+    return tree
+
+
 def from_torch_state_dict(sd: Mapping, cfg: ModelConfig):
     """Reference ``model_state_dict`` -> JAX-layout tree of numpy arrays
-    (linear weights transposed to ``[in, out]``)."""
+    (linear weights transposed to ``[in, out]``); for a LigandMPNN
+    configuration, a LigandMPNN state dict by its own key names."""
     def enc(prefix):
         p = {n: _linear(sd, f"{prefix}.{n}")
              for n in ["W1", "W2", "W3", "W11", "W12", "W13"]}
@@ -147,6 +184,8 @@ def from_torch_state_dict(sd: Mapping, cfg: ModelConfig):
         p["dense"] = _pff(sd, prefix + ".dense")
         return p
 
+    if cfg.arch.atom_context:
+        return _ligand_from_state_dict(sd, cfg, enc, dec)
     return {
         "features": {
             "positional": _linear(sd, "features.embeddings.linear"),
@@ -171,7 +210,8 @@ def load_torch_checkpoint(path: str, cfg: ModelConfig):
     meta: its epoch / step / save_step)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
-    meta = {k: ckpt[k] for k in ("epoch", "step", "save_step") if k in ckpt} \
+    meta = {k: ckpt[k] for k in ("epoch", "step", "save_step", "num_edges",
+                                 "atom_context_num") if k in ckpt} \
         if isinstance(ckpt, dict) else {}
     return from_torch_state_dict(sd, cfg), meta
 
@@ -213,6 +253,34 @@ def to_torch_state_dict(params, cfg: ModelConfig):
     def put_norm(prefix, p):
         sd[prefix + ".weight"] = _np(p["scale"])
         sd[prefix + ".bias"] = _np(p["bias"])
+
+    def put_layer(prefix, lp):
+        for name in ("W1", "W2", "W3", "W11", "W12", "W13"):
+            if name in lp:
+                put_linear(f"{prefix}.{name}", lp[name])
+        for name in ("norm1", "norm2", "norm3"):
+            if name in lp:
+                put_norm(f"{prefix}.{name}", lp[name])
+        put_linear(f"{prefix}.dense.W_in", lp["dense"]["W_in"])
+        put_linear(f"{prefix}.dense.W_out", lp["dense"]["W_out"])
+
+    if cfg.arch.atom_context:
+        f = params["features"]
+        put_linear("features.embeddings.linear", f["positional"])
+        put_linear("features.edge_embedding", f["edge_embedding"])
+        put_norm("features.norm_edges", f["norm_edges"])
+        for n in _LIGAND_CONTEXT:
+            (put_norm if n.startswith("norm") else put_linear)(
+                f"features.{n}", params["context"][n])
+        for n in _LIGAND_LINEARS:
+            put_linear(n, params[n])
+        put_norm("V_C_norm", params["V_C_norm"])
+        sd["W_s.weight"] = _np(params["W_s"]["emb"])
+        for key, name in (("encoder", "encoder_layers"), ("decoder", "decoder_layers"),
+                          *_LIGAND_STACKS.items()):
+            for i, lp in enumerate(params[key]):
+                put_layer(f"{name}.{i}", lp)
+        return sd
 
     f = params["features"]
     put_linear("features.embeddings.linear", f["positional"])

@@ -41,7 +41,8 @@ def bucket_batch(B: int, buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS) -> int:
 
 def collate_batch(structures: List[Dict], pad_to: Optional[int] = None,
                   pad_batch_to: Optional[int] = None,
-                  use_buckets: bool = True) -> Optional[Dict[str, np.ndarray]]:
+                  use_buckets: bool = True,
+                  pad_token: Optional[int] = None) -> Optional[Dict[str, np.ndarray]]:
     """Pad a list of per-structure dicts into dense [B, L_pad, ...] arrays.
 
     Each structure dict must carry the loader contract keys (reference
@@ -49,6 +50,11 @@ def collate_batch(structures: List[Dict], pad_to: Optional[int] = None,
     chain_labels, protein/dna/rna masks, R_polymer_type, interface_mask,
     base_pair_{mask,index}, canonical_base_pair_{mask,index}, aligned_ppm,
     ppm_mask. Returns None for an empty list (the reference returns "pass").
+
+    Structures that carry context atoms (``Y [N,3]``, ``Y_t``, ``Y_m [N]``:
+    LigandMPNN's inputs) give ``Y [B, N_max, 3]``, ``Y_t``, ``Y_m [B,
+    N_max]``, absent atoms zero. ``pad_token`` fills ``S`` of padded rows
+    (default NA-MPNN's PAD; LigandMPNN's 21 letters take its X).
     """
     structures = [s for s in structures if isinstance(s, dict)]
     B = len(structures)
@@ -64,7 +70,7 @@ def collate_batch(structures: List[Dict], pad_to: Optional[int] = None,
     nA = int(structures[0]["X"].shape[1])
     nl = constants.NUM_LETTERS
     pt_pad = constants.POLYTYPE_TO_INT["PAD"]
-    rt_pad = constants.RESTYPE_TO_INT["PAD"]
+    rt_pad = constants.RESTYPE_TO_INT["PAD"] if pad_token is None else pad_token
 
     out = {
         "X": np.zeros([B_pad, L_pad, nA, 3], np.float32),
@@ -100,6 +106,15 @@ def collate_batch(structures: List[Dict], pad_to: Optional[int] = None,
                 raise KeyError(f"structure missing required key {k}")
         structure_paths.append(s.get("structure_path", ""))
         assembly_ids.append(s.get("assembly_id", ""))
+    if "Y" in structures[0]:
+        N = max(int(np.shape(s["Y"])[0]) for s in structures)
+        out["Y"] = np.zeros([B_pad, N, 3], np.float32)
+        out["Y_t"] = np.zeros([B_pad, N], np.int32)
+        out["Y_m"] = np.zeros([B_pad, N], np.int32)
+        for i, s in enumerate(structures):
+            n = int(np.shape(s["Y"])[0])
+            for k in ("Y", "Y_t", "Y_m"):
+                out[k][i, :n] = s[k]
     out["structure_path"] = structure_paths
     out["assembly_id"] = assembly_ids
     return out

@@ -3,7 +3,8 @@
 
 * NLL loss and argmax accuracy (``loss_nll``);
 * label-smoothed cross-entropy with a smoothing mass per polymer and PPM
-  soft labels substituted into the one-hot target (``loss_smoothed``);
+  soft labels substituted into the one-hot target (``loss_smoothed``), and
+  ProteinMPNN's uniform smoothing for LigandMPNN (``loss_smoothed_uniform``);
 * canonical-base-pair accuracy through the partner index.
 """
 from __future__ import annotations
@@ -66,6 +67,19 @@ def loss_smoothed(S, log_probs, mask, polymer_masks, restype_masks,
     all_restype_mask = ((prm + drm + rrm) > 0).to(dtype)
     S_onehot = S_onehot * (1.0 - weight * all_restype_mask) + eps
     loss = -(S_onehot * log_probs).sum(dim=-1)
+    return loss, (loss * mask).sum() / tokens
+
+
+def loss_smoothed_uniform(S, log_probs, mask, weight=0.1, tokens=6000.0,
+                          num_letters=21):
+    """ProteinMPNN's label smoothing (``training/model_utils.py::
+    loss_smoothed``), LigandMPNN's loss: the one-hot target plus
+    ``weight / num_letters`` on every letter, renormalised; the sum over
+    ``mask`` divided by the fixed token budget ``tokens``. -> (per token,
+    average)."""
+    target = F.one_hot(S.long(), num_letters).to(log_probs.dtype) + weight / num_letters
+    target = target / target.sum(-1, keepdim=True)
+    loss = -(target * log_probs).sum(dim=-1)
     return loss, (loss * mask).sum() / tokens
 
 

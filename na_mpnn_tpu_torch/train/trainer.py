@@ -49,18 +49,22 @@ import torch.distributed as dist
 
 from .. import trace
 from ..models import ModelConfig, forward, init_params
-from ..models.config import check_supported
+from ..models.config import ARCHITECTURES, check_supported
 from ..params import load_checkpoint_npz, refuse_orbax, save_checkpoint_npz
 from ..parallel.graph_parallel import all_gather_rows, forward_graph_parallel
 from ..parallel.mesh import Mesh, all_gather_batch, replicated, shard_batch
 from .losses import (compute_canonical_base_pair_accuracy, loss_nll,
-                     loss_smoothed, make_polymer_restype_masks, mask_for_loss)
+                     loss_smoothed, loss_smoothed_uniform,
+                     make_polymer_restype_masks, mask_for_loss)
 from .optimizer import OptState, make_optimizer
 
 
 def model_config_from_params(params: Dict) -> ModelConfig:
     """ModelConfig from a reference-style JSON parameter dict (the JAX
-    package's ``model_config_from_params``)."""
+    package's ``model_config_from_params``; ``MODEL_TYPE`` "ligand_mpnn"
+    selects LigandMPNN, whose letters default to its 21)."""
+    model_type = params.get("MODEL_TYPE", "na_mpnn")
+    letters = ARCHITECTURES[model_type].letters
     return ModelConfig(
         node_features=params.get("HIDDEN_DIM", 128),
         edge_features=params.get("HIDDEN_DIM", 128),
@@ -68,8 +72,8 @@ def model_config_from_params(params: Dict) -> ModelConfig:
         num_encoder_layers=params.get("NUM_ENCODER_LAYERS", 3),
         num_decoder_layers=params.get("NUM_DECODER_LAYERS", 3),
         k_neighbors=params.get("NUM_NEIGHBORS", 32),
-        vocab=params.get("VOCAB_SIZE", 33),
-        num_letters=params.get("NUM_LETTERS", 33),
+        vocab=params.get("VOCAB_SIZE", letters),
+        num_letters=params.get("NUM_LETTERS", letters),
         dropout=params.get("DROPOUT", 0.1),
         protein_augment_eps=params.get("PROTEIN_BACKBONE_NOISE", 0.1),
         dna_augment_eps=params.get("DNA_BACKBONE_NOISE", 0.1),
@@ -80,6 +84,8 @@ def model_config_from_params(params: Dict) -> ModelConfig:
         compute_dtype=("bfloat16" if params.get("MIXED_PRECISION", 1)
                        else "float32"),
         atom_table=params.get("ATOMS_TO_LOAD", "backbone"),
+        model_type=model_type,
+        atom_context_num=params.get("ATOM_CONTEXT_NUM", 25),
     )
 
 
@@ -90,6 +96,10 @@ BATCH_KEYS = [
     "canonical_base_pair_index", "aligned_ppm", "ppm_mask",
 ]
 
+# LigandMPNN's context atoms (``models/ligand.py``), copied where a batch
+# carries them
+CONTEXT_KEYS = ["Y", "Y_t", "Y_m"]
+
 
 # The batch arrays the metrics read (S, the loss per token's masks and PPM
 # labels, the canonical base pairs).
@@ -99,12 +109,13 @@ METRIC_KEYS = ("S", "protein_mask", "dna_mask", "rna_mask", "ppm_mask",
 
 
 def to_device(np_batch, device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """The ``BATCH_KEYS`` arrays of a host batch on ``device``: floats as
-    ``dtype``, integers as they are; pinned and non-blocking on a card."""
+    """The ``BATCH_KEYS`` (and ``CONTEXT_KEYS``) arrays of a host batch on
+    ``device``: floats as ``dtype``, integers as they are; pinned and
+    non-blocking on a card."""
     device = torch.device(device)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     out = {}
-    for k in BATCH_KEYS:
+    for k in BATCH_KEYS + CONTEXT_KEYS:
         if k not in np_batch:
             continue
         a = np.asarray(np_batch[k])
@@ -150,6 +161,9 @@ class Trainer:
                  mesh: Mesh = None, dtype=torch.float32,
                  per_host_feed: bool = False):
         check_supported(cfg)
+        if cfg.arch.atom_context and mesh is not None:
+            raise ValueError("ligand_mpnn trains on one device: the graph-"
+                             "parallel forward has no context encoder")
         self.cfg = cfg
         self.mesh = mesh
         # the per-host feed: host batches hold this rank's rows only
@@ -190,6 +204,10 @@ class Trainer:
                 "rna": batch["rna_mask"]}
 
     def _loss(self, log_probs, batch, mfl):
+        if self.cfg.arch.loss == "uniform":
+            return loss_smoothed_uniform(
+                batch["S"], log_probs, mfl, weight=self.label_smoothing,
+                tokens=self.loss_tokens, num_letters=self.cfg.num_letters)
         return loss_smoothed(
             batch["S"], log_probs, mfl, self._polymer_masks(batch),
             self.restype_masks, weight=self.label_smoothing,
@@ -230,7 +248,8 @@ class Trainer:
                 p.grad = None
             loss_av = loss_av.detach()
             if self.mesh is not None:
-                dist.all_reduce(grad)
+                with trace.span("train.allreduce"):
+                    dist.all_reduce(grad)
                 dist.all_reduce(loss_av)
         return (loss_av, grad, log_probs.detach(), mfl,
                 loss_per_token.detach())
