@@ -129,14 +129,15 @@ def main(args):
     """Run the CLI on parsed, defaulted arguments. The stages are spans
     (``trace.py``): ``cli.load`` (checkpoint, folders, specs), then per
     structure ``cli.structure`` over ``cli.parse``, ``cli.featurize``,
-    ``cli.model`` (the model calls only) and ``cli.outputs``. Called
-    without ``cli_entry``, no ``cli.call`` encloses them, and each stage
-    starts a request of its own."""
+    ``cli.model`` (the model calls only) and ``cli.outputs``, which holds
+    ``cli.pdbs`` (the backbone PDBs; counts ``files`` written and
+    ``templates`` built). Called without ``cli_entry``, no ``cli.call``
+    encloses them, and each stage starts a request of its own."""
     from .. import constants
     from ..data import seq_format
     from ..data.featurize import (featurize_inference, get_score, get_seq_rec,
                                   make_pair_bias_ctx, resolve_device)
-    from ..data.pdb import parse_pdb, write_backbone_pdb
+    from ..data.pdb import BackboneTemplate, parse_pdb
     from ..models.config import ModelConfig, ligand_config
     from ..models.mpnn import (build_decode_groups, sample,
                                sample_decoding_order, sample_tied, score,
@@ -424,17 +425,24 @@ def main(args):
                     name, args.temperature, seed, int(np.sum(chain_mask_np)),
                     args.batch_size, args.number_of_batches, args.checkpoint_na_mpnn,
                     seq_by_chains(native_seq))]
-                for ix in range(S_stack.shape[0]):
-                    ix_suffix = ix if args.zero_indexed else ix + 1
-                    seq = ints_to_seq(S_stack[ix])
-                    if args.output_pdbs:
-                        new_resnames = [constants.RESTYPE_1_TO_3.get(c, "UNK")
-                                        for c in seq]
-                        bf = loss_per_residue_stack[ix]
-                        bfactors = np.exp(-bf) * (bf > 0.01).astype(np.float32)
-                        write_backbone_pdb(
-                            base_folder + "backbones/" + name + f"_{ix_suffix}.pdb"
-                            + args.file_ending, parsed, new_resnames, bfactors)
+                seqs = [ints_to_seq(row) for row in S_stack]
+                suffixes = [ix if args.zero_indexed else ix + 1 for ix in range(len(seqs))]
+                if args.output_pdbs:
+                    # the structure's fixed columns are formatted once, in
+                    # the template; each file fills its names and B-factors
+                    with trace.span("cli.pdbs", files=0, templates=0) as pdbs:
+                        template = BackboneTemplate(parsed)
+                        pdbs.add(templates=1)
+                        for seq, ix_suffix, bf in zip(seqs, suffixes,
+                                                      loss_per_residue_stack):
+                            new_resnames = [constants.RESTYPE_1_TO_3.get(c, "UNK")
+                                            for c in seq]
+                            bfactors = np.exp(-bf) * (bf > 0.01).astype(np.float32)
+                            template.write(
+                                base_folder + "backbones/" + name + f"_{ix_suffix}.pdb"
+                                + args.file_ending, new_resnames, bfactors)
+                            pdbs.add(files=1)
+                for ix, (seq, ix_suffix) in enumerate(zip(seqs, suffixes)):
                     fasta_entries.append(seq_format.sample_fasta_entry(
                         name, ix_suffix, args.temperature, seed,
                         np.exp(-loss_stack[ix]), rec_stack[ix], seq_by_chains(seq)))

@@ -392,11 +392,32 @@ def _format_atom_line(a: PDBAtom, resname: str, bfactor: float, serial: int) -> 
             f"{bfactor:6.2f}          {a.element:>2}")
 
 
-def write_backbone_pdb(path: str, parsed: Dict, new_resnames: List[str],
-                       bfactors: np.ndarray):
-    """Write the backbone with redesigned residue names and per-residue
-    confidence B-factors, then the ligand context atoms (reference
-    inference/run.py:475-491)."""
+# ``_format_atom_line`` for every atom of a structure in one ``%``: the
+# same fields and widths (``%-6s`` is ``:<6``, ``%4s`` ``:>4``, ``%8.3f``
+# ``:8.3f``), the residue name and the B-factor passed as strings.
+_ATOM_LINE = "%-6s%5d %-4s%s%3s %s%4s%s   %8.3f%8.3f%8.3f%6.2f%6s          %2s\n"
+_NAME_SLOT, _BF_SLOT = "\x01" * 3, "\x02" * 6
+
+
+def _atom_lines(atoms, first_serial, resnames, bfactors) -> str:
+    """The lines of ``atoms`` (serials from ``first_serial``), atom ``j``
+    named ``resnames[j]`` with the B-factor string ``bfactors[j]``."""
+    # flat floats: a list a row would hand the garbage collector a
+    # thousand containers a structure (a collection more a request)
+    xyz = np.asarray([a.xyz for a in atoms]).reshape(-1).tolist()
+    fields = []
+    for j, a in enumerate(atoms):
+        name = a.name
+        if len(name) < 4 and len(a.element) < 2:
+            name = " " + name
+        fields += (a.record, first_serial + j, name, a.altloc, resnames[j],
+                   (a.chain + " ")[:1], a.resnum, a.icode if a.icode else " ",
+                   xyz[3 * j], xyz[3 * j + 1], xyz[3 * j + 2], a.occupancy,
+                   bfactors[j], a.element)
+    return (_ATOM_LINE * len(atoms)) % tuple(fields)
+
+
+def _per_atom_text(parsed: Dict, new_resnames: List[str], bfactors) -> str:
     lines = []
     serial = 1
     for i, res_atoms in enumerate(parsed["backbone_atoms"]):
@@ -408,5 +429,72 @@ def write_backbone_pdb(path: str, parsed: Dict, new_resnames: List[str],
         serial += 1
     lines.append("TER")
     lines.append("END")
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+    return "\n".join(lines) + "\n"
+
+
+class BackboneTemplate:
+    """The backbone PDB of one parsed structure with two columns left open
+    on each backbone atom line: the residue name (``:>3``) and the B-factor
+    (``:6.2f``), the only ones that differ between the samples of a
+    structure. Every other column, and the context atoms (``other_atoms``,
+    their own residue names, B-factor 0.00) with ``TER`` and ``END``, is
+    formatted once here, in one pass over the atoms; ``render`` formats a
+    sample's names and B-factors once per residue and writes them into a
+    copy of the template's bytes at their offsets.
+
+    Where a sample's name or B-factor is wider than its column, or a field
+    of the structure is not ASCII or holds the template's marker bytes
+    (``_NAME_SLOT``, ``_BF_SLOT``), ``render`` formats every line as
+    ``_format_atom_line`` does. Either way the text is the per-atom
+    writer's."""
+
+    def __init__(self, parsed: Dict):
+        self.parsed = parsed
+        self.n_res = len(parsed["backbone_atoms"])
+        atoms = [a for res in parsed["backbone_atoms"] for a in res]
+        line_res = np.repeat(np.arange(self.n_res),
+                             [len(res) for res in parsed["backbone_atoms"]])
+        others = parsed["other_atoms"]
+        n = len(atoms)
+        text = (_atom_lines(atoms, 1, [_NAME_SLOT] * n, [_BF_SLOT] * n)
+                + _atom_lines(others, n + 1, [a.resname for a in others],
+                              [f"{0.0:6.2f}"] * len(others))
+                + "TER\nEND\n")
+        self._bytes = None
+        if text.isascii():
+            buf = np.frombuffer(text.encode("ascii"), np.uint8)
+            name_at, bf_at = np.flatnonzero(buf == 1), np.flatnonzero(buf == 2)
+            if name_at.size == 3 * n and bf_at.size == 6 * n:    # no field holds a marker
+                self._bytes = buf
+                self._name_at, self._bf_at = name_at, bf_at
+                self._name_from = (3 * line_res[:, None] + np.arange(3)).ravel()
+                self._bf_from = (6 * line_res[:, None] + np.arange(6)).ravel()
+
+    def render(self, new_resnames: List[str], bfactors) -> str:
+        """The file's text with residue ``i`` named ``new_resnames[i]`` and
+        given the B-factor ``bfactors[i]`` on each of its atom lines."""
+        n = self.n_res
+        if self._bytes is not None:
+            names = ("%3s" * n) % tuple(new_resnames[:n])
+            bfs = ("%6.2f" * n) % tuple(np.asarray(bfactors)[:n].tolist())
+            if names.isascii() and len(names) == 3 * n and len(bfs) == 6 * n:
+                out = self._bytes.copy()
+                out[self._name_at] = np.frombuffer(names.encode("ascii"),
+                                                   np.uint8)[self._name_from]
+                out[self._bf_at] = np.frombuffer(bfs.encode("ascii"),
+                                                 np.uint8)[self._bf_from]
+                return out.tobytes().decode("ascii")
+        return _per_atom_text(self.parsed, new_resnames, bfactors)
+
+    def write(self, path: str, new_resnames: List[str], bfactors):
+        with open(path, "w") as f:
+            f.write(self.render(new_resnames, bfactors))
+
+
+def write_backbone_pdb(path: str, parsed: Dict, new_resnames: List[str],
+                       bfactors: np.ndarray):
+    """Write the backbone with redesigned residue names and per-residue
+    confidence B-factors, then the ligand context atoms (reference
+    inference/run.py:475-491). For many samples of one structure, build
+    its ``BackboneTemplate`` once and ``write`` each."""
+    BackboneTemplate(parsed).write(path, new_resnames, bfactors)

@@ -9,9 +9,12 @@
 ``span(name, **counts)`` marks a stage (``cli.parse``, ``sample.decode``,
 ``train.backward``, ``kernel.<launch>``); ``counts`` are small integers
 known on the host from shapes (the encoder's rows, the decode loop's
-steps), never a value that would wait for the device. No span synchronises
-the device, so a span's time is host time: where the device sets the pace,
-the stage that waits for it (a copy to the host) holds the wait.
+steps), never a value that would wait for the device. A stage that counts
+its work as it goes (``cli.pdbs``: the files written, the templates
+built) opens the span with those counts at 0 and calls ``add`` on what
+the ``with`` gives. No span synchronises the device, so a span's time is
+host time: where the device sets the pace, the stage that waits for it (a
+copy to the host) holds the wait.
 
 A record (``Record``) holds its ``name``, ``t0`` and ``t1``
 (``time.perf_counter``), its ``request`` and its ``counts``. A span opened
@@ -73,6 +76,11 @@ class Span:
             self.t0 = time.perf_counter()
         return self
 
+    def add(self, **counts):
+        """Add ``counts`` to the span's counts."""
+        for k, n in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + n
+
     def __exit__(self, *exc):
         global _root
         if self._keep:
@@ -92,6 +100,9 @@ class _Off:
 
     def __enter__(self):
         return self
+
+    def add(self, **counts):
+        pass
 
     def __exit__(self, *exc):
         return False

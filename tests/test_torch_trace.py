@@ -150,7 +150,7 @@ def test_profiler_names_the_spans_with_the_tracer_off(inputs, tmp_path):
     names = collections.Counter(e["name"] for e in events
                                 if e.get("cat") == "user_annotation")
     for name in ("cli.call", *STAGES, "cli.structure", "model.encode",
-                 "sample.decode"):
+                 "sample.decode", "cli.pdbs"):
         assert names[name] >= 1, name
     assert names["sample.step"] == 40
     assert trace.records() == []
@@ -187,6 +187,20 @@ def test_nesting_threads_and_late_counts(tracer):
     assert r["inner"].request == r["other"].request == r["outer"].request
     assert r["next"].request != r["outer"].request
     assert r["outer"].counts == {"n": 3} and r["inner"].counts == {}
+
+
+def test_counts_added_while_open(tracer):
+    """``add`` sums into the counts a span was opened with, new keys too;
+    on a span of a tracer that is off it does nothing."""
+    with trace.span("work", files=0) as s:
+        for _ in range(3):
+            s.add(files=1)
+        s.add(templates=1)
+    trace.disable()
+    with trace.span("off", files=0) as s:
+        s.add(files=1)
+    work, = trace.records()
+    assert work.counts == {"files": 3, "templates": 1}
 
 
 def test_launch_counts_as_before(tracer, inputs):
