@@ -350,8 +350,7 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
     every layer dropout (the encoder's, then the context layers' in order,
     then the one on ``V_C``)."""
     from .features import features_from_coords
-    from .mpnn import (_plain, _remat, _trunk_dtype, enc_layer, generator_dropout,
-                       table_order, to_trunk)
+    from .mpnn import _plain, _trunk_dtype, encoder_stack, generator_dropout
 
     plain = _plain(cfg, batch["X"])
     X = batch["X"]
@@ -373,19 +372,9 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
         V, Y_nodes, Y_edges = context_features(q, cfg, X, Y, Y_t, cdt)
     _, E, E_idx, mask_attend = features_from_coords(trunk_features(params, cfg), cfg,
                                                     batch, X, plain)
-    h_E = linear(params["W_e"], E)
-    H = h_E.shape[-1]
-    h_V = torch.zeros((B, L, H), dtype=h_E.dtype, device=h_E.device)
-    layers, h_V, h_E, mask_t, mask_attend = to_trunk(
-        cdt, params["encoder"], h_V, h_E, mask, mask_attend)
-    K = E_idx.shape[2]
-    h_E2 = h_E.reshape(B * L * K, H)
-    eidx2 = E_idx.reshape(-1)
-    mask_att2 = mask_attend.reshape(-1)
     drop = generator_dropout(cfg.dropout, generator)
-    order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
-    for p in layers:
-        h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask_t, drop,
-                              plain=plain, order=order, remat=_remat(cfg))
+    h_V = torch.zeros((B, L, cfg.hidden_dim), dtype=E.dtype, device=E.device)
+    h_V, h_E = encoder_stack(params, cfg, h_V, E, E_idx, mask, mask_attend, plain,
+                             drop)
     h_V = context_encoder(params, cfg, h_V, V, Y_nodes, Y_edges, Y_m, mask, drop)
-    return h_V, h_E2.view(B, L, K, H), E_idx
+    return h_V, h_E, E_idx

@@ -72,9 +72,8 @@ from ..ops import message_kernels as mk
 from .config import ModelConfig, check_supported
 from .features import features_apply, init_features
 from .modules import (MESSAGE_SCALE, _message_tail, _split_w1,
-                      cast_tree, cat_neighbors_nodes, dec_layer_apply, dropout,
-                      gather_nodes, init_dec_layer, init_enc_layer,
-                      init_linear, layer_norm, linear,
+                      cast_tree, dropout, gather_nodes, init_dec_layer,
+                      init_enc_layer, init_linear, layer_norm, linear,
                       pff_apply, take_rows, widen)
 
 # ---------------------------------------------------------------------------
@@ -433,21 +432,31 @@ def encode(params, cfg: ModelConfig, batch, generator=None):
         mask = batch["mask"].to(batch["X"].dtype)
         V, E, E_idx, mask_attend = features_apply(params["features"], cfg, batch,
                                                   plain, generator)
-        h_V = linear(params["W_v"], V)
-        h_E = linear(params["W_e"], E)
-        layers, h_V, h_E, mask, mask_attend = to_trunk(
-            _trunk_dtype(cfg), params["encoder"], h_V, h_E, mask, mask_attend)
-        B, L, K = E_idx.shape
-        H = h_V.shape[-1]
-        h_E2 = h_E.reshape(B * L * K, H)
-        eidx2 = E_idx.reshape(-1)
-        mask_att2 = mask_attend.reshape(-1)
-        drop = generator_dropout(cfg.dropout, generator)
-        order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
-        for p in layers:
-            h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
-                                  plain=plain, order=order, remat=_remat(cfg))
-        return h_V, h_E2.view(B, L, K, H), E_idx
+        h_V, h_E = encoder_stack(params, cfg, linear(params["W_v"], V), E, E_idx,
+                                 mask, mask_attend, plain,
+                                 generator_dropout(cfg.dropout, generator))
+        return h_V, h_E, E_idx
+
+
+def encoder_stack(params, cfg: ModelConfig, h_V, E, E_idx, mask, mask_attend,
+                  plain, drop):
+    """``W_e`` on the edge features ``E``, then the encoder layers from the
+    node states ``h_V`` -> (``h_V [B,L,H]``, ``h_E [B,L,K,H]``) in the
+    trunk's type. ``drop`` is the caller's: LigandMPNN's context layers
+    draw from it next."""
+    h_E = linear(params["W_e"], E)
+    layers, h_V, h_E, mask, mask_attend = to_trunk(
+        _trunk_dtype(cfg), params["encoder"], h_V, h_E, mask, mask_attend)
+    B, L, K = E_idx.shape
+    H = h_V.shape[-1]
+    h_E2 = h_E.reshape(B * L * K, H)
+    eidx2 = E_idx.reshape(-1)
+    mask_att2 = mask_attend.reshape(-1)
+    order = table_order(eidx2, K, L, L, plain, layers, h_V, h_E2)
+    for p in layers:
+        h_V, h_E2 = enc_layer(p, h_V, h_E2, eidx2, mask_att2, mask, drop,
+                              plain=plain, order=order, remat=_remat(cfg))
+    return h_V, h_E2.view(B, L, K, H)
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -599,25 +608,31 @@ def sample(params, cfg: ModelConfig, batch, generator: Optional[torch.Generator]
     decode order unless ``batch["decoding_order"]`` is given. ``bias`` is
     ``[L,nl]`` or ``[num_samples,L,nl]``; ``gumbel`` (optional) is the noise
     ``[L, num_samples, nl]`` of each decode step."""
-    L = batch["S"].shape[-1]
-    B = num_samples
+    rows = _decode_batch(params, cfg, batch, generator, _first_row(num_samples),
+                         batch.get("decoding_order"))
+    return _sample_scan(params, cfg, *rows, temperature, bias, pair_bias_ctx,
+                        generator, gumbel)
+
+
+def _first_row(B):
+    """The batch's first structure as B decode rows (views, no copies)."""
+    return lambda x: x[0].expand(B, *x.shape[1:])
+
+
+def _decode_batch(params, cfg: ModelConfig, batch, generator, rep, decoding_order):
+    """The structures encoded once, each of the batch's rows made decode rows
+    by ``rep``; each row draws its decode order from ``generator`` unless
+    ``decoding_order`` is given."""
     h_V0, h_E, E_idx = encode(params, cfg, batch)
-    h_V0, h_E = widen(h_V0), widen(h_E)    # the fp32 sampler of a bf16 trunk
-    h_V0 = h_V0[0].expand(B, *h_V0.shape[1:])
-    h_E = h_E[0].expand(B, *h_E.shape[1:])
-    E_idx = E_idx[0].expand(B, *E_idx.shape[1:])
-    mask = batch["mask"][0].to(h_V0.dtype).expand(B, L)
-    chain_mask = mask * batch["chain_mask"][0].to(h_V0.dtype).expand(B, L)
-    S_true = batch["S"][0].long().expand(B, L)
-    if "decoding_order" in batch:
-        decoding_order = batch["decoding_order"].expand(B, L)
-    else:
+    # the fp32 sampler of a bf16 trunk
+    h_V0, h_E, E_idx = rep(widen(h_V0)), rep(widen(h_E)), rep(E_idx)
+    mask = rep(batch["mask"].to(h_V0.dtype))
+    chain_mask = mask * rep(batch["chain_mask"].to(h_V0.dtype))
+    S_true = rep(batch["S"].long())
+    if decoding_order is None:
         decoding_order = sample_decoding_order(chain_mask, generator)
-    if bias is not None:
-        bias = bias.expand(B, L, cfg.num_letters)
-    return _sample_scan(params, cfg, h_V0, h_E, E_idx, mask, chain_mask,
-                        S_true, decoding_order, temperature, bias,
-                        pair_bias_ctx, generator, gumbel)
+    return (h_V0, h_E, E_idx, mask, chain_mask, S_true,
+            decoding_order.expand(mask.shape))
 
 
 def _gumbel(generator, shape, dtype, device):
@@ -639,28 +654,19 @@ def sample_multi(params, cfg: ModelConfig, batch, generator: Optional[torch.Gene
     row ``[N*S,L]``; ``gumbel`` as in ``sample`` (``[L,N*S,nl]``). Returns
     the dict of ``sample`` with leading dimension N*S."""
     N, L = batch["S"].shape
-    nl = cfg.num_letters
 
     def rep(x):
         return x.repeat_interleave(samples_per_structure, dim=0)
 
-    h_V0, h_E, E_idx = encode(params, cfg, batch)
-    h_V0, h_E, E_idx = rep(widen(h_V0)), rep(widen(h_E)), rep(E_idx)
-    mask = rep(batch["mask"].to(h_V0.dtype))
-    chain_mask = mask * rep(batch["chain_mask"].to(h_V0.dtype))
-    S_true = rep(batch["S"].long())
+    rows = _decode_batch(params, cfg, batch, generator, rep,
+                         batch.get("decoding_order"))
     if bias is not None:
-        bias = rep(bias.expand(N, L, nl))
+        bias = rep(bias.expand(N, L, cfg.num_letters))
     if pair_bias_ctx is not None:
         u = pair_bias_ctx["u_diag"].expand(N, L - 1)
         pair_bias_ctx = {**pair_bias_ctx, "u_diag": rep(u)}
-    if "decoding_order" in batch:
-        decoding_order = batch["decoding_order"].expand(mask.shape)
-    else:
-        decoding_order = sample_decoding_order(chain_mask, generator)
-    return _sample_scan(params, cfg, h_V0, h_E, E_idx, mask, chain_mask,
-                        S_true, decoding_order, temperature, bias,
-                        pair_bias_ctx, generator, gumbel)
+    return _sample_scan(params, cfg, *rows, temperature, bias, pair_bias_ctx,
+                        generator, gumbel)
 
 
 # Decode steps a card runs eagerly before it captures the step: they set up
@@ -724,44 +730,101 @@ def _decode_loop(decode_step, L, device, generator):
         main.wait_stream(side)
 
 
-def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
-                 S_true, decoding_order, temperature, bias, pair_bias_ctx,
-                 generator, gumbel):
-    """Decode loop over a prepared batch (every operand ``[B, ...]``): one
-    position per step and row, in decode order. The per-layer static edge
-    terms (edge features, encoder-node context, b1) are computed once; per
-    step only the decoded-sequence embeddings and the mid-stack node states
-    of the neighbours are gathered. The step reads its index from the
-    device (``step_t``) and writes only buffers made before the loop, so on
-    a card ``_decode_loop`` replays it as one CUDA graph."""
-    B, L = mask.shape
+def _letter_terms(cfg: ModelConfig, bias, B, L, dtype, device):
+    """``bias`` as ``[B,L,nl]`` in ``dtype`` (zeros where None) and the
+    ``omit`` vector ``[nl]``: 1 at the letters no sampler draws."""
     nl = cfg.num_letters
-    H = cfg.hidden_dim
-    n_dec = cfg.num_decoder_layers
-    dtype, device = h_V0.dtype, h_V0.device
-    mask_bw, mask_fw = autoregressive_edge_masks(decoding_order, E_idx, mask)
-    if bias is None:
-        bias = torch.zeros((B, L, nl), dtype=dtype, device=device)
-    bias = bias.to(dtype)
+    bias = (torch.zeros((B, L, nl), dtype=dtype, device=device) if bias is None
+            else bias.expand(B, L, nl).to(dtype))
     omit = torch.zeros(nl, dtype=dtype, device=device)
     omit[list(cfg.arch.omit)] = 1.0
-    mask_1d = mask[:, :, None, None]
+    return bias, omit
 
-    w_splits = [_split_w1(p, H) for p in params["decoder"]]
+
+def _decoder_statics(params, w_splits, h_V0, h_E, E_idx, mask, mask_fw):
+    """Each decoder layer's static edge terms, stacked ``[B,L,n_dec,K,H]``:
+    ``W1`` on the edges and on the neighbours' encoder states, plus b1."""
+    mask_1d = mask[:, :, None, None]
     statics = []
     for l, ((_, wb, _, wv), b1) in enumerate(w_splits):
         venc = gather_nodes(h_V0 @ wv, E_idx)
         coeff = mask_1d if l == 0 else mask_fw
         statics.append(mask_1d * (h_E @ wb) + coeff * venc + b1)
-    statics = torch.stack(statics, dim=2)          # [B,L,n_dec,K,H]
+    return torch.stack(statics, dim=2)
 
-    h_S = torch.zeros((B, L, H), dtype=dtype, device=device)
-    h_V_mid = torch.zeros((B, L, (n_dec - 1) * H), dtype=dtype, device=device)
+
+def _decoder_step(params, w_splits, h_V_t, s_nb, static_t, mid_nb, mask_t):
+    """The decoder stack at one position of every row, from its encoder
+    state, its statics and its decoded neighbours' ``h_S`` and middle levels
+    (``s_nb [B,K,H]``, ``mid_nb [B,K,(n_dec-1)*H]``) -> (logits, its own)."""
+    H = h_V_t.shape[-1]
+    mid_out = []
+    for l, p in enumerate(params["decoder"]):
+        (wa, _, ws, wv), _ = w_splits[l]
+        x = (h_V_t @ wa)[:, None, :] + s_nb @ ws + static_t[:, l]
+        if l >= 1:
+            x = x + mid_nb[..., (l - 1) * H:l * H] @ wv
+        dh = _message_tail(p, x).sum(dim=1) / MESSAGE_SCALE
+        h_V_t = layer_norm(p["norm1"], h_V_t + dh)
+        h_V_t = layer_norm(p["norm2"], h_V_t + pff_apply(p["dense"], h_V_t))
+        h_V_t = mask_t[:, None] * h_V_t
+        if l + 1 <= len(w_splits) - 1:
+            mid_out.append(h_V_t)
+    return linear(params["W_out"], h_V_t), mid_out
+
+
+def _draw(logits, total_bias, temperature, omit, noise):
+    """One token a row from ``softmax((logits + total_bias) / temperature)``
+    without the ``omit`` letters -> (``probs_sample``, ``S_t``)."""
+    probs = torch.softmax((logits + total_bias) / temperature, dim=-1)
+    probs = probs * (1.0 - omit)
+    probs_sample = probs / probs.sum(dim=-1, keepdim=True)
+    return probs_sample, torch.argmax(torch.log(probs_sample + 1e-30) + noise, dim=-1)
+
+
+def _position_decoder(params, h_V0, h_E, E_idx, mask, decoding_order, b_idx):
+    """The one-device samplers' decode state -> (``decode``, ``h_S``):
+    ``decode(t)`` runs ``_decoder_step`` at positions ``t [B]`` of the rows
+    ``b_idx``, writes their middle levels and returns their logits; the
+    caller draws and writes the tokens' embeddings into ``h_S``."""
+    B, L, H = h_V0.shape
+    mask_bw, mask_fw = autoregressive_edge_masks(decoding_order, E_idx, mask)
+    w_splits = [_split_w1(p, H) for p in params["decoder"]]
+    statics = _decoder_statics(params, w_splits, h_V0, h_E, E_idx, mask, mask_fw)
+    h_S = h_V0.new_zeros((B, L, H))
+    h_V_mid = h_V0.new_zeros((B, L, (len(w_splits) - 1) * H))
+
+    def decode(t):
+        E_t = E_idx[b_idx, t]                                # [B,K]
+        bw = mask_bw[b_idx, t]                               # [B,K,1]
+        s_nb = bw * take_rows(h_S, E_t)                      # [B,K,H]
+        mid_nb = bw * take_rows(h_V_mid, E_t)
+        logits, mid_out = _decoder_step(params, w_splits, h_V0[b_idx, t], s_nb,
+                                        statics[b_idx, t], mid_nb, mask[b_idx, t])
+        if mid_out:
+            h_V_mid[b_idx, t] = torch.cat(mid_out, dim=-1)
+        return logits
+    return decode, h_S
+
+
+def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
+                 S_true, decoding_order, temperature, bias, pair_bias_ctx,
+                 generator, gumbel):
+    """Decode loop over a prepared batch (every operand ``[B, ...]``), one
+    position per step and row. The step reads its index from the device
+    (``step_t``) and writes only buffers made before the loop, so on a card
+    ``_decode_loop`` replays it as one CUDA graph."""
+    B, L = mask.shape
+    nl = cfg.num_letters
+    dtype, device = h_V0.dtype, h_V0.device
+    b_idx = torch.arange(B, device=device)
+    bias, omit = _letter_terms(cfg, bias, B, L, dtype, device)
+    decode, h_S = _position_decoder(params, h_V0, h_E, E_idx, mask, decoding_order,
+                                    b_idx)
     S_cur = torch.full((B, L), nl - 1, dtype=torch.int64, device=device)
     S_out = torch.zeros((B, L), dtype=torch.int64, device=device)
     probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
     log_probs_out = torch.zeros((B, L, nl), dtype=dtype, device=device)
-    b_idx = torch.arange(B, device=device)
     step_t = torch.zeros(1, dtype=torch.int64, device=device)
 
     def decode_step():
@@ -769,43 +832,18 @@ def _sample_scan(params, cfg: ModelConfig, h_V0, h_E, E_idx, mask, chain_mask,
         advance ``step_t``: device work only, on buffers made before the
         loop, so one call can be captured and replayed."""
         t = decoding_order.index_select(1, step_t)[:, 0]    # [B]
-        E_t = E_idx[b_idx, t]                                # [B,K]
-        bw = mask_bw[b_idx, t]                               # [B,K,1]
-        s_nb = bw * take_rows(h_S, E_t)                      # [B,K,H]
-        mid_nb = bw * take_rows(h_V_mid, E_t)
-        static_t = statics[b_idx, t]                         # [B,n_dec,K,H]
-        h_V_t = h_V0[b_idx, t]                               # [B,H]
-        mask_t = mask[b_idx, t]
-        mid_out = []
-        for l, p in enumerate(params["decoder"]):
-            (wa, _, ws, wv), _ = w_splits[l]
-            x = (h_V_t @ wa)[:, None, :] + s_nb @ ws + static_t[:, l]
-            if l >= 1:
-                x = x + mid_nb[..., (l - 1) * H:l * H] @ wv
-            dh = _message_tail(p, x).sum(dim=1) / MESSAGE_SCALE
-            h_V_t = layer_norm(p["norm1"], h_V_t + dh)
-            h_V_t = layer_norm(p["norm2"], h_V_t + pff_apply(p["dense"], h_V_t))
-            h_V_t = mask_t[:, None] * h_V_t
-            if l + 1 <= n_dec - 1:
-                mid_out.append(h_V_t)
-
-        logits = linear(params["W_out"], h_V_t)               # [B,nl]
+        logits = decode(t)
         log_probs = torch.log_softmax(logits, dim=-1)
         total_bias = bias[b_idx, t]
         if pair_bias_ctx is not None:
             total_bias = total_bias + _pair_bias_step(pair_bias_ctx, t, S_cur)
-        probs = torch.softmax((logits + total_bias) / temperature, dim=-1)
-        probs = probs * (1.0 - omit)
-        probs_sample = probs / probs.sum(dim=-1, keepdim=True)
         g = (gumbel.index_select(0, step_t)[0].to(dtype) if gumbel is not None
              else _gumbel(generator, (B, nl), dtype, device))
-        S_t = torch.argmax(torch.log(probs_sample + 1e-30) + g, dim=-1)
+        probs_sample, S_t = _draw(logits, total_bias, temperature, omit, g)
         cm_t = chain_mask[b_idx, t]
         S_t = torch.where(cm_t > 0, S_t, S_true[b_idx, t])
 
         h_S[b_idx, t] = embed_tokens(params, S_t).to(dtype)
-        if mid_out:
-            h_V_mid[b_idx, t] = torch.cat(mid_out, dim=-1)
         S_cur[b_idx, t] = S_t
         S_out[b_idx, t] = S_t
         probs_out[b_idx, t] = cm_t[:, None] * probs_sample
@@ -866,86 +904,48 @@ def sample_tied(params, cfg: ModelConfig, batch, generator: Optional[torch.Gener
     ``groups [G,M]`` (padded with -1), ``group_weights [G,M]`` and
     ``flat_order [L]`` come from ``build_decode_groups``; every decode row
     shares the order. ``gumbel`` (optional) is the noise ``[G,num_samples,
-    nl]`` of each group's draw. Returns the dict of ``sample``. The decoder
-    runs position by position on the ``[B,1,K,3H]`` context
-    (``dec_layer_apply``), as the JAX package's scan does."""
-    L = batch["S"].shape[-1]
+    nl]`` of each group's draw. Returns the dict of ``sample``. Each member
+    position runs the step of ``sample`` (``_position_decoder``) in turn, so
+    an untied position is a group of one."""
     B = num_samples
     nl = cfg.num_letters
-    n_dec = cfg.num_decoder_layers
-    groups = np.asarray(groups)
-    h_V0, h_E, E_idx = encode(params, cfg, batch)
-    h_V0, h_E = widen(h_V0), widen(h_E)
+    order = torch.as_tensor(np.asarray(flat_order), dtype=torch.int64,
+                            device=batch["X"].device)
+    h_V0, h_E, E_idx, mask, chain_mask, S_true, decoding_order = _decode_batch(
+        params, cfg, batch, generator, _first_row(B), order)
+    L = mask.shape[1]
     dtype, device = h_V0.dtype, h_V0.device
-    h_V0 = h_V0[0].expand(B, *h_V0.shape[1:])
-    h_E = h_E[0].expand(B, *h_E.shape[1:])
-    E_idx = E_idx[0].expand(B, *E_idx.shape[1:])
-    mask = batch["mask"][0].to(dtype).expand(B, L)
-    chain_mask = mask * batch["chain_mask"][0].to(dtype).expand(B, L)
-    S_true = batch["S"][0].long().expand(B, L)
-    decoding_order = torch.as_tensor(np.asarray(flat_order), dtype=torch.int64,
-                                     device=device).expand(B, L)
-    mask_bw, mask_fw = autoregressive_edge_masks(decoding_order, E_idx, mask)
-    h_EX_encoder = cat_neighbors_nodes(torch.zeros_like(h_V0), h_E, E_idx)
-    h_EXV_encoder_fw = mask_fw * cat_neighbors_nodes(h_V0, h_EX_encoder, E_idx)
-    bias = (torch.zeros((B, L, nl), dtype=dtype, device=device) if bias is None
-            else bias.expand(B, L, nl).to(dtype))
-    omit = torch.zeros(nl, dtype=dtype, device=device)
-    omit[list(cfg.arch.omit)] = 1.0
-    weights = np.asarray(group_weights, np.float64)
-
-    h_V_stack = [h_V0] + [torch.zeros((B, L, h_V0.shape[-1]), dtype=dtype,
-                                      device=device) for _ in range(n_dec)]
-    h_S = torch.zeros((B, L, h_V0.shape[-1]), dtype=dtype, device=device)
+    bias, omit = _letter_terms(cfg, bias, B, L, dtype, device)
+    decode, h_S = _position_decoder(params, h_V0, h_E, E_idx, mask, decoding_order,
+                                    torch.arange(B, device=device))
     S = torch.full((B, L), nl - 1, dtype=torch.int64, device=device)
     all_probs = torch.zeros((B, L, nl), dtype=dtype, device=device)
     all_log_probs = torch.zeros((B, L, nl), dtype=dtype, device=device)
-
-    def decode_position(t):
-        """The decoder stack at position t of every row -> logits [B,nl]."""
-        E_idx_t = E_idx[:, t][:, None]                              # [B,1,K]
-        h_ES_t = cat_neighbors_nodes(h_S, h_E[:, t][:, None], E_idx_t)
-        h_EXV_t = h_EXV_encoder_fw[:, t][:, None]
-        mask_bw_t = mask_bw[:, t][:, None]
-        for l, p in enumerate(params["decoder"]):
-            h_ESV_t = (mask_bw_t * cat_neighbors_nodes(h_V_stack[l], h_ES_t, E_idx_t)
-                       + h_EXV_t)
-            out = dec_layer_apply(p, h_V_stack[l][:, t][:, None], h_ESV_t,
-                                  mask_V=mask[:, t][:, None])
-            h_V_stack[l + 1][:, t] = out[:, 0]
-        return linear(params["W_out"], h_V_stack[n_dec][:, t])
-
     t_all = torch.arange(L, device=device)
 
-    def decode_group(g):
-        """Decode group ``g`` of every row and draw its token."""
-        members = [(m, int(t)) for m, t in enumerate(groups[g]) if t >= 0]
-        total_logits = torch.zeros((B, nl), dtype=dtype, device=device)
-        for m, t in members:
-            logits = decode_position(t)
-            all_log_probs[:, t] = chain_mask[:, t, None] * torch.log_softmax(logits, dim=-1)
-            total_logits = total_logits + float(weights[g, m]) * logits
-        t_last = members[-1][1]
-        total_bias = bias[:, t_last]
-        if pair_bias_ctx is not None:
-            total_bias = total_bias + _pair_bias_step(
-                pair_bias_ctx, t_all[t_last].expand(B), S)
-        probs = torch.softmax((total_logits + total_bias) / temperature, dim=-1)
-        probs = probs * (1.0 - omit)
-        probs_sample = probs / probs.sum(dim=-1, keepdim=True)
-        noise = (gumbel[g].to(dtype) if gumbel is not None
-                 else _gumbel(generator, (B, nl), dtype, device))
-        S_t = torch.argmax(torch.log(probs_sample + 1e-30) + noise, dim=-1)
-        for _, t in members:
-            cm_t = chain_mask[:, t]
-            all_probs[:, t] = cm_t[:, None] * probs_sample
-            S_t = torch.where(cm_t > 0, S_t, S_true[:, t])
-            h_S[:, t] = embed_tokens(params, S_t).to(dtype)
-            S[:, t] = S_t
-
-    with trace.span("sample.decode", steps=groups.shape[0], replayed=0):
-        for g in range(groups.shape[0]):
+    with trace.span("sample.decode", steps=len(groups), replayed=0):
+        for g, group in enumerate(groups):
             with trace.span("sample.step"):
-                decode_group(g)
+                members = [(m, int(t)) for m, t in enumerate(group) if t >= 0]
+                total_logits = 0.0
+                for m, t in members:
+                    logits = decode(t_all[t].expand(B))
+                    all_log_probs[:, t] = (chain_mask[:, t, None]
+                                           * torch.log_softmax(logits, dim=-1))
+                    total_logits = total_logits + float(group_weights[g][m]) * logits
+                t_last = t_all[members[-1][1]].expand(B)
+                total_bias = bias[:, members[-1][1]]
+                if pair_bias_ctx is not None:
+                    total_bias = total_bias + _pair_bias_step(pair_bias_ctx, t_last, S)
+                noise = (gumbel[g].to(dtype) if gumbel is not None
+                         else _gumbel(generator, (B, nl), dtype, device))
+                probs_sample, S_t = _draw(total_logits, total_bias, temperature, omit,
+                                          noise)
+                for _, t in members:    # a fixed position passes its own token on
+                    cm_t = chain_mask[:, t]
+                    all_probs[:, t] = cm_t[:, None] * probs_sample
+                    S_t = torch.where(cm_t > 0, S_t, S_true[:, t])
+                    h_S[:, t] = embed_tokens(params, S_t).to(dtype)
+                    S[:, t] = S_t
     return {"S": S, "sampling_probs": all_probs, "log_probs": all_log_probs,
             "decoding_order": decoding_order}

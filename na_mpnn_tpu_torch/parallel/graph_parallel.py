@@ -57,12 +57,11 @@ import torch.distributed as dist
 
 from ..models.config import ModelConfig, check_supported
 from ..models.features import features_from_coords
-from ..models.modules import (MESSAGE_SCALE, _message_tail, _split_w1,
-                              layer_norm, linear, pff_apply, take_rows, widen)
-from ..models.mpnn import (_gumbel, _logits, _pair_bias_step,
-                           _plain, _remat, _trunk_dtype, dec_layer,
-                           embed_tokens, enc_layer, sample_decoding_order,
-                           table_order, to_trunk)
+from ..models.modules import _split_w1, linear, take_rows, widen
+from ..models.mpnn import (_decoder_step, _draw, _gumbel, _letter_terms, _logits,
+                           _pair_bias_step, _plain, _remat, _trunk_dtype,
+                           dec_layer, embed_tokens, enc_layer,
+                           sample_decoding_order, table_order, to_trunk)
 from ..ops.knn import knn_graph_qk_plain
 from .mesh import Mesh
 
@@ -376,8 +375,8 @@ def sample_graph_parallel(params, cfg: ModelConfig, batch, generator, mesh: Mesh
     ``:517-525``): its owner's context rows and encoder state of each
     sample's position, and its K neighbours' ``h_S`` and middle levels, each
     from its owner, the other ranks adding zeros. Every rank then runs the
-    same per-step math on the same values (the decoder on one position, as
-    ``models/mpnn.py::_sample_scan`` does) and the same draws: the decode
+    same per-step math on the same values (the step of every sampler,
+    ``models/mpnn.py::_decoder_step`` and ``_draw``) and the same draws: the decode
     order ``sample_decoding_order`` and each step's Gumbel noise ``_gumbel``
     from ``generator``, in the order ``sample`` draws them, or ``gumbel
     [L, num_samples, nl]`` and ``batch["decoding_order"]`` as given. With
@@ -417,20 +416,17 @@ def sample_graph_parallel(params, cfg: ModelConfig, batch, generator, mesh: Mesh
     else:
         decoding_order = sample_decoding_order(chain_mask, generator)
     rank = torch.argsort(decoding_order, dim=-1)
-    bias = (torch.zeros((B, L, nl), dtype=dtype, device=device) if bias is None
-            else bias.expand(B, L, nl).to(dtype))
-    omit = torch.zeros(nl, dtype=dtype, device=device)
-    omit[list(cfg.arch.omit)] = 1.0
+    bias, omit = _letter_terms(cfg, bias, B, L, dtype, device)
     w_splits = [_split_w1(p, H) for p in params["decoder"]]
 
     # this rank's rows of the decode state
     h_S = torch.zeros((B, Ls, H), dtype=dtype, device=device)
-    mid = torch.zeros((n_dec - 1, B, Ls, H), dtype=dtype, device=device)
+    mid = torch.zeros((B, Ls, (n_dec - 1) * H), dtype=dtype, device=device)
     probs_out = torch.zeros((B, Ls, nl), dtype=dtype, device=device)
     log_probs_out = torch.zeros((B, Ls, nl), dtype=dtype, device=device)
     S = torch.full((B, L), nl - 1, dtype=torch.int64, device=device)
     b_idx = torch.arange(B, device=device)
-    sizes = (B * K * 2 * H, B * H, B * K * H, (n_dec - 1) * B * K * H)
+    sizes = (B * K * 2 * H, B * H, B * K * H, B * K * (n_dec - 1) * H)
     zero = torch.zeros((), dtype=dtype, device=device)
 
     for step in range(L):
@@ -443,46 +439,30 @@ def sample_graph_parallel(params, cfg: ModelConfig, batch, generator, mesh: Mesh
         parts = (torch.where(own_t[..., None], context[lt], zero),
                  torch.where(own_t, h_V0[lt], zero),
                  torch.where(own_j, h_S[b_idx[:, None], lj], zero),
-                 torch.where(own_j, mid[:, b_idx[:, None], lj], zero))
+                 torch.where(own_j, mid[b_idx[:, None], lj], zero))
         buf = torch.cat([x.reshape(-1) for x in parts])
         dist.all_reduce(buf, group=mesh.graph_group)
         ctx_t, h_V_t, s_j, mid_j = torch.split(buf, sizes)
         ctx_t = ctx_t.view(B, K, 2 * H)
-        h_V_t = h_V_t.view(B, H)
-        mid_j = mid_j.view(n_dec - 1, B, K, H)
 
         mask_t = mask[b_idx, t]
         attend = (rank[b_idx[:, None], j] < rank[b_idx, t][:, None]).to(dtype)
         bw = (mask_t[:, None] * attend)[..., None]            # [B, K, 1]
         fw = (mask_t[:, None] * (1.0 - attend))[..., None]
         m1d = mask_t[:, None, None]
-        s_nb = bw * s_j.view(B, K, H)
-        mid_out = []
-        for l, p in enumerate(params["decoder"]):
-            (wa, wb, ws, wv), b1 = w_splits[l]
-            static = (m1d * (ctx_t[..., :H] @ wb)
-                      + (m1d if l == 0 else fw) * (ctx_t[..., H:] @ wv) + b1)
-            x = (h_V_t @ wa)[:, None, :] + s_nb @ ws + static
-            if l >= 1:
-                x = x + (bw * mid_j[l - 1]) @ wv
-            dh = _message_tail(p, x).sum(dim=1) / MESSAGE_SCALE
-            h_V_t = layer_norm(p["norm1"], h_V_t + dh)
-            h_V_t = layer_norm(p["norm2"], h_V_t + pff_apply(p["dense"], h_V_t))
-            h_V_t = mask_t[:, None] * h_V_t
-            if l + 1 <= n_dec - 1:
-                mid_out.append(h_V_t)
-
-        logits = linear(params["W_out"], h_V_t)
+        static_t = torch.stack([
+            m1d * (ctx_t[..., :H] @ wb) + (m1d if l == 0 else fw) * (ctx_t[..., H:] @ wv)
+            + b1 for l, ((_, wb, _, wv), b1) in enumerate(w_splits)], dim=1)
+        logits, mid_out = _decoder_step(params, w_splits, h_V_t.view(B, H),
+                                        bw * s_j.view(B, K, H), static_t,
+                                        bw * mid_j.view(B, K, (n_dec - 1) * H), mask_t)
         log_probs = torch.log_softmax(logits, dim=-1)
         total_bias = bias[b_idx, t]
         if pair_bias_ctx is not None:
             total_bias = total_bias + _pair_bias_step(pair_bias_ctx, t, S)
-        probs = torch.softmax((logits + total_bias) / temperature, dim=-1)
-        probs = probs * (1.0 - omit)
-        probs_sample = probs / probs.sum(dim=-1, keepdim=True)
         g = (gumbel[step].to(dtype) if gumbel is not None
              else _gumbel(generator, (B, nl), dtype, device))
-        S_t = torch.argmax(torch.log(probs_sample + 1e-30) + g, dim=-1)
+        probs_sample, S_t = _draw(logits, total_bias, temperature, omit, g)
         cm_t = chain_mask[b_idx, t]
         S_t = torch.where(cm_t > 0, S_t, S_true[b_idx, t])
         S[b_idx, t] = S_t
@@ -491,8 +471,8 @@ def sample_graph_parallel(params, cfg: ModelConfig, batch, generator, mesh: Mesh
             acc[b_idx, lt] = torch.where(own_t, val, acc[b_idx, lt])
 
         owner_set(h_S, embed_tokens(params, S_t).to(dtype))
-        for level, val in enumerate(mid_out):
-            owner_set(mid[level], val)
+        if mid_out:
+            owner_set(mid, torch.cat(mid_out, dim=-1))
         owner_set(probs_out, cm_t[:, None] * probs_sample)
         owner_set(log_probs_out, cm_t[:, None] * log_probs)
 

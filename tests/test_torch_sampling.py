@@ -178,6 +178,32 @@ def test_sample_multi_of_one_structure_equals_sample(case):
         assert torch.equal(out_a[k], out_b[k]), k
 
 
+@pytest.mark.parametrize("with_pair_bias", [False, True])
+def test_untied_groups_decode_as_sample(case, with_pair_bias):
+    """``sample_tied`` with every group of one (weights 1) is ``sample`` in
+    the same decode order with the same Gumbel noise, bit for bit: both
+    samplers run one decoder step and one draw."""
+    _, _, pt = case
+    B, T = 3, 0.5
+    b = _tb(_structure(seed=4))
+    rng = np.random.RandomState(11)
+    bias = torch.from_numpy(rng.randn(L, NL) * 0.3)
+    ctx = (make_pair_bias_ctx(b["chain_labels"][0].numpy(), b["R_idx"][0].numpy(),
+                              _pair_matrix(rng), device="cpu")
+           if with_pair_bias else None)
+    flat = rng.permutation(L)
+    gumbel = torch.from_numpy(rng.gumbel(size=(L, B, NL)))
+    cfg = ModelConfig(**SMALL)
+    tied = sample_tied(pt, cfg, b, None, flat[:, None], np.ones((L, 1)), flat,
+                       num_samples=B, temperature=T, bias=bias, pair_bias_ctx=ctx,
+                       gumbel=gumbel)
+    one = sample(pt, cfg, {**b, "decoding_order": torch.from_numpy(flat)}, None,
+                 num_samples=B, temperature=T, bias=bias, pair_bias_ctx=ctx,
+                 gumbel=gumbel)
+    for k in ("S", "sampling_probs", "log_probs"):
+        assert torch.equal(tied[k], one[k]), k
+
+
 def test_sample_tied_draws_from_generator(case):
     """Without injected noise the tied sampler draws from its generator:
     the same seed gives the same design, and tied positions stay equal."""
